@@ -2,7 +2,8 @@
 ``hommx_tpu/models/common.py``): coefficient probing, BC merging, the macro
 system's static data and its assembly.
 
-Only the native-float64 / pipeline-dtype assembly is ported; the reference's
+Scalar (bs = 1) and vector (bs = d, elasticity) macro systems.  Only the
+native-float64 / pipeline-dtype assembly is ported; the reference's
 double-float32 route exists for the TPU's emulated float64 and is not
 ported (ROADMAP "Do not port").  Multigrid and AMG hierarchies wait for
 ROADMAP A5/A10.
@@ -25,6 +26,7 @@ from hommx_tpu_torch.ops.sparse import build_ell_pattern
 
 __all__ = [
     "probe_coeff_kind",
+    "strain_coefficients",
     "merge_bcs",
     "MacroSystem",
     "macro_precs",
@@ -33,17 +35,21 @@ __all__ = [
 
 
 def assemble_macro_system(sys, A_star, b, mask, bvals, *, macro_f64: bool):
-    """A*(c_T) batch -> BC-applied macro ELL system (vals_bc, b_bc), scalar
-    problems: per-cell stiffness |T| ∇λᵀ A*ᵀ ∇λ, ELL scatter assembly and
-    symmetric Dirichlet lifting.  ``macro_f64`` runs the chain in float64
-    (the direct-solve path)."""
+    """A*(c_T) batch -> BC-applied macro ELL system (vals_bc, b_bc): per-cell
+    stiffness S_loc = |T|·P A*ᵀ Pᵀ (P the P1 gradients, or the strain
+    coefficients of the vector basis), ELL scatter assembly and symmetric
+    Dirichlet lifting.  ``macro_f64`` runs the chain in float64 (the
+    direct-solve path and every vector system)."""
+    vector = sys.V.bs > 1
     if macro_f64:
-        vols, P = sys.vols64, sys.grads64
+        vols = sys.vols64
+        P = sys.strain_P64 if vector else sys.grads64
         A_T = A_star.transpose(-1, -2).to(torch.float64)
         bvals = bvals.to(torch.float64)
         b = b.to(torch.float64)
     else:
-        vols, P = sys.vols, sys.grads
+        vols = sys.vols
+        P = sys.strain_P if vector else sys.grads
         A_T = A_star.transpose(-1, -2)  # reference index order
     S_loc = torch.einsum("c,cad,cde,cbe->cab", vols, P, A_T, P)
     vals = assemble_ell(sys.pattern, S_loc, sys.slots)
@@ -76,6 +82,18 @@ def probe_coeff_kind(coeff: Callable, dim: int, nargs: int = 2) -> str:
     raise ValueError(f"unsupported coefficient shape {shape} for dim={dim}")
 
 
+def strain_coefficients(grads: torch.Tensor, d: int) -> torch.Tensor:
+    """P[c, m, (kl)] = e(v_m)_kl for the vector basis m = vertex·d + comp:
+    e(v_(a,i))_kl = ½(δ_ik ∂λ_a/∂x_l + δ_il ∂λ_a/∂x_k).  grads: (nc, d+1, d)
+    P1 gradients; returns (nc, (d+1)·d, d²)."""
+    nc, nb0, _ = grads.shape
+    eye = torch.eye(d, dtype=grads.dtype, device=grads.device)
+    E = 0.5 * (
+        torch.einsum("ik,cal->caikl", eye, grads) + torch.einsum("il,cak->caikl", eye, grads)
+    )
+    return E.reshape(nc, nb0 * d, d * d)
+
+
 def merge_bcs(bcs: Sequence[DirichletBC], num_dofs: int, dtype, device):
     """Combine DirichletBCs into (mask, values) tensors over all dofs; later
     BCs win on overlapping dofs."""
@@ -93,11 +111,10 @@ def merge_bcs(bcs: Sequence[DirichletBC], num_dofs: int, dtype, device):
 class MacroSystem:
     """Static assembly data for the macro FEM system on a function space:
     the ELL pattern and its DIA view on the host, index tensors and the
-    geometry (float64 and pipeline-dtype copies) on ``device``."""
+    geometry (float64 and pipeline-dtype copies) on ``device``; for vector
+    spaces also the strain coefficients ``strain_P64`` / ``strain_P``."""
 
     def __init__(self, V: FunctionSpace, dtype, device):
-        if V.bs != 1:
-            raise NotImplementedError("vector macro systems: ROADMAP A7")
         device = as_device(device)
         self.V = V
         self.dtype = dtype
@@ -121,3 +138,6 @@ class MacroSystem:
         self.grads = self.grads64.to(dtype)
         self.vols = self.vols64.to(dtype)
         self.centers = self.verts64[self.cells].mean(dim=1).to(dtype)  # c_T
+        if V.bs > 1:
+            self.strain_P64 = strain_coefficients(self.grads64, V.bs)
+            self.strain_P = self.strain_P64.to(dtype)  # (nc, nb, d²)

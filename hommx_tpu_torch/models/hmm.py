@@ -1,20 +1,24 @@
 """HMM solver classes (torch port of ``hommx_tpu/models/hmm.py``:
-``BaseHMM`` and ``PoissonHMM``).
+``BaseHMM``, ``PoissonHMM``, ``LinearElasticityHMM`` and
+``LinearElasticityStratifiedHMM``).
 
 ``solve()`` runs
 
     micro stage:  A*(c_T) for every macro cell (micro/engine.py)
-    macro stage:  S_loc[c] = |T_c| · ∇λ A*(c_T)ᵀ ∇λᵀ, ELL scatter assembly,
-                  symmetric Dirichlet lifting, CG / dense-Cholesky solve.
+    macro stage:  S_loc[c] = |T_c| · P A*(c_T)ᵀ Pᵀ (P the P1 gradients, or
+                  the strain coefficients for elasticity), ELL scatter
+                  assembly, symmetric Dirichlet lifting, CG / dense-Cholesky
+                  solve.
 
 ``eps`` is kept for API parity; it cancels exactly in the reference's
 scaling chain, so it does not enter the computation.
 
 Divergences from the reference in this slice (ROADMAP C): cell dedup is
 off by default and ``dedup_cells=True`` raises (ROADMAP A7); the macro CG
-accepts only the Jacobi preconditioner (multigrid: ROADMAP A5).  The
-stratified and elasticity classes, ``build_pipeline`` and sharding wait for
-later slices.
+accepts only the Jacobi preconditioner (multigrid: ROADMAP A5), and
+elasticity above ``direct_threshold`` (the reference's float64 multigrid
+CG) raises.  ``PoissonStratifiedHMM``, ``build_pipeline`` and sharding wait
+for later slices.
 """
 
 from __future__ import annotations
@@ -46,32 +50,39 @@ from hommx_tpu_torch.ops.function_space import (
 from hommx_tpu_torch.ops.solvers import solve_ell
 from hommx_tpu_torch.utils.options import SolverOptions
 
-__all__ = ["BaseHMM", "PoissonHMM"]
+__all__ = ["BaseHMM", "PoissonHMM", "LinearElasticityHMM", "LinearElasticityStratifiedHMM"]
 
 logger = logging.getLogger("hommx_tpu_torch")
 
 
-def _as_source(f) -> Callable:
-    """Normalize the rhs: a torch callable or a constant scalar."""
+def _as_source(f, bs: int) -> Callable:
+    """Normalize the rhs: a torch callable, a constant scalar, or a
+    constant (bs,) vector."""
     if callable(f):
         return f
-    val = float(f)
-    return lambda x: val
+    if bs == 1:
+        val = float(f)
+        return lambda x: val
+    arr = torch.as_tensor(np.broadcast_to(np.asarray(f, dtype=np.float64), (bs,)).copy())
+    return lambda x: arr
 
 
 class BaseHMM:
-    """Common HMM machinery (scalar problems).
+    """Common HMM machinery.
 
     Args:
         msh: macro SimplexMesh.
         A: coefficient, torch callable ``A(x, y)`` with x the macro cell
-            center and y the micro coordinate; 1-periodic in y.
-        f: right-hand side — torch callable ``f(x)`` or a constant.
+            center and y the micro coordinate; 1-periodic in y.  Returns a
+            scalar or (d, d) (Poisson) or (d, d, d, d) (elasticity).
+        f: right-hand side — torch callable ``f(x)`` or a constant (a (bs,)
+            vector for elasticity).
         msh_micro: the unit-cell micro mesh (structured box).
         eps: microscopic scale (API parity; cancels).
         options_global_solve: macro SolverOptions.
         dtype: pipeline dtype (default: float64 on CPU, float32 on CUDA).
-        device: torch device of every tensor of the solve.
+        device: torch device of every tensor of the solve (the card by
+            default; pass "cpu" for the CPU).
         chunk: cells per micro chunk (0 = auto).
         engine_kwargs: extra MicroEngine options (``pcg_tol``, ...).
         dedup_cells: must be False in this port (ROADMAP A7).
@@ -92,7 +103,7 @@ class BaseHMM:
         quad_degree_micro: int = 2,
         quad_degree_rhs: int = 2,
         dtype: Optional[torch.dtype] = None,
-        device="cpu",
+        device="cuda",
         chunk: int = 0,
         engine_kwargs: Optional[dict] = None,
         dedup_cells: bool = False,
@@ -119,20 +130,20 @@ class BaseHMM:
         self._chunk = chunk
         self._quad_degree_rhs = quad_degree_rhs
 
-        self._V_macro = FunctionSpace(msh, self._bs)
+        bs = self._block_size()
+        self._V_macro = FunctionSpace(msh, bs)
         self._sys = MacroSystem(self._V_macro, self._dtype, self._device)
         macro_precs(self._sys, self._options_global)  # raises for multigrid
-        kind = probe_coeff_kind(A, self._tdim, nargs=2)
         self._engine = MicroEngine(
             msh_micro,
-            bs=self._bs,
-            coeff_kind=kind,
+            bs=bs,
+            coeff_kind=self._coeff_kind(),
             quad_degree=quad_degree_micro,
             dtype=self._dtype,
             device=self._device,
             **(engine_kwargs or {}),
         )
-        self._f_fn = _as_source(f)
+        self._f_fn = _as_source(f, bs)
         self._bcs: list = []
         self._A_star: Optional[torch.Tensor] = None
         self._b_load = None
@@ -145,12 +156,30 @@ class BaseHMM:
                 else "cg"
             )
         self._macro_method = m
+        if m == "cg" and bs > 1:
+            raise NotImplementedError(
+                "elasticity above direct_threshold takes the float64 multigrid "
+                "CG, not ported yet (ROADMAP A5)"
+            )
         # the dense direct path factorizes in f64, so its assembly runs in
-        # f64 too (free: the direct path is size-capped)
-        self._macro_f64 = m == "direct"
+        # f64 too (free: the direct path is size-capped); vector systems
+        # reach κ ~ 1e7, where storing the matrix in f32 costs percent-level
+        # error, so they assemble in f64 on every path
+        self._macro_f64 = m == "direct" or bs > 1
         #: per-solve telemetry: phase timings, solver iterations/residual,
         #: NaN, divergence and zero-corrector-fallback guard results
         self.diagnostics: dict = {}
+
+    # -- subclass hooks ------------------------------------------------------
+    def _block_size(self) -> int:
+        return self._bs
+
+    def _coeff_kind(self) -> str:
+        return probe_coeff_kind(self._coeff, self._tdim, nargs=2)
+
+    def _G_fn(self) -> Optional[Callable]:
+        """Gradient map Dθᵀ(x) for stratified variants; None otherwise."""
+        return None
 
     # -- reference API -------------------------------------------------------
     @property
@@ -165,7 +194,7 @@ class BaseHMM:
         cached across solves."""
         if self._A_star is None:
             self._A_star = self._engine.tensors_for_centers(
-                self._coeff, self._sys.centers, chunk=self._chunk
+                self._coeff, self._sys.centers, G_fn=self._G_fn(), chunk=self._chunk
             )
         return self._A_star
 
@@ -173,9 +202,12 @@ class BaseHMM:
         """Divergence and zero-corrector-fallback masks (nc,) and the max
         coefficient contrast, on the device.  Energy minimization bounds
         diag(A*) by the zero-corrector tensor's diagonal; a violation means
-        the iterative cell solve diverged."""
+        the cell solve diverged.  The reference runs this guard on the PCG
+        route only; the port runs the divergence test on the direct route
+        too, and the fallback detector (the PCG clamp's signature) on the
+        PCG route only."""
         A0, contrast = self._engine.nocorrector_tensors(
-            self._coeff, self._sys.centers, chunk=self._chunk
+            self._coeff, self._sys.centers, G_fn=self._G_fn(), chunk=self._chunk
         )
         d_star = torch.diagonal(A_star, dim1=1, dim2=2)
         d_zero = torch.diagonal(A0, dim1=1, dim2=2)
@@ -184,6 +216,8 @@ class BaseHMM:
         ratio = d_star / torch.clamp(d_zero, min=tiny)
         med = torch.quantile(ratio, 0.5, dim=0)
         fallback = ((ratio > 0.999) & (med[None, :] < 0.95)).any(dim=1)
+        if self._engine.solver != "pcg":
+            fallback = torch.zeros_like(fallback)
         return diverged, fallback, contrast.max()
 
     def solve(self) -> Function:
@@ -220,7 +254,7 @@ class BaseHMM:
             logger.error(
                 "Cell-problem solve diverged on %d cells (homogenized tensor "
                 "exceeds its zero-corrector energy bound; first: %s). Likely "
-                "cause: float32 PCG on a high-contrast coefficient — pass "
+                "cause: a float32 cell solve on a high-contrast coefficient — pass "
                 "dtype=torch.float64.",
                 diverged_cells.size, diverged_cells[:5].tolist(),
             )
@@ -243,7 +277,8 @@ class BaseHMM:
         if self._b_load is None:
             verts = sys.verts64 if self._macro_f64 else sys.verts
             self._b_load = assemble_load_vector(
-                verts, sys.cells, self._f_fn, bs=1, degree=self._quad_degree_rhs
+                verts, sys.cells, self._f_fn, bs=self._V_macro.bs,
+                degree=self._quad_degree_rhs,
             )
         t0 = time.perf_counter()
         vals_bc, b_bc = assemble_macro_system(
@@ -289,6 +324,34 @@ class PoissonHMM(BaseHMM):
         self._bcs = [_box_boundary_zero_bc(self._V_macro)]
 
 
+class LinearElasticityHMM(BaseHMM):
+    r"""HMM for multiscale linear elasticity.  A(x, y) is a fourth-order
+    Hooke tensor (d, d, d, d); the cell problems use the strain
+    e(u) = ½(∇u + ∇uᵀ) and solve the d(d+1)/2 Voigt generators on the
+    chunk Cholesky route (kernel K3 on the card).  No default boundary
+    conditions — set them via :meth:`set_boundary_conditions`."""
+
+    def __init__(self, msh, A, f, msh_micro, eps, *args, **kwargs):
+        self._bs = msh.dim
+        super().__init__(msh, A, f, msh_micro, eps, *args, **kwargs)
+
+
+class LinearElasticityStratifiedHMM(LinearElasticityHMM):
+    r"""Stratified elasticity HMM: corrector strains use the deformed strain
+    e_D(u) = ½(Dθᵀ ∇̄u + (Dθᵀ ∇̄u)ᵀ) with ∇̄ = nabla_grad = gradᵀ, from the
+    user's ``Dtheta_transpose(x) -> (d, d)``; the macro basis part keeps
+    the plain strain e."""
+
+    def __init__(
+        self, msh, A, f, msh_micro, eps, Dtheta_transpose: Callable, *args, **kwargs
+    ):
+        self._Dtheta_t = Dtheta_transpose
+        super().__init__(msh, A, f, msh_micro, eps, *args, **kwargs)
+
+    def _G_fn(self):
+        return self._Dtheta_t
+
+
 def _box_boundary_zero_bc(V: FunctionSpace) -> DirichletBC:
     """Zero Dirichlet BC on the bounding-box boundary."""
     mesh = V.mesh
@@ -300,4 +363,6 @@ def _box_boundary_zero_bc(V: FunctionSpace) -> DirichletBC:
             m |= np.isclose(x[k], lo[k]) | np.isclose(x[k], hi[k])
         return m
 
-    return dirichletbc(0.0, locate_dofs_geometrical(V, marker), V)
+    return dirichletbc(
+        0.0 if V.bs == 1 else np.zeros(V.bs), locate_dofs_geometrical(V, marker), V
+    )

@@ -1,5 +1,5 @@
-"""Global FEM assembly, Dirichlet lifting, load vectors and the L2 norm
-(torch port of ``hommx_tpu/ops/assembly.py``)."""
+"""Global FEM assembly, Dirichlet lifting, load vectors, the L2 norm and
+the H1 seminorm (torch port of ``hommx_tpu/ops/assembly.py``)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hommx_tpu_torch.ops.elements import quad_points_physical
+from hommx_tpu_torch.ops.elements import cell_geometry, quad_points_physical
 from hommx_tpu_torch.ops.function_space import eval_at_points
 from hommx_tpu_torch.ops.sparse import ELLPattern, spmv
 
@@ -18,6 +18,7 @@ __all__ = [
     "apply_dirichlet",
     "assemble_load_vector",
     "l2_norm_fn",
+    "h1_seminorm_fn",
 ]
 
 
@@ -131,3 +132,20 @@ def l2_norm_fn(vertices, cells, u_nodes, bs: int = 1, exact=None, degree: int = 
     if exact is not None:
         uq = uq - eval_at_points(exact, xq).reshape(uq.shape).to(uq.dtype)
     return torch.sqrt((wq.to(uq.dtype) * (uq * uq).sum(dim=-1)).sum())
+
+
+def h1_seminorm_fn(vertices, cells, u_nodes, bs: int = 1, exact_grad=None, degree: int = 4):
+    """H¹ seminorm |u_h|₁ of a P1 function, or |u_h − exact|₁ given a torch
+    callable ``exact_grad(x) -> (d,)`` / ``(bs, d)``.  P1 gradients are
+    elementwise constant."""
+    cells = cells.long()
+    grads, vols = cell_geometry(vertices, cells)  # (nc, nb0, d), (nc,)
+    uv = u_nodes.reshape(-1, bs)[cells].to(grads.dtype)  # (nc, nb0, bs)
+    gu = torch.einsum("cab,cad->cbd", uv, grads)  # (nc, bs, d)
+    if exact_grad is None:
+        return torch.sqrt((vols * (gu * gu).sum(dim=(1, 2))).sum())
+    xq, wq, _ = quad_points_physical(vertices, cells, degree)
+    ge = eval_at_points(exact_grad, xq).to(gu.dtype)
+    ge = ge.reshape(xq.shape[0], xq.shape[1], bs, vertices.shape[1])
+    diff = gu[:, None] - ge
+    return torch.sqrt((wq * (diff * diff).sum(dim=(2, 3))).sum())

@@ -106,7 +106,7 @@ class Function:
     """A coefficient vector over a FunctionSpace: ``f.array`` is the flat
     (num_dofs,) tensor (``f.x.array`` also works)."""
 
-    def __init__(self, V: FunctionSpace, array=None, device="cpu", dtype=None):
+    def __init__(self, V: FunctionSpace, array=None, device="cuda", dtype=None):
         self.space = V
         if array is None:
             device = as_device(device)

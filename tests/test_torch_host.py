@@ -66,7 +66,7 @@ def test_mesh_periodic_map_and_patterns_equal(name):
 def test_micro_operators_and_stencil_equal(name):
     jm = MESHES[name](hx)
     je = JaxEngine(jm, dtype=jnp.float64, solver="pcg")
-    te = ht.MicroEngine(port_mesh(jm))
+    te = ht.MicroEngine(port_mesh(jm), device="cpu")
     np.testing.assert_array_equal(te.Draw.numpy(), np.asarray(je.Draw))
     np.testing.assert_array_equal(te.loc2red.numpy(), np.asarray(je.loc2red))
     np.testing.assert_array_equal(te.D.numpy(), np.asarray(je.D))

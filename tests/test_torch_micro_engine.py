@@ -24,7 +24,7 @@ TORCH_A = lambda x, y: 1.5 + x[0] + torch.sin(2 * torch.pi * y[0]) * torch.cos(2
 def engines():
     jm = hx.create_unit_square(8)
     je = JaxEngine(jm, dtype=jnp.float64, solver="pcg")
-    te = ht.MicroEngine(port_mesh(jm))
+    te = ht.MicroEngine(port_mesh(jm), device="cpu")
     centers = np.random.default_rng(11).uniform(0, 1, (64, 2))
     return je, te, centers
 
@@ -55,7 +55,8 @@ def test_float32_route_matches_reference(engines):
     """The float32 route (the kernel's route; its plain version on the CPU)
     against the float64 reference: f32 PCG to tol 1e-5 is ~1e-6 on A*."""
     je, _, centers = engines
-    te32 = ht.MicroEngine(port_mesh(hx.create_unit_square(8)), dtype=torch.float32)
+    te32 = ht.MicroEngine(port_mesh(hx.create_unit_square(8)), dtype=torch.float32,
+                           device="cpu")
     A_ref = np.asarray(je.tensors_for_centers(JAX_A, jnp.asarray(centers), chunk=16))
     A = te32.tensors_for_centers(TORCH_A, torch.as_tensor(centers, dtype=torch.float32), chunk=16)
     assert A.dtype == torch.float32
@@ -86,15 +87,15 @@ def test_chunking_and_padding_do_not_change_results(engines):
 )
 def test_unported_routes_raise(kwargs):
     with pytest.raises(NotImplementedError):
-        ht.MicroEngine(ht.create_unit_square(4), **kwargs)
+        ht.MicroEngine(ht.create_unit_square(4), device="cpu", **kwargs)
 
 
 def test_k0_scatter_assembly_matches_dense():
     """The two builds of the unit-coefficient operator K0 (dense DᵀD for
     small cells, per-element scatter above n = 512) give the same K0⁻¹."""
     mesh = ht.create_unit_square(6)
-    K_dense = ht.MicroEngine(mesh, assembly="dense")._get_K0inv()
-    K_scatter = ht.MicroEngine(mesh, assembly="scatter")._get_K0inv()
+    K_dense = ht.MicroEngine(mesh, assembly="dense", device="cpu")._get_K0inv()
+    K_scatter = ht.MicroEngine(mesh, assembly="scatter", device="cpu")._get_K0inv()
     np.testing.assert_allclose(K_scatter.numpy(), K_dense.numpy(), rtol=0,
                                atol=1e-12 * K_dense.abs().max().item())
 
@@ -108,9 +109,9 @@ def test_scaling_variants_match(engines, variant):
     A_ref = te.tensors_for_centers(TORCH_A, c)
     mesh = te.mesh
     if variant == "dfree_scaling":
-        other = ht.MicroEngine(mesh)
+        other = ht.MicroEngine(mesh, device="cpu")
         other.D = None  # what build_operators leaves above its size cap
     else:
-        other = ht.MicroEngine(mesh, diag_scale=False)
+        other = ht.MicroEngine(mesh, diag_scale=False, device="cpu")
     np.testing.assert_allclose(other.tensors_for_centers(TORCH_A, c).numpy(), A_ref.numpy(),
                                rtol=1e-9, atol=0)

@@ -33,7 +33,7 @@ def test_golden_poisson_hmm_f64():
     def A(x, y):
         return 0.33 + 0.15 * (torch.sin(2 * torch.pi * x[0]) + torch.sin(2 * torch.pi * y[0]))
 
-    hmm = ht.PoissonHMM(macro, A, lambda x: 1.0, micro, 0.1 / 8)
+    hmm = ht.PoissonHMM(macro, A, lambda x: 1.0, micro, 0.1 / 8, device="cpu")
     u = hmm.solve().array
     assert u.dtype == torch.float64 and hmm._macro_method == "direct"
     l2 = float(l2_norm_fn(torch.as_tensor(macro.vertices), torch.as_tensor(macro.cells), u))
@@ -56,6 +56,7 @@ def test_cg_slice_matches_reference():
     ht_hmm = ht.PoissonHMM(
         port_mesh(jmac), TORCH_A, lambda x: 1.0, port_mesh(jmic), 2**-5,
         options_global_solve=ht.SolverOptions(method="cg", pc="jacobi", rtol=1e-12),
+        device="cpu",
     )
     u = ht_hmm.solve().array.numpy()
     assert np.abs(u - u_ref).max() / np.abs(u_ref).max() < 1e-8
@@ -95,13 +96,15 @@ def test_macro_assembly_matches_reference(macro_f64):
 
 def _tiny(**kw):
     return ht.PoissonHMM(
-        ht.create_unit_square(4), TORCH_A, 1.0, ht.create_unit_square(4), 0.1, **kw
+        ht.create_unit_square(4), TORCH_A, 1.0, ht.create_unit_square(4), 0.1, device="cpu",
+        **kw
     )
 
 
 def test_error_probes():
     with pytest.raises(ValueError):
-        ht.PoissonHMM(ht.create_unit_square(4), TORCH_A, 1.0, ht.create_unit_cube(2), 0.1)
+        ht.PoissonHMM(ht.create_unit_square(4), TORCH_A, 1.0, ht.create_unit_cube(2), 0.1,
+                      device="cpu")
     with pytest.raises(NotImplementedError, match="A5"):
         _tiny(options_global_solve=ht.SolverOptions(method="cg", pc="mg"))
     with pytest.raises(NotImplementedError, match="A5"):

@@ -32,7 +32,7 @@ def _inputs(name, dtype):
     jm = MESHES[name](hx)
     jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
     je = JaxEngine(jm, dtype=jdt, solver="pcg")
-    te = ht.MicroEngine(port_mesh(jm), dtype=dtype)
+    te = ht.MicroEngine(port_mesh(jm), dtype=dtype, device="cpu")
     rng = np.random.default_rng(7)
     C, s, n = 5, te.s, te.n_reduced
     a = rng.uniform(0.5, 3.0, (C, te.nE))
@@ -112,7 +112,7 @@ def test_dispatch_is_by_device_and_kernel_module_imports_without_cuda():
 def test_neighbour_table_is_the_torus_roll():
     """The kernel's (K, n) neighbour table reproduces roll(P, -Δ_k)."""
     for name in sorted(MESHES):
-        te = ht.MicroEngine(port_mesh(MESHES[name](hx)))
+        te = ht.MicroEngine(port_mesh(MESHES[name](hx)), device="cpu")
         st = te._get_stencil()
         offs = tuple(tuple(int(o) for o in off) for off in st.offsets)
         nbr = k1._neighbour_table(tuple(st.shape), offs, "cpu").long()
@@ -137,7 +137,7 @@ def test_stencil_weights_and_rhs_match_reference(form, mapped):
 
     jm = hx.create_unit_square(6)
     je = JaxEngine(jm, dtype=jnp.float64, solver="pcg")
-    te = ht.MicroEngine(port_mesh(jm))
+    te = ht.MicroEngine(port_mesh(jm), device="cpu")
     jst, tst = je._get_stencil(), te._get_stencil()
     if form == "gather":  # the form cell meshes above the dense size gate take
         jst = dataclasses.replace(jst, Wd=None, Wsym=None, WF=None)

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the hommx_tpu_torch slice goes, on one NVIDIA GPU.
 
-    python3 tools/profile_slice.py [--macro 512] [--micro 16] [--out FILE]
+    python3 tools/profile_slice.py [--mode poisson|elasticity] [--macro 512]
+                                   [--micro 16] [--out FILE]
 
 Run from the repository root on a machine with one CUDA card; it fails
-without one.  It drives the slice of ``chip_smoke.py`` phase 6 (flagship
-coefficient, float32, chunk 2048, Jacobi CG to rtol 1e-5) and prints one
-JSON line per measurement; the full records, with each stage's top
-kernels, go to ``--out`` (default ``chiprun_out/profile_slice.json``).
+without one.  It prints one JSON line per measurement; the full records,
+with each stage's top kernels, go to ``--out`` (default
+``chiprun_out/profile_<mode>.json``).
+
+``--mode poisson`` (default) drives the Poisson slice of ``chip_smoke.py``
+(flagship coefficient, float32, chunk 2048, Jacobi CG to rtol 1e-5):
 
 - ``dia_loop``: K2 and its plain version, 200 back-to-back calls per turn
   in the order plain, kernel, kernel, plain (CUDA events, ms per call), on
@@ -22,6 +25,18 @@ kernels, go to ``--out`` (default ``chiprun_out/profile_slice.json``).
   wall seconds, device busy seconds (union of the device's kernel and copy
   intervals), idle share of the wall, kernel count, kernel launches of K1
   and K2, top kernels by device time.
+
+``--mode elasticity`` drives the rotated-fiber beam of ``chip_smoke.py``
+(``make_beam``: 4320 cells, 4³ micro cube, n = 192, s = 6, float32, direct
+float64 macro solve):
+
+- ``k3_chunk``: device time of one K3 launch on the beam's first
+  1080-cell chunk;
+- ``solve``: three solves, each on a fresh model;
+- ``stage``: ``torch.profiler`` over the micro stage, the guard and the
+  macro stage, as above, with K3's launches;
+- ``micro_bench``: the micro stage alone at the bench row's size (8640
+  fresh cells, x-dependent fibre modulus, chunk 1080), profiled.
 """
 
 from __future__ import annotations
@@ -111,38 +126,13 @@ def dia_loop(n, device, reps=200):
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--macro", type=int, default=512)
-    ap.add_argument("--micro", type=int, default=16)
-    ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile_slice.json"))
-    args = ap.parse_args()
-
+def poisson(args, device, keep, kernels):
     import torch
 
-    if not torch.cuda.is_available():
-        print("profile_slice: no CUDA device is available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    from chip_smoke import emit, flagship, phase_build, phase_device
-
+    from chip_smoke import flagship
     from hommx_tpu_torch import MicroEngine, PoissonHMM, SolverOptions, create_unit_square
     from hommx_tpu_torch.micro import stencil_pcg
     from hommx_tpu_torch.micro.chunk import chunk_system
-    from hommx_tpu_torch.ops import dia
-
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    records = []
-
-    def keep(rec):
-        emit(rec)
-        records.append(rec)
-
-    name, smi = phase_device()
-    records.append({"device": name, "nvidia_smi": smi})
-    phase_build()
-    kernels = {"stencil_pcg": stencil_pcg.KERNEL, "dia_spmv": dia.KERNEL}
 
     for n in (32, 63, 64, 128, 512):
         keep({"tag": "dia_loop", **dia_loop(n, device)})
@@ -161,8 +151,71 @@ def main() -> int:
     macro = create_unit_square(args.macro, args.macro)
     micro = create_unit_square(args.micro, args.micro)
     opts = SolverOptions(method="cg", pc="jacobi", rtol=1e-5, maxiter=20000)
-    make = lambda: PoissonHMM(macro, flagship, 1.0, micro, 2**-5, opts,
+    return lambda: PoissonHMM(macro, flagship, 1.0, micro, 2**-5, opts,
                               dtype=torch.float32, device=device, chunk=2048)
+
+
+def elasticity(args, device, keep, kernels):
+    import numpy as np
+    import torch
+
+    from chip_smoke import _cell_systems, beam_coeff, beam_rotation, make_beam
+    from hommx_tpu_torch import MicroEngine, create_unit_cube
+    from hommx_tpu_torch.ops.chol_kernel import fused_chol_solve_cuda
+
+    hmm = make_beam(device)
+    eng = hmm._engine
+    Ks, Fs, _ = _cell_systems(eng, beam_coeff(False), hmm._sys.centers[:1080], beam_rotation)
+    fused_chol_solve_cuda(Ks, Fs)
+    keep({"tag": "k3_chunk", **profiled("k3_chunk", lambda: fused_chol_solve_cuda(Ks, Fs),
+                                        kernels)})
+
+    eng = MicroEngine(create_unit_cube(4), bs=3, coeff_kind="tensor4", dtype=torch.float32,
+                      device=device)
+    centers = torch.as_tensor(np.random.default_rng(1).uniform(0, 1, (8640, 3)),
+                              dtype=torch.float32, device=device)
+    coeff = beam_coeff(True)
+    bench = lambda: eng.tensors_for_centers(coeff, centers, G_fn=beam_rotation, chunk=1080)
+    bench()
+    keep({"tag": "micro_bench", **profiled("micro_bench", bench, kernels)})
+    return lambda: make_beam(device)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", choices=("poisson", "elasticity"), default="poisson")
+    ap.add_argument("--macro", type=int, default=512)
+    ap.add_argument("--micro", type=int, default=16)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    out = args.out or str(ROOT / "chiprun_out" / f"profile_{args.mode}.json")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_slice: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import emit, phase_build, phase_device
+
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.ops import chol_kernel, dia
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    records = []
+
+    def keep(rec):
+        emit(rec)
+        records.append(rec)
+
+    name, smi = phase_device()
+    records.append({"device": name, "nvidia_smi": smi})
+    phase_build()
+    kernels = {"stencil_pcg": stencil_pcg.KERNEL, "dia_spmv": dia.KERNEL,
+               "chol_solve": chol_kernel.KERNEL}
+    make = (poisson if args.mode == "poisson" else elasticity)(args, device, keep, kernels)
+
     make().solve()  # warm-up
     for rep in range(3):
         hmm = make()
@@ -181,8 +234,8 @@ def main() -> int:
     keep({"tag": "memory", "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
           "macro_iterations": hmm.diagnostics["macro_iterations"]})
 
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as fh:
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as fh:
         json.dump(records, fh, indent=1)
     return 0
 
