@@ -9,8 +9,12 @@ prints no result line):
 1. device      the card's name, and ``nvidia-smi`` name + power limit
 2. build       the three CUDA kernels compiled from the repository's
                sources, one nvcc each, all started together
-3. dia_spmv    K2 vs its plain version on the 512x512 macro DIA pattern,
-               and a cuSPARSE CSR matvec of the same matrix as yardstick
+3. dia_spmv    K2 vs its plain version on the 512x512 macro DIA pattern
+               (7 diagonals) and on a 62³ box (15 diagonals), with a
+               cuSPARSE CSR matvec of the same matrix as yardstick: single
+               call (as the CG makes it, and through ``dia_spmv_cuda``),
+               back to back, 200 launches in one CUDA graph, and at a cold
+               L2 (flushed by a write, and by a read)
 4. stencil     K1 vs its plain version on one 2048-cell chunk of the
                16x16 micro engine (flagship coefficient), on a ragged
                37-cell chunk and on a 1000-cell chunk of an 8x8x8 micro mesh
@@ -213,20 +217,91 @@ def phase_build():
     emit(out)
 
 
-def phase_dia(device):
+def _loop_us(fn, reps: int = 200) -> float:
+    """µs per call of ``reps`` back-to-back calls between two events: the
+    larger of the host's and the device's time per call."""
     import torch
 
-    from hommx_tpu_torch import create_unit_square
-    from hommx_tpu_torch.ops.dia import build_dia_from_ell, dia_spmv, dia_spmv_cuda
+    for _ in range(5):
+        fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return 1e3 * a.elapsed_time(b) / reps
+
+
+def _cold_l2_us(fn, device, reps: int = 50, clean: bool = False) -> float:
+    """Median device time of one ``fn()`` after the L2 is flushed before
+    each call by a 256 MB write (5× the H100's 50 MB L2), which leaves the
+    L2 full of dirty lines that ``fn`` must write back as it evicts them,
+    or with ``clean`` by a 256 MB read, which leaves clean lines."""
+    import torch
+
+    flush = torch.zeros(64 << 20, dtype=torch.float32, device=device)
+    events = []
+    for r in range(reps):
+        if clean:
+            flush.sum()
+        else:
+            flush.fill_(float(r))
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return 1e3 * statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def _graph_us(op, x, launches: int = 200):
+    """K2's device time without the host path: ``launches`` launches into
+    one preallocated buffer captured in one CUDA graph, replayed; µs per
+    launch (median of 5 replays) and the buffer after the replays."""
+    import torch
+
+    buf = torch.empty_like(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream
+        op(x, out=buf)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            op(x, out=buf)
+    graph.replay()
+    times = []
+    for _ in range(5):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(1e3 * a.elapsed_time(b) / launches)
+    return statistics.median(times), buf
+
+
+def _k2_case(name, mesh, device, seed):
+    """K2 on the macro DIA pattern of ``mesh`` with seeded random values:
+    against its plain version and against a cuSPARSE CSR product of the
+    same matrix, with its single-call, back-to-back, graph and cold-L2
+    times."""
+    import torch
+
+    from hommx_tpu_torch.ops.dia import DIAOperator, build_dia_from_ell, dia_spmv, dia_spmv_cuda
     from hommx_tpu_torch.ops.sparse import build_ell_pattern
 
-    mesh = create_unit_square(512, 512)
     dia = build_dia_from_ell(build_ell_pattern(mesh.cells, mesh.num_vertices))
     N, nd = dia.num_dofs, dia.num_diagonals
-    g = torch.Generator(device=device).manual_seed(2)
+    g = torch.Generator(device=device).manual_seed(seed)
     vals = torch.randn((nd, N), generator=g, device=device, dtype=torch.float32)
     x = torch.randn((N,), generator=g, device=device, dtype=torch.float32)
-    y_k = dia_spmv_cuda(vals, dia.offsets, x)
+    op = DIAOperator(vals, dia.offsets)  # as the macro CG makes it, once per solve
+    y_k = op(x).clone()
+    y_w = dia_spmv_cuda(vals, dia.offsets, x)
     y_p = dia_spmv(vals, dia.offsets, x)
     # the same matrix in CSR (entries whose column falls outside are
     # dropped, as the DIA product drops them) for the library yardstick
@@ -237,23 +312,45 @@ def phase_dia(device):
         torch.stack([rows[inside], cols[inside]]), vals.reshape(-1)[inside], (N, N)
     ).coalesce().to_sparse_csr()
     y_l = csr @ x
+    graph_us, y_g = _graph_us(op, x)
     torch.cuda.synchronize()
+    ymax = float(y_p.abs().max())
     abs_err = float((y_k - y_p).abs().max())
-    rel = abs_err / float(y_p.abs().max())
-    lib_rel = float((y_l - y_p).abs().max()) / float(y_p.abs().max())
-    ms = time_ms(lambda: dia_spmv_cuda(vals, dia.offsets, x))
-    plain_ms = time_ms(lambda: dia_spmv(vals, dia.offsets, x))
-    library_ms = time_ms(lambda: csr @ x)
+    kernel_call = lambda: op(x, out=op.out)  # noqa: E731  (the CG's call)
     # each input read once, the output written once; 2 flops per entry
     bound_ms, bound_by = bound(2.0 * nd * N, 4.0 * (nd * N + 2 * N))
-    rec = {"phase": "dia_spmv", "N": N, "offsets": list(dia.offsets),
-           "max_abs_err": abs_err, "rel_err": rel, "library_rel_err": lib_rel,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    rec = {"phase": "dia_spmv", "case": name, "N": N, "offsets": list(dia.offsets),
+           "max_abs_err": abs_err, "rel_err": abs_err / ymax,
+           "wrapper_rel_err": float((y_w - y_p).abs().max()) / ymax,
+           "library_rel_err": float((y_l - y_p).abs().max()) / ymax,
+           "graph_equal": bool(torch.equal(y_g, y_k)),
+           "ms": time_ms(kernel_call),
+           "wrapper_ms": time_ms(lambda: dia_spmv_cuda(vals, dia.offsets, x)),
+           "plain_ms": time_ms(lambda: dia_spmv(vals, dia.offsets, x)),
+           "library_ms": time_ms(lambda: csr @ x),
+           "loop_us": _loop_us(kernel_call), "library_loop_us": _loop_us(lambda: csr @ x),
+           "graph_us_per_launch": graph_us,
+           "cold_l2_us": _cold_l2_us(kernel_call, device),
+           "cold_l2_clean_us": _cold_l2_us(kernel_call, device, clean=True),
+           "library_cold_l2_us": _cold_l2_us(lambda: csr @ x, device),
            "bound_ms": bound_ms, "bound_by": bound_by}
     emit(rec)
-    if not (rel < K2_RTOL and lib_rel < K2_RTOL):
-        raise AssertionError(f"DIA kernel or CSR yardstick disagrees with the plain version: {rec}")
-    return rec
+    ok = (rec["rel_err"] < K2_RTOL and rec["wrapper_rel_err"] < K2_RTOL
+          and rec["library_rel_err"] < K2_RTOL and rec["graph_equal"])
+    return rec, ok
+
+
+def phase_dia(device):
+    """K2 on the 512x512 macro pattern (7 diagonals, the slice's) and on a
+    62³ box (250,047 dofs, 15 diagonals, 3D P1)."""
+    from hommx_tpu_torch import create_unit_cube, create_unit_square
+
+    main, ok = _k2_case("2d512", create_unit_square(512, 512), device, 2)
+    rec3, ok3 = _k2_case("3d62", create_unit_cube(62), device, 3)
+    if not (ok and ok3):
+        raise AssertionError(f"DIA kernel, its graph replay or the CSR yardstick disagrees "
+                             f"with the plain version: {main}, {rec3}")
+    return main
 
 
 def _k1_case(eng, centers, timed):
@@ -592,6 +689,7 @@ def phase_slice(device):
         hmm = PoissonHMM(macro, flagship, 1.0, micro, 2**-5, opts,
                          dtype=torch.float32, device=device, chunk=2048)
         t_setup = time.perf_counter() - t0
+        k2_before = dia.KERNEL.launches
         u = hmm.solve().array
         torch.cuda.synchronize()
         t_total = time.perf_counter() - t0
@@ -603,6 +701,7 @@ def phase_slice(device):
                "total_seconds": t_total, "micro_seconds": dg["micro_seconds"],
                "macro_seconds": dg["macro_seconds"],
                "macro_iterations": dg["macro_iterations"],
+               "dia_spmv_launches": dia.KERNEL.launches - k2_before,
                "macro_residual": dg["macro_residual"], "num_cells": dg["num_cells"],
                "dofs": hmm.function_space.num_dofs,
                "cell_solves": cell_solves,
@@ -613,7 +712,9 @@ def phase_slice(device):
                "max_u": float(u.abs().max())}
         emit(rec)
         runs.append(rec)
+        # the CG's initial residual and one product per iteration
         if not (finite and dg["macro_iterations"] < opts.maxiter
+                and rec["dia_spmv_launches"] == dg["macro_iterations"] + 1
                 and rec["diverged_cells"] == 0 and rec["fallback_cells"] == 0
                 and rec["nan_cells"] == 0):
             raise AssertionError(f"slice run failed its checks: {rec}")

@@ -8,6 +8,14 @@ Hopper (``sm_90a``) into a shared library under ``hommx_tpu_torch/_build/``
 bound with ``ctypes``.  Nothing is built at import time: a module that owns
 a kernel imports cleanly where there is no ``nvcc`` and no GPU, and builds
 only when its wrapper first sees a CUDA tensor.  A failed build raises.
+
+The launch path is kept short, since a small kernel (the DIA SpMV: a few
+microseconds of device time) runs once per macro CG iteration: each ctypes
+function is resolved once, the stream is the raw handle of the device's
+current stream (no ``torch.cuda.Stream`` object per call), and the device
+context is entered only when the tensor is not on the current device.  The
+launch neither synchronises nor allocates, so it is safe inside a CUDA
+graph capture, where the current stream is the capture stream.
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 __all__ = ["CudaKernel", "nvcc_path"]
 
@@ -56,8 +66,9 @@ class CudaKernel:
         signatures: launcher name -> list of ctypes argument types (every
             launcher returns ``int``, the launch's ``cudaError_t``).
 
-    ``launches`` counts successful launches made through :meth:`launch`;
-    a run sets it to 0 and reads it back to show which kernels it used.
+    ``launches`` counts successful launches made through :meth:`launch` or
+    a function from :meth:`launcher`; a run sets it to 0 and reads it back to
+    show which kernels it used.
     """
 
     def __init__(self, source: Path, signatures: dict):
@@ -67,6 +78,7 @@ class CudaKernel:
         self.build_seconds = None
         self.build_log = ""
         self._lib = None
+        self._launchers = {}
 
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
@@ -98,11 +110,38 @@ class CudaKernel:
         self.build_seconds = time.perf_counter() - t0
         return lib
 
-    def launch(self, name: str, *args) -> None:
-        """Call launcher ``name``; raise if the launch was refused."""
-        rc = getattr(self.library(), name)(*args)
-        if rc != 0:
-            raise RuntimeError(
-                f"{self.source.name}:{name} launch failed with cudaError_t {rc}"
-            )
-        self.launches += 1
+    def launcher(self, name: str):
+        """The launch function of launcher ``name``, resolved once (the
+        first call builds the library): ``launch(device_index, *args)``
+        calls it with ``args`` and the device's current stream as its last
+        argument, raises if the launch was refused, and counts it."""
+        launch = self._launchers.get(name)
+        if launch is None:
+            launch = self._launchers[name] = self._bind(name)
+        return launch
+
+    def _bind(self, name: str):
+        fn = getattr(self.library(), name)
+        # the raw cudaStream_t of the current stream; torch.cuda.Stream
+        # would build an object on every call
+        raw_stream = torch._C._cuda_getCurrentRawStream
+        current_device = torch.cuda.current_device
+
+        def launch(device: int, *args) -> None:
+            if device == current_device():
+                rc = fn(*args, raw_stream(device))
+            else:
+                with torch.cuda.device(device):
+                    rc = fn(*args, raw_stream(device))
+            if rc != 0:
+                raise RuntimeError(
+                    f"{self.source.name}:{name} launch failed with cudaError_t {rc}"
+                )
+            self.launches += 1
+
+        return launch
+
+    def launch(self, name: str, device: int, *args) -> None:
+        """Launch ``name`` on ``device``'s current stream (see
+        :meth:`launcher`)."""
+        self.launcher(name)(device, *args)

@@ -119,14 +119,12 @@ def stencil_pcg_cuda(ws, F, Minv, shape, offsets, tol, maxiter):
     work = torch.empty((4, s, n, Cp), dtype=torch.float32, device=dev)  # X P Z KP
     X = torch.empty((s, n, Cp), dtype=torch.float32, device=dev)
     iters = torch.empty((nblk,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        KERNEL.launch(
-            "hommx_stencil_pcg_f32",
-            Wk.data_ptr(), Ff.data_ptr(), Mc.data_ptr(), nbr.data_ptr(),
-            work.data_ptr(), X.data_ptr(), iters.data_ptr(),
-            K, n, s, Cp, float(tol), int(maxiter), stream,
-        )
+    KERNEL.launch(
+        "hommx_stencil_pcg_f32", dev.index,
+        Wk.data_ptr(), Ff.data_ptr(), Mc.data_ptr(), nbr.data_ptr(),
+        work.data_ptr(), X.data_ptr(), iters.data_ptr(),
+        K, n, s, Cp, float(tol), int(maxiter),
+    )
     return X[:, :, :C].permute(1, 0, 2), iters.max()
 
 

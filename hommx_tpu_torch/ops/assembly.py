@@ -75,20 +75,21 @@ def apply_dirichlet(
         b <- b - A @ u_bc;  zero bc rows and columns, 1 on the bc diagonal;
         b <- bc values on bc rows.
 
-    With a DIAPattern the lifting matvec and the column lookup are static
-    shifts (no gather).  Returns (vals', b').
+    With a DIAPattern the column lookup is static shifts (no gather).  The
+    lifting matvec is the ELL product on every path: the reference takes
+    the DIA product there, whose kernel is float32 only, while this runs
+    in the system's dtype (float64 on the direct path).  Returns (vals', b').
     """
     N, K = cols.shape
     zero = torch.zeros((), dtype=bc_values.dtype, device=bc_values.device)
     u_bc = torch.where(bc_mask, bc_values, zero)
     keep_row = (~bc_mask).to(vals.dtype)
+    b = b - spmv(vals, cols, u_bc)
     if dia is not None:
-        from hommx_tpu_torch.ops.dia import dia_spmv, ell_vals_to_dia, gather_cols
+        from hommx_tpu_torch.ops.dia import gather_cols
 
-        b = b - dia_spmv(ell_vals_to_dia(dia, vals), dia.offsets, u_bc)
         keep_col = gather_cols(dia, keep_row)
     else:
-        b = b - spmv(vals, cols, u_bc)
         keep_col = keep_row[cols]
     v = vals.reshape(N, K) * keep_row[:, None] * keep_col
     # unit diagonal on bc rows; the true diagonal slots come from diag_slots

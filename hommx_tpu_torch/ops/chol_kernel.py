@@ -102,12 +102,10 @@ def fused_chol_solve_cuda(Ks, Fs, eps: float = 1e-30):
     Kc = Ks.contiguous()
     Fc = Fs.contiguous()
     X = torch.empty((n, s, C), dtype=torch.float32, device=Fs.device)
-    stream = torch.cuda.current_stream(Fs.device).cuda_stream
-    with torch.cuda.device(Fs.device):
-        KERNEL.launch(
-            "hommx_chol_solve_f32",
-            Kc.data_ptr(), Fc.data_ptr(), X.data_ptr(), C, n, s, float(eps), stream,
-        )
+    KERNEL.launch(
+        "hommx_chol_solve_f32", Fs.device.index,
+        Kc.data_ptr(), Fc.data_ptr(), X.data_ptr(), C, n, s, float(eps),
+    )
     return X
 
 

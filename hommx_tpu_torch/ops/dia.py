@@ -4,10 +4,12 @@
 P1 stiffness matrices on structured meshes have a small, fixed set of
 column offsets (7 in 2D, 15 in 3D), so SpMV collapses to
 y = Σ_d vals_d ∘ shift(x, offset_d) with static offsets.  ``dia_spmv`` is
-the plain PyTorch version; ``dia_spmv_op`` dispatches by device alone: a
-CUDA tensor to the hand-written kernel ``csrc/dia_spmv.cu`` (which replaces
-the TPU kernel ``dia_spmv_pallas``; float32 only, a float64 CUDA tensor
-raises), a CPU tensor to ``dia_spmv``.
+the plain PyTorch version.  ``DIAOperator`` is one matrix prepared for
+many products, as the macro CG makes them: it dispatches by device alone,
+a CUDA tensor to the hand-written kernel ``csrc/dia_spmv.cu`` (which
+replaces the TPU kernel ``dia_spmv_pallas``; float32 only, a float64 CUDA
+tensor raises), a CPU tensor to ``dia_spmv``.  ``dia_spmv_cuda`` and
+``dia_spmv_op`` are one-product wrappers over it.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ __all__ = [
     "ell_vals_to_dia",
     "gather_cols",
     "dia_spmv",
+    "DIAOperator",
     "dia_spmv_cuda",
     "dia_spmv_op",
     "KERNEL",
@@ -145,30 +148,81 @@ def dia_spmv(dia_vals: torch.Tensor, offsets, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+class DIAOperator:
+    """The DIA SpMV x ↦ A x with one matrix, prepared once for many
+    products (the macro CG makes one per iteration).
+
+    It holds the contiguous values, the offsets, N and a reusable output
+    buffer ``out``; on CUDA also the offsets packed for the launcher and the
+    resolved launch function (building the kernel at first use), so that a
+    product is a few cheap checks and one ctypes call.  A CUDA operator
+    takes float32 only and raises ``TypeError`` otherwise; a CPU operator
+    runs the plain :func:`dia_spmv`.
+
+    Args:
+        dia_vals: (nd, N) diagonal values.
+        offsets: the nd column offsets (col − row) of the diagonals.
+    """
+
+    def __init__(self, dia_vals: torch.Tensor, offsets):
+        self.offsets = tuple(int(o) for o in offsets)
+        nd = len(self.offsets)
+        if dia_vals.ndim != 2 or dia_vals.shape[0] != nd or not 1 <= nd <= _MAX_DIAGONALS:
+            raise ValueError(f"DIAOperator: bad shapes {tuple(dia_vals.shape)}, {nd} offsets")
+        self.N = dia_vals.shape[1]
+        self.device = dia_vals.device
+        self.vals = dia_vals.contiguous()
+        self.out = torch.empty(self.N, dtype=dia_vals.dtype, device=self.device)
+        self._launch = None
+        if self.device.type == "cuda":
+            if dia_vals.dtype != torch.float32:
+                raise TypeError(
+                    "the DIA kernel takes float32 tensors: it has no float64 "
+                    "version yet (ROADMAP C); use dtype=torch.float32 on CUDA"
+                )
+            self._index = self.device.index
+            self._vals_ptr = self.vals.data_ptr()
+            self._offsets_c = (ctypes.c_int * nd)(*self.offsets)
+            self._launch = KERNEL.launcher("hommx_dia_spmv_f32")
+        elif self.device.type != "cpu":
+            raise TypeError(f"DIAOperator: unsupported device {self.device}")
+
+    def __call__(self, x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A x, written into ``out`` when given (and returned), else into a
+        new tensor.  ``out`` must not be ``x``."""
+        if self._launch is None:
+            y = dia_spmv(self.vals, self.offsets, x)
+            return y if out is None else out.copy_(y)
+        if x.dtype != torch.float32 or x.get_device() != self._index:
+            raise TypeError(
+                f"DIAOperator on {self.device} takes float32 tensors there, got "
+                f"{x.dtype} on {x.device}"
+            )
+        if x.shape != self.out.shape or not x.is_contiguous():
+            raise ValueError(f"DIAOperator: x must be contiguous of shape ({self.N},)")
+        if out is None:
+            out = torch.empty_like(x)
+        elif out is not self.out and (
+            out.dtype != torch.float32 or out.get_device() != self._index
+            or out.shape != self.out.shape or not out.is_contiguous()
+        ):
+            raise ValueError(
+                f"DIAOperator: out must be a contiguous float32 ({self.N},) on {self.device}"
+            )
+        x_ptr, y_ptr = x.data_ptr(), out.data_ptr()
+        if x_ptr == y_ptr:
+            raise ValueError("DIAOperator: out must not be x")
+        self._launch(self._index, self._vals_ptr, self._offsets_c, len(self._offsets_c),
+                     x_ptr, y_ptr, self.N)
+        return out
+
+
 def dia_spmv_cuda(dia_vals: torch.Tensor, offsets, x: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA DIA kernel (float32 tensors on one CUDA device)."""
-    nd = len(offsets)
-    N = x.shape[0]
+    """Launch the CUDA DIA kernel once (float32 tensors on one CUDA device)."""
     if not (x.is_cuda and dia_vals.device == x.device):
         raise TypeError("dia_spmv_cuda takes CUDA tensors on one device")
-    if x.dtype != torch.float32 or dia_vals.dtype != torch.float32:
-        raise TypeError(
-            "dia_spmv_cuda takes float32 tensors: the kernel has no float64 "
-            "version yet (ROADMAP C); use dtype=torch.float32 on CUDA"
-        )
-    if dia_vals.shape != (nd, N) or x.ndim != 1 or not 1 <= nd <= _MAX_DIAGONALS:
-        raise ValueError("dia_spmv_cuda: bad shapes")
-    vals = dia_vals.contiguous()
-    xc = x.contiguous()
-    y = torch.empty_like(xc)
-    offs = (ctypes.c_int * nd)(*[int(o) for o in offsets])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        KERNEL.launch(
-            "hommx_dia_spmv_f32",
-            vals.data_ptr(), offs, nd, xc.data_ptr(), y.data_ptr(), N, stream,
-        )
-    return y
+    op = DIAOperator(dia_vals, offsets)
+    return op(x.contiguous(), out=op.out)
 
 
 def dia_spmv_op(dia_vals: torch.Tensor, offsets, x: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,9 @@
 
 The CG loop is Python; its stop test reads the residual norm back from the
 device once per iteration.  On a structured mesh the CG matvec is the DIA
-SpMV, dispatched by device alone: the hand-written CUDA kernel (ops/dia.py)
-for every CUDA system, whatever its size, and the plain version on the CPU.
+SpMV, one ``DIAOperator`` (ops/dia.py) per solve, dispatched by device
+alone: the hand-written CUDA kernel for every CUDA system, whatever its
+size, and the plain version on the CPU.
 The kernel is float32 only; a float64 CUDA system raises there (ROADMAP C).
 Geometric multigrid and AMG preconditioning are not ported yet (ROADMAP
 A5, A10): ``pc`` 'auto'/'mg' on the CG path raises.
@@ -103,10 +104,13 @@ def solve_ell(vals, cols, b, options, dia=None):
         return x, 0, torch.zeros((), dtype=b.dtype, device=b.device)
     require_jacobi(options)
     if dia is not None:
-        from hommx_tpu_torch.ops.dia import dia_spmv_op, ell_vals_to_dia
+        from hommx_tpu_torch.ops import dia as dia_ops
 
-        dvals = ell_vals_to_dia(dia, vals)
-        matvec = lambda v: dia_spmv_op(dvals, dia.offsets, v)
+        op = dia_ops.DIAOperator(dia_ops.ell_vals_to_dia(dia, vals), dia.offsets)
+        # one buffer for every product: pcg_prec keeps no A·p across
+        # iterations, and on the card the stream orders each overwrite
+        # after the reads of the one before
+        matvec = lambda v: op(v, out=op.out)
         return cg_matfree(
             matvec, _ell_diag(vals, cols), b,
             atol=options.atol, rtol=options.rtol, maxiter=options.maxiter,

@@ -12,7 +12,8 @@ with each stage's top kernels, go to ``--out`` (default
 ``--mode poisson`` (default) drives the Poisson slice of ``chip_smoke.py``
 (flagship coefficient, float32, chunk 2048, Jacobi CG to rtol 1e-5):
 
-- ``dia_loop``: K2 and its plain version, 200 back-to-back calls per turn
+- ``dia_loop``: K2 (the prepared operator, as the macro CG calls it) and
+  its plain version, 200 back-to-back calls per turn
   in the order plain, kernel, kernel, plain (CUDA events, ms per call), on
   the macro DIA systems of 32², 63², 64², 128² and 512² meshes (N from
   1,089 to 263,169 dofs);
@@ -101,7 +102,7 @@ def dia_loop(n, device, reps=200):
     import torch
 
     from hommx_tpu_torch import create_unit_square
-    from hommx_tpu_torch.ops.dia import build_dia_from_ell, dia_spmv, dia_spmv_cuda
+    from hommx_tpu_torch.ops.dia import DIAOperator, build_dia_from_ell, dia_spmv
     from hommx_tpu_torch.ops.sparse import build_ell_pattern
 
     mesh = create_unit_square(n, n)
@@ -109,8 +110,9 @@ def dia_loop(n, device, reps=200):
     g = torch.Generator(device=device).manual_seed(3)
     vals = torch.randn((dia.num_diagonals, dia.num_dofs), generator=g, device=device)
     x = torch.randn((dia.num_dofs,), generator=g, device=device)
+    op = DIAOperator(vals, dia.offsets)
     fns = {"plain": lambda: dia_spmv(vals, dia.offsets, x),
-           "kernel": lambda: dia_spmv_cuda(vals, dia.offsets, x)}
+           "kernel": lambda: op(x, out=op.out)}  # as the macro CG calls it
     out = {"macro": n, "N": dia.num_dofs, "plain_ms": [], "kernel_ms": []}
     for name in ("plain", "kernel", "kernel", "plain"):
         fn = fns[name]
