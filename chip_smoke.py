@@ -15,9 +15,12 @@ prints no result line):
                call (as the CG makes it, and through ``dia_spmv_cuda``),
                back to back, 200 launches in one CUDA graph, and at a cold
                L2 (flushed by a write, and by a read)
-4. stencil     K1 vs its plain version on one 2048-cell chunk of the
-               16x16 micro engine (flagship coefficient), on a ragged
-               37-cell chunk and on a 1000-cell chunk of an 8x8x8 micro mesh
+4. stencil     K1 vs its plain version at the kernel's block size on one
+               2048-cell chunk of the 16x16 micro engine (flagship
+               coefficient), on a ragged 37-cell chunk and on a 1000-cell
+               chunk of an 8x8x8 micro mesh; the first and the last timed,
+               with one float32 matmul of Minv by the chunk's loads as a
+               yardstick for the product alone
 5. chol_solve  K3 vs its plain version on (a) one 1080-cell chunk of the
                beam's equilibrated cell systems (n = 192, s = 6; timed, with
                torch.linalg.solve as yardstick), (b) a ragged 37-cell chunk
@@ -213,7 +216,7 @@ def phase_build():
     for key, kern in kernels.items():
         out[f"{key}_seconds"] = kern.build_seconds
         out[f"{key}_ptxas"] = [line.strip() for line in kern.build_log.splitlines()
-                               if "registers" in line or "spill" in line]
+                               if any(w in line for w in ("entry function", "registers", "spill"))]
     emit(out)
 
 
@@ -354,44 +357,63 @@ def phase_dia(device):
 
 
 def _k1_case(eng, centers, timed):
-    """K1 vs its plain version on one chunk of the main path's scaled
-    system, both taken through the chunk's own clamp and A* contraction."""
+    """K1 vs its plain version at the kernel's own block size on one chunk
+    of the main path's scaled system, both taken through the chunk's own
+    clamp and A* contraction, with the iteration counts of each block side
+    by side.  Timed: the kernel, the unblocked plain loop, the bound and
+    ``prec_library_us``, one float32 ``torch.matmul`` of Minv by the chunk's
+    (n, s·C) right-hand sides (TF32 off): a yardstick for one
+    preconditioner apply of the chunk, not for the whole PCG."""
     import torch
 
     from hommx_tpu_torch.micro.chunk import chunk_system
-    from hommx_tpu_torch.micro.stencil_pcg import stencil_pcg_cuda, stencil_pcg_plain
+    from hommx_tpu_torch.micro.stencil_pcg import launch_config, stencil_pcg_cuda, stencil_pcg_plain
 
     cs = chunk_system(eng, flagship, centers)
     ws_s, Fs = cs.scaled()
     args = (ws_s, Fs, cs.Minv, cs.st.shape, cs.st.offsets, eng.pcg_tol, eng.pcg_maxiter)
-    Yk, itk = stencil_pcg_cuda(*args)
-    Yp, itp = stencil_pcg_plain(*args)
-    Ak, Ap = cs.astar(eng, Yk, itk), cs.astar(eng, Yp, itp)
+    n, s, C, K = eng.n_reduced, eng.s, centers.shape[0], len(cs.st.offsets)
+    cfg = launch_config(n, s)
+    Yk, itk = stencil_pcg_cuda(*args, per_block=True)
+    Yp, itp = stencil_pcg_plain(*args, block=cfg.cells_per_block, per_block=True)
+    itk = [int(k) for k in itk.cpu()]
+    Ak, Ap = cs.astar(eng, Yk, max(itk)), cs.astar(eng, Yp, max(itp))
     torch.cuda.synchronize()
     abs_err = float((Ak - Ap).abs().max())
-    rec = {"cells": centers.shape[0], "dim": eng.d, "n": eng.n_reduced,
-           "K": len(cs.st.offsets), "s": eng.s, "iters_kernel": int(itk),
-           "iters_plain": int(itp), "max_abs_err": abs_err,
+    slack = max(abs(a - b) for a, b in zip(itk, itp))
+    rec = {"cells": C, "dim": eng.d, "n": n, "K": K, "s": s,
+           "cells_per_block": cfg.cells_per_block, "threads": cfg.threads,
+           "rows_per_thread": cfg.rows_per_thread, "smem_bytes": cfg.smem_bytes,
+           "iters_kernel": max(itk), "iters_plain": max(itp),
+           "iters_per_block": [list(p) for p in zip(itk, itp)],
+           "iters_max_block_diff": slack, "max_abs_err": abs_err,
            "rel_err": abs_err / float(Ap.abs().max())}
     if timed:
         rec["ms"] = time_ms(lambda: stencil_pcg_cuda(*args), reps=20)
         rec["plain_ms"] = time_ms(lambda: stencil_pcg_plain(*args), reps=5, warmup=1)
+        R2 = Fs.reshape(n, s * C).contiguous()
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        rec["prec_library_us"] = 1e3 * time_ms(lambda: torch.matmul(cs.Minv, R2), reps=50)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
         # this run's work: iters + 2 preconditioner products 2n²sC (the
         # first iterate, its residual, one per iteration) and iters + 1
-        # stencil matvecs 2KnsC; bytes: weights, loads, K0⁻¹ read, X written
-        n, s, C, K = eng.n_reduced, eng.s, centers.shape[0], len(cs.st.offsets)
-        it = int(itk)
-        flops = (it + 2) * 2.0 * n * n * s * C + (it + 1) * 2.0 * K * n * s * C
+        # stencil matvecs 2KnsC, at each block's own count; bytes: weights,
+        # loads, K0⁻¹ read, X written
+        cb = cfg.cells_per_block
+        flops = sum(min(cb, C - b * cb) * ((it + 2) * 2.0 * n * n * s + (it + 1) * 2.0 * K * n * s)
+                    for b, it in enumerate(itk))
+        rec["gflop"] = flops / 1e9
         rec["bound_ms"], rec["bound_by"] = bound(flops, 4.0 * (K * n * C + 2 * n * s * C + n * n))
-    ok = (math.isfinite(rec["rel_err"]) and rec["rel_err"] < K1_RTOL
-          and abs(rec["iters_kernel"] - rec["iters_plain"]) <= K1_ITER_SLACK)
+    ok = (math.isfinite(rec["rel_err"]) and rec["rel_err"] < K1_RTOL and slack <= K1_ITER_SLACK)
     return rec, ok
 
 
 def phase_stencil(device):
     """K1 at the main path's chunk (16x16 micro, 2048 cells), at a ragged
-    chunk (padded blocks) and on an 8x8x8 micro mesh (n = 512, K = 15:
-    dynamic shared memory above the 48 KB default)."""
+    chunk (padded blocks) and on an 8x8x8 micro mesh (n = 512, s = 3,
+    K = 15: the widest shape, 8 cells a block); the first and the last
+    timed."""
     import numpy as np
     import torch
 
@@ -401,7 +423,7 @@ def phase_stencil(device):
     eng2 = MicroEngine(create_unit_square(16, 16), device=device, dtype=torch.float32)
     eng3 = MicroEngine(create_unit_cube(8), device=device, dtype=torch.float32)
     cases = (("2d16_C2048", eng2, 2048, True), ("2d16_C37", eng2, 37, False),
-             ("3d8_C1000", eng3, 1000, False))
+             ("3d8_C1000", eng3, 1000, True))
     main, failed = None, []
     for name, eng, C, timed in cases:
         centers = torch.as_tensor(rng.uniform(0, 1, (C, eng.d)), dtype=torch.float32,

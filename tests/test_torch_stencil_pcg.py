@@ -109,6 +109,74 @@ def test_dispatch_is_by_device_and_kernel_module_imports_without_cuda():
         k1.stencil_pcg_cuda(*args)
 
 
+def _chunk(C, seed=11):
+    """A float32 square6 chunk of C cells: (args without tol/maxiter)."""
+    te = ht.MicroEngine(port_mesh(hx.create_unit_square(6)), dtype=torch.float32, device="cpu")
+    st = te._get_stencil()
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 3.0, (C, te.nE))
+    F = rng.standard_normal((te.n_reduced, te.s, C)) * (~te.pin_np)[:, None, None]
+    ws = stencil_weights(st, torch.as_tensor(a, dtype=torch.float32))
+    return ws, torch.as_tensor(F, dtype=torch.float32), te._get_K0inv(), st.shape, st.offsets
+
+
+def test_plain_block_of_whole_chunk_is_bitwise_unblocked():
+    """``block=C`` runs the one lockstep loop of the unblocked version."""
+    args = (*_chunk(37), 1e-5, 200)
+    X0, it0 = k1.stencil_pcg_plain(*args)
+    X1, it1 = k1.stencil_pcg_plain(*args, block=37)
+    assert it1 == it0 and torch.equal(X1, X0)
+
+
+def test_plain_block16_equals_blocks_solved_apart():
+    """``block=16`` on 37 cells is the three runs 0:16, 16:32, 32:37 solved
+    apart: concatenated iterates, the largest count, and the per-block
+    counts with ``per_block``."""
+    ws, F, Minv, shape, offsets = _chunk(37)
+    X, it = k1.stencil_pcg_plain(ws, F, Minv, shape, offsets, 1e-5, 200, block=16)
+    _, its = k1.stencil_pcg_plain(ws, F, Minv, shape, offsets, 1e-5, 200, block=16,
+                                  per_block=True)
+    parts = [
+        k1.stencil_pcg_plain([w[:, a:b] for w in ws], F[:, :, a:b], Minv, shape, offsets,
+                             1e-5, 200)
+        for a, b in ((0, 16), (16, 32), (32, 37))
+    ]
+    assert its == [k for _, k in parts] and it == max(its)
+    assert torch.equal(X, torch.cat([Xb for Xb, _ in parts], dim=2))
+
+
+@pytest.mark.parametrize(
+    "n, s, K, want",
+    [
+        # CB 16, 512 threads (64 rows of 8 column groups, 4 rows a thread):
+        # R 256·32·4 + P 256·32·4 + 2 slabs 2·256·20·4 + column sums of
+        # 16 warps · 8 groups a warp · 2 quantities · 4 columns · 4 B
+        (256, 2, 7, (16, 512, 4, 32768 + 32768 + 40960 + 4096)),
+        # s·CB = 48 at CB 16 fits no thread count (R + P alone 192 KB); CB 8,
+        # 384 threads (64 rows of 6 groups, 8 rows a thread): R 512·24·4 +
+        # P 512·24·4 + 2 slabs 2·512·20·4 + 12 warps · 2 groups a warp ·
+        # 2 · 4 · 4 B
+        (512, 3, 15, (8, 384, 8, 49152 + 49152 + 81920 + 768)),
+    ],
+)
+def test_launch_config_matches_hand_count(n, s, K, want):
+    """The main path's (16² torus, K = 7) and the 8³ mesh's (K = 15)
+    configuration; K does not enter (weights and neighbours stay in global
+    memory).  Shared memory within the H100's 227 KB."""
+    cfg = k1.launch_config(n, s)
+    got = (cfg.cells_per_block, cfg.threads, cfg.rows_per_thread, cfg.smem_bytes)
+    assert got == want
+    assert cfg.smem_bytes <= 227 * 1024
+
+
+@pytest.mark.parametrize("n, s, limit", [(256, 4, "s = 4"), (1000, 3, "shared memory")])
+def test_launch_config_raises_above_its_limit(n, s, limit):
+    """Four right-hand sides, or R, P and the Minv slabs past 227 KB at the
+    narrowest block, raise and name the limit; no other route is taken."""
+    with pytest.raises(ValueError, match=limit):
+        k1.launch_config(n, s)
+
+
 def test_neighbour_table_is_the_torus_roll():
     """The kernel's (K, n) neighbour table reproduces roll(P, -Δ_k)."""
     for name in sorted(MESHES):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K2 and the Poisson slice of two trees, in turns, on one NVIDIA GPU.
+"""K1, K2 and the Poisson slice of two trees, in turns, on one NVIDIA GPU.
 
     python3 tools/compare_slice.py --base DIR [--out FILE]
 
@@ -9,9 +9,14 @@ without one.  ``DIR`` is another checkout of the repository (for instance
 trees run in the order base, this, this, base, each turn in a process of
 its own (the two ``hommx_tpu_torch`` packages cannot share one): the turn
 builds that tree's kernels and runs its own ``chip_smoke.py`` phases
-``dia`` (K2 against its plain version and the CSR product, with times)
-and ``slice`` (the 512² macro / 16² micro Poisson solve, cold then warm,
-with the macro CG's seconds and iterations).  It prints one JSON line per
+``dia`` (K2 against its plain version and the CSR product, with times),
+``stencil`` (K1 against its plain version, timed at the main path's
+2048-cell chunk; trees that time it also do so on the 8³ mesh's
+1000-cell chunk) and ``slice`` (the 512² macro / 16² micro Poisson
+solve, cold then warm, with the micro and macro seconds); between the
+last two it times K1 on both of those chunks with this script's own code
+(``k1_times``), which calls only the wrapper ``stencil_pcg_cuda`` that
+the two trees share.  It prints one JSON line per
 turn and phase record, and with ``--out FILE`` writes all records there.
 """
 
@@ -25,6 +30,31 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+
+
+def k1_times(device) -> None:
+    """K1's CUDA-event time on the main path's 2048-cell chunk and on a
+    1000-cell chunk of the 8³ mesh, the same inputs in every tree."""
+    import numpy as np
+    import torch
+    from chip_smoke import emit, flagship, time_ms
+
+    from hommx_tpu_torch import MicroEngine, create_unit_cube, create_unit_square
+    from hommx_tpu_torch.micro.chunk import chunk_system
+    from hommx_tpu_torch.micro.stencil_pcg import stencil_pcg_cuda
+
+    rng = np.random.default_rng(5)
+    for name, mesh, C in (("2d16_C2048", create_unit_square(16, 16), 2048),
+                          ("3d8_C1000", create_unit_cube(8), 1000)):
+        eng = MicroEngine(mesh, device=device, dtype=torch.float32)
+        centers = torch.as_tensor(rng.uniform(0, 1, (C, eng.d)), dtype=torch.float32,
+                                  device=device)
+        cs = chunk_system(eng, flagship, centers)
+        ws_s, Fs = cs.scaled()
+        args = (ws_s, Fs, cs.Minv, cs.st.shape, cs.st.offsets, eng.pcg_tol, eng.pcg_maxiter)
+        _, it = stencil_pcg_cuda(*args)
+        emit({"phase": "k1_time", "case": name, "iters": int(it),
+              "ms": time_ms(lambda: stencil_pcg_cuda(*args), reps=20)})
 
 
 def turn(tree: str) -> int:
@@ -41,6 +71,8 @@ def turn(tree: str) -> int:
     torch.cuda.set_device(device)
     chip_smoke.phase_build()
     chip_smoke.phase_dia(device)
+    chip_smoke.phase_stencil(device)
+    k1_times(device)
     chip_smoke.phase_slice(device)
     return 0
 
