@@ -21,14 +21,18 @@ prints no result line):
                chunk of an 8x8x8 micro mesh; the first and the last timed,
                with one float32 matmul of Minv by the chunk's loads as a
                yardstick for the product alone
-5. chol_solve  K3 vs its plain version on (a) one 1080-cell chunk of the
-               beam's equilibrated cell systems (n = 192, s = 6; timed, with
-               torch.linalg.solve as yardstick), (b) a ragged 37-cell chunk
-               on the 3x3x3 micro cube (n = 81), (c) the 2D 4x4 micro square
-               (n = 32, s = 3), (d) a batch with one indefinite cell, (e)
-               a well-conditioned random SPD batch at n = 192, s = 6 and
-               (f) the refinement sweep against its float64 model, with the
-               unrefined plain version as the control that must fail
+5. chol_solve  K3 (the blocked Cholesky over packed lower tiles) vs its
+               plain version on (a) one 1080-cell chunk of the beam's
+               equilibrated cell systems (n = 192, s = 6; timed, with
+               torch.linalg.solve as yardstick, and the launch
+               configuration, resident blocks per SM and ptxas's registers
+               and spills), (b) a ragged 37-cell chunk on the 3x3x3 micro
+               cube (n = 81), (c) the 2D 4x4 micro square (n = 32, s = 3),
+               (d) a batch with one indefinite cell, (e) a well-conditioned
+               random SPD batch at n = 192, s = 6, (f) the refinement sweep
+               against its float64 model, with the unrefined plain version
+               as the control that must fail, and (g) a well-conditioned
+               SPD batch at the kernel's largest n (max_kernel_n(6) = 288)
 6. golden      PoissonHMM golden configuration (8x8 macro, 8x8 micro) in
                float32 through K1 and the direct macro solve, vs the frozen
                float64 functionals
@@ -563,15 +567,32 @@ def _cell_systems(eng, coeff, centers, G_fn=None):
     return Ks, Fs, lambda X: cs.astar(eng, X * sc[:, None, :])
 
 
+def _spd_batch(device, C, n, s, seed):
+    """A well-conditioned random SPD batch: K (C, n, n), F (n, s, C)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    G = torch.randn((C, n, n), generator=g, device=device)
+    K = G @ G.transpose(1, 2) / n + torch.eye(n, device=device)
+    return K, torch.randn((n, s, C), generator=g, device=device)
+
+
+def _ptxas_lines(kernel) -> list:
+    """ptxas's registers and spills from ``kernel``'s build in this process."""
+    return [line.strip() for line in kernel.build_log.splitlines()
+            if any(w in line for w in ("registers", "spill"))]
+
+
 def phase_chol(device, chunk: int = 1080):
     """K3 at the beam's chunk (timed), on a ragged chunk of the 3³ cube, on
     the 2D 4² square, on a batch with one indefinite cell, on a
-    well-conditioned random batch at the beam's n and s, and against the
-    float64 model of its refinement sweep."""
+    well-conditioned random batch at the beam's n and s, against the
+    float64 model of its refinement sweep, and at its largest n."""
     import numpy as np
     import torch
 
     from hommx_tpu_torch import MicroEngine, create_box, create_unit_cube, create_unit_square
+    from hommx_tpu_torch.ops import chol_kernel
     from hommx_tpu_torch.ops.chol_kernel import fused_chol_solve_cuda, fused_chol_solve_plain
     from hommx_tpu_torch.utils.validation import hooke_tensor
 
@@ -597,7 +618,12 @@ def phase_chol(device, chunk: int = 1080):
     flops = C * (n**3 / 3 + 4.0 * n * n * s + 2.0 * n * n * s)
     bound_ms, bound_by = bound(flops, 4.0 * C * (n * n + 2 * n * s))
     Fb = Fs.permute(2, 0, 1).contiguous()
-    main = {"phase": "chol_solve", "case": f"a_beam_C{C}", "cells": C, "n": n, "s": s, **rec,
+    cfg = chol_kernel.chol_launch_config(n, s)
+    main = {"phase": "chol_solve", "case": f"a_beam_C{C}", "cells": C, "n": n, "s": s,
+            "threads": cfg.threads, "panels": cfg.panels, "smem_bytes": cfg.smem_bytes,
+            "blocks_per_sm_config": cfg.blocks_per_sm,
+            "blocks_per_sm": chol_kernel.blocks_per_sm(cfg),
+            "ptxas": _ptxas_lines(chol_kernel.KERNEL), **rec,
             "ms": time_ms(lambda: fused_chol_solve_cuda(Ks, Fs), reps=20),
             "plain_ms": time_ms(lambda: fused_chol_solve_plain(Ks, Fs), reps=5, warmup=1),
             "library_ms": time_ms(lambda: torch.linalg.solve(Ks, Fb), reps=20),
@@ -626,11 +652,12 @@ def phase_chol(device, chunk: int = 1080):
     cases.append(("d_indefinite_cell3", Kd, Fs, [c for c in range(Ks.shape[0]) if c != 3],
                   None, False))
     # (e) well-conditioned SPD batch at the beam's n and s: X itself agrees
-    g = torch.Generator(device=device).manual_seed(7)
-    G = torch.randn((256, n, n), generator=g, device=device)
-    Ke = G @ G.transpose(1, 2) / n + torch.eye(n, device=device)
-    Fe = torch.randn((n, s, 256), generator=g, device=device)
+    Ke, Fe = _spd_batch(device, 256, n, s, 7)
     cases.append((f"e_spd_C256_n{n}", Ke, Fe, None, None, True))
+    # (g) the same at the kernel's largest n: the limit runs
+    n_max = chol_kernel.max_kernel_n(s)
+    Kg, Fg = _spd_batch(device, 264, n_max, s, 8)
+    cases.append((f"g_spd_C264_n{n_max}", Kg, Fg, None, None, True))
     for name, K, F, ok_cells, amap, strict in cases:
         rec, ok = _k3_compare(K, F, ok_cells, amap, strict)
         emit({"phase": "chol_solve", "case": name, "cells": K.shape[0], "n": K.shape[1],

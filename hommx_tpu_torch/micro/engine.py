@@ -159,7 +159,7 @@ class MicroEngine:
                 raise NotImplementedError(
                     f"the Cholesky kernel K3 holds a cell in shared memory: n = "
                     f"{self.n_reduced} exceeds its limit n <= {max_kernel_n(self.s)} "
-                    f"at s = {self.s} (ROADMAP A7)"
+                    f"at s = {self.s} (ROADMAP B5)"
                 )
         if pcg_tol is None:
             pcg_tol = 1e-5 if self.dtype == torch.float32 else 1e-11

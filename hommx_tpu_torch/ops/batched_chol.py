@@ -10,7 +10,8 @@ mean a non-SPD block gives large-but-finite factors instead of raising, as
 ``torch.linalg.cholesky`` would.
 
 These are the body of K3's plain version (``ops/chol_kernel.py::
-fused_chol_solve_plain``); the CUDA kernel itself does not block.  The
+fused_chol_solve_plain``); the CUDA kernel runs the same blocked algorithm
+(nb = 32) on its own tiles.  The
 reference's ``scan_*`` variants (one large matrix as a fixed-shape scan)
 are not on the port's path (ROADMAP A7).
 """

@@ -30,10 +30,12 @@ def _cell_minor(F):
     return np.moveaxis(F, 0, -1)  # (C, n, s) -> (n, s, C)
 
 
-@pytest.mark.parametrize("C,n,s", [(5, 40, 3), (9, 33, 2)])
+@pytest.mark.parametrize("C,n,s", [(5, 40, 3), (9, 33, 2), (4, 81, 6)])
 def test_plain_f32_matches_jax_kernel(C, n, s):
     """float32, the JAX fused kernel in interpret mode: within 5e-6
-    relative (the same algorithm in another summation order)."""
+    relative (the same algorithm in another summation order).  (4, 81, 6)
+    is the CUDA kernel's shape class: the beam's s and padding across
+    three panels."""
     K, F = _spd_batch(C, n, s)
     K32, F32 = K.astype(np.float32), _cell_minor(F).astype(np.float32)
     X_ref = np.asarray(jax_fused_chol_solve(jnp.asarray(K32), jnp.asarray(F32), body="rolled"))
@@ -86,13 +88,45 @@ def test_dispatch_is_by_device():
 
 
 def test_kernel_size_limit():
-    """The kernel holds a cell's n×n operator, diagonal and two (n, s)
-    right-hand-side arrays in shared memory: n = 192 at s = 6 (the beam's
-    cells) fits, and an f32 CUDA engine above the limit refuses at
-    construction, before it touches the device."""
-    assert k3.kernel_smem_bytes(192, 6) == 4 * (192 * 192 + 192 + 2 * 192 * 6)
-    assert k3.max_kernel_n(6) == 234
-    assert k3.kernel_smem_bytes(234, 6) <= 232448 < k3.kernel_smem_bytes(235, 6)
-    with pytest.raises(NotImplementedError, match="n = 375"):
+    """The kernel holds a cell's lower 32 x 32 tiles (P(P+1)/2 of them, P =
+    ceil(n/32)) and two (32 P, s) right-hand-side arrays in shared memory:
+    at n = 192, s = 6, 21 tiles and 2 x 192 x 6 floats.  9 panels (n = 288)
+    fit the 232,448 bytes a block may take, 10 do not.  An f32 CUDA engine
+    above the limit refuses at construction, naming it and ROADMAP B5,
+    before it touches the device."""
+    assert k3.kernel_smem_bytes(192, 6) == 4 * (21 * 32 * 32 + 2 * 192 * 6) == 95232
+    assert k3.max_kernel_n(6) == 288
+    assert k3.kernel_smem_bytes(288, 6) == 4 * (45 * 1024 + 2 * 288 * 6) == 198144 <= 232448
+    assert k3.kernel_smem_bytes(289, 6) == 4 * (55 * 1024 + 2 * 320 * 6) == 240640 > 232448
+    with pytest.raises(NotImplementedError, match=r"n = 375 exceeds its limit n <= 288.*B5"):
         ht.MicroEngine(ht.create_unit_cube(5), bs=3, coeff_kind="tensor4",
                        dtype=torch.float32, device="cuda")
+
+
+@pytest.mark.parametrize(
+    "n,s,panels,smem,blocks",
+    [
+        # 21 tiles + 2 x 192 x 6 floats; two blocks: 2 x (95,232 + 1,024) <= 233,472
+        (192, 6, 6, 4 * (21 * 1024 + 2 * 192 * 6), 2),
+        # n = 81 pads to 96: 6 tiles + 2 x 96 x 6 floats
+        (81, 6, 3, 4 * (6 * 1024 + 2 * 96 * 6), 2),
+        # the 2D 4x4 square: one tile + 2 x 32 x 3 floats
+        (32, 3, 1, 4 * (1024 + 2 * 32 * 3), 2),
+        # the limit: 45 tiles + 2 x 288 x 6 floats, one block an SM
+        (288, 6, 9, 4 * (45 * 1024 + 2 * 288 * 6), 1),
+    ],
+)
+def test_chol_launch_config_hand_counts(n, s, panels, smem, blocks):
+    cfg = k3.chol_launch_config(n, s)
+    assert cfg == k3.K3Config(threads=256, panels=panels, tile_stride=32, smem_bytes=smem,
+                              blocks_per_sm=blocks)
+    assert cfg.smem_bytes == k3.kernel_smem_bytes(n, s)
+
+
+def test_chol_launch_config_raises_above_limit():
+    """One past the limit, and s outside 1..8, raise ValueError naming the
+    limit; the CUDA wrapper refuses such shapes before it builds anything."""
+    with pytest.raises(ValueError, match="n = 289 exceeds its shared-memory limit n <= 288 at s = 6"):
+        k3.chol_launch_config(289, 6)
+    with pytest.raises(ValueError, match="takes 1 to 8"):
+        k3.chol_launch_config(32, 9)

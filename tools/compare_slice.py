@@ -1,23 +1,32 @@
 #!/usr/bin/env python3
-"""K1, K2 and the Poisson slice of two trees, in turns, on one NVIDIA GPU.
+"""K1, K2, K3 and the two slices of two trees, in turns, on one NVIDIA GPU.
 
-    python3 tools/compare_slice.py --base DIR [--out FILE]
+    python3 tools/compare_slice.py --base DIR [--groups poisson,elasticity] [--out FILE]
 
 Run from the repository root on a machine with one CUDA card; it fails
 without one.  ``DIR`` is another checkout of the repository (for instance
 ``git archive <commit>`` unpacked into a git-ignored directory).  The two
 trees run in the order base, this, this, base, each turn in a process of
 its own (the two ``hommx_tpu_torch`` packages cannot share one): the turn
-builds that tree's kernels and runs its own ``chip_smoke.py`` phases
-``dia`` (K2 against its plain version and the CSR product, with times),
-``stencil`` (K1 against its plain version, timed at the main path's
-2048-cell chunk; trees that time it also do so on the 8³ mesh's
-1000-cell chunk) and ``slice`` (the 512² macro / 16² micro Poisson
-solve, cold then warm, with the micro and macro seconds); between the
-last two it times K1 on both of those chunks with this script's own code
-(``k1_times``), which calls only the wrapper ``stencil_pcg_cuda`` that
-the two trees share.  It prints one JSON line per
-turn and phase record, and with ``--out FILE`` writes all records there.
+builds that tree's kernels and runs its own ``chip_smoke.py`` phases.
+
+- ``poisson``: ``dia`` (K2 against its plain version and the CSR product,
+  with times), ``stencil`` (K1 against its plain version, timed at the main
+  path's 2048-cell chunk; trees that time it also do so on the 8³ mesh's
+  1000-cell chunk) and ``slice`` (the 512² macro / 16² micro Poisson
+  solve, cold then warm, with the micro and macro seconds); between the
+  last two it times K1 on both of those chunks with this script's own code
+  (``k1_times``), which calls only the wrapper ``stencil_pcg_cuda`` that
+  the two trees share.
+- ``elasticity``: ``chol`` (K3 against its plain version, timed at the
+  beam's 1080-cell chunk with ``torch.linalg.solve`` beside it), then
+  ``k3_times`` (this script's own code: both trees' ``fused_chol_solve_cuda``
+  on that chunk and on the 8640-cell elasticity micro stage's eight
+  chunks), then ``slice_elasticity`` (the beam, cold then warm, and the
+  stage's seconds).
+
+It prints one JSON line per turn and phase record, and with ``--out FILE``
+writes all records there.
 """
 
 from __future__ import annotations
@@ -57,7 +66,41 @@ def k1_times(device) -> None:
               "ms": time_ms(lambda: stencil_pcg_cuda(*args), reps=20)})
 
 
-def turn(tree: str) -> int:
+def k3_times(device, chunk: int = 1080, cells: int = 8640) -> None:
+    """K3's CUDA-event time on phase 5 case (a)'s chunk (the beam's first
+    1080 cells) and on the elasticity micro stage at the bench row's size
+    (8640 fresh cells, x-dependent fibre modulus, eight 1080-cell chunks,
+    all eight launches timed together), the same inputs in every tree."""
+    import numpy as np
+    import torch
+    from chip_smoke import (BEAM_H, BEAM_L, BEAM_W, _cell_systems, beam_coeff, beam_rotation,
+                            emit, time_ms)
+
+    from hommx_tpu_torch import MicroEngine, create_box, create_unit_cube
+    from hommx_tpu_torch.ops.chol_kernel import fused_chol_solve_cuda
+
+    eng = MicroEngine(create_unit_cube(4), bs=3, coeff_kind="tensor4", dtype=torch.float32,
+                      device=device)
+    macro = create_box([[0, 0, 0], [BEAM_L, BEAM_W, BEAM_H]], [20, 6, 6])
+    centers = torch.as_tensor(macro.vertices[macro.cells].mean(axis=1)[:chunk],
+                              dtype=torch.float32, device=device)
+    Ks, Fs, _ = _cell_systems(eng, beam_coeff(False), centers, beam_rotation)
+    emit({"phase": "k3_time", "case": f"a_beam_C{chunk}", "launches": 1,
+          "ms": time_ms(lambda: fused_chol_solve_cuda(Ks, Fs), reps=20)})
+    stage_centers = torch.as_tensor(np.random.default_rng(1).uniform(0, 1, (cells, 3)),
+                                    dtype=torch.float32, device=device)
+    systems = [_cell_systems(eng, beam_coeff(True), stage_centers[a:a + chunk], beam_rotation)[:2]
+               for a in range(0, cells, chunk)]
+
+    def stage():
+        for K, F in systems:
+            fused_chol_solve_cuda(K, F)
+
+    emit({"phase": "k3_time", "case": f"stage_C{cells}", "launches": len(systems),
+          "ms": time_ms(stage, reps=10)})
+
+
+def turn(tree: str, groups: list) -> int:
     """One turn: the phases of the ``chip_smoke.py`` found in ``tree``."""
     import torch
 
@@ -70,27 +113,38 @@ def turn(tree: str) -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     chip_smoke.phase_build()
-    chip_smoke.phase_dia(device)
-    chip_smoke.phase_stencil(device)
-    k1_times(device)
-    chip_smoke.phase_slice(device)
+    if "poisson" in groups:
+        chip_smoke.phase_dia(device)
+        chip_smoke.phase_stencil(device)
+        k1_times(device)
+        chip_smoke.phase_slice(device)
+    if "elasticity" in groups:
+        chip_smoke.phase_chol(device)
+        k3_times(device)
+        chip_smoke.phase_slice_elasticity(device)
     return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--base", help="the other tree, run first and last")
+    ap.add_argument("--groups", default="poisson,elasticity",
+                    help="comma-separated phase groups: poisson, elasticity")
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     ap.add_argument("--out", help="write all records to this JSON file")
     args = ap.parse_args()
+    groups = [g for g in args.groups.split(",") if g]
+    if not groups or set(groups) - {"poisson", "elasticity"}:
+        ap.error(f"--groups: unknown group in {args.groups!r}")
     if args.turn:
-        return turn(args.turn)
+        return turn(args.turn, groups)
     if not args.base:
         ap.error("--base is required")
     trees = {"base": str(Path(args.base).resolve()), "this": str(ROOT)}
     records = []
     for i, label in enumerate(("base", "this", "this", "base")):
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn", trees[label]],
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn", trees[label],
+                              "--groups", ",".join(groups)],
                              capture_output=True, text=True, timeout=900)
         for line in res.stdout.splitlines():
             if line.startswith("{"):
