@@ -63,8 +63,25 @@ prints no result line):
                the float64 multigrid CG through K2's float64 instance, held
                against a float64 LU solve of the same system (and beside
                the direct route's Cholesky of its symmetric part)
+10. default-argument runs (cell dedup on, the models' default):
+   slice_default  the flagship of slice_mg with dedup: unique cells (2 per
+               macro column), the fingerprint's seconds; A*, the float64
+               solutions of both systems and u against slice_mg's run
+   golden_stratified  the poisson_stratified golden (PoissonStratifiedHMM,
+               8x8 macro, 8x8 micro) in float32 through K1
+   slice_stratified  examples/diffusion/laminate.py's coefficient and map
+               (contrast 100), Darcy boundary conditions, 512x512 macro,
+               30x30 micro (K1 at n = 900): unique cells, K1's iterations
+               per block, diverged cells
+   slice_stratified_full  the same at 128x128 with dedup off (every cell
+               through K1) and on: u against u, A* of 1024 cells against the
+               plain route in float64
+   slice_elasticity_dedup  the beam with dedup at 20x6x6 and at 40x12x12
+               (with the audit, dedup_verify=8), A* and u against the
+               dedup-off runs of slice_elasticity and slice_elasticity_cg
 
-The line before the last is the kernels' JSON record, the last line
+Phases 1-9 pass ``dedup_cells=False`` and so solve every cell, as before
+the models' default became dedup.  The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -94,6 +111,8 @@ BEAM_CG_RTOL = 1e-6  # float64 MG-CG of the beam vs the float64 LU solve of its 
 K3_RTOL = 5e-5  # residual, A*, X where well-conditioned, X vs the refinement model
 K3_PLAIN_FACTOR = 2.0  # kernel residual and float64 distance, at most this times plain's
 SLICE_ASTAR_RTOL = 1e-4  # float32 slice vs plain float64 port
+DEDUP_RTOL = 1e-4  # the answer with dedup vs without, max norm, relative
+GOLDEN_POISSON_STRATIFIED = (0.03822425690690816, 0.06951174381273492)
 
 # NVIDIA H100 SXM peaks (data sheet, dense): float32 outside the tensor
 # cores and device memory bandwidth, for each kernel's least time
@@ -182,6 +201,59 @@ def beam_rotation(x):
                         torch.stack([-s, z, c])]).T
 
 
+def golden_stratified_coeff(x, y):
+    """The golden poisson_stratified wavy laminate: 2 or 0.5 in y₁."""
+    import torch
+
+    one = torch.ones((), dtype=y.dtype, device=y.device)
+    return torch.where(torch.sin(2 * torch.pi * y[1]) > 0.0, 2.0 * one, 0.5 * one)
+
+
+def golden_stratified_dtheta(x):
+    """Dθᵀ for θ(x) = (x₀, x₁ − sin 2πx₀)."""
+    import torch
+
+    z, o = torch.zeros_like(x[0]), torch.ones_like(x[0])
+    return torch.stack([torch.stack([o, -2.0 * torch.pi * torch.cos(2.0 * torch.pi * x[0])]),
+                        torch.stack([z, o])])
+
+
+def laminate_coeff(x, y):
+    """examples/diffusion/laminate.py: 5 or 0.05 by the sign of cos 2πy₀."""
+    import torch
+
+    one = torch.ones((), dtype=y.dtype, device=y.device)
+    return torch.where(torch.cos(2 * torch.pi * y[0]) < 0, 5.0 * one, 0.05 * one)
+
+
+def laminate_dtheta(x):
+    """Dθᵀ for the laminate's θ(x) = (x₁ − sin 2πx₀, x₀)."""
+    import torch
+
+    z, o = torch.zeros_like(x[0]), torch.ones_like(x[0])
+    return torch.stack([torch.stack([-2 * torch.pi * torch.cos(2 * torch.pi * x[0]), o]),
+                        torch.stack([o, z])])
+
+
+def darcy(hmm):
+    """u = 1 on the left edge, 0 on the right, natural elsewhere."""
+    import numpy as np
+
+    from hommx_tpu_torch import dirichletbc
+    from hommx_tpu_torch.ops.function_space import boundary_dofs
+
+    V = hmm.function_space
+    lo, hi = V.mesh.bounding_box()
+    left = boundary_dofs(V, lambda x: np.isclose(x[0], lo[0]))
+    right = boundary_dofs(V, lambda x: np.isclose(x[0], hi[0]))
+    hmm.set_boundary_conditions([dirichletbc(1.0, left, V), dirichletbc(0.0, right, V)])
+
+
+def rel_diff(u, v) -> float:
+    """max |u − v| / max |v| in float64."""
+    return float((u.double() - v.double()).abs().max() / v.double().abs().max())
+
+
 def clamp_x0(hmm):
     """Clamp every dof on the x₀ = 0 face."""
     import numpy as np
@@ -195,11 +267,11 @@ def clamp_x0(hmm):
     )
 
 
-def make_beam(device, macro_n=(20, 6, 6)):
+def make_beam(device, macro_n=(20, 6, 6), **kw):
     """The rotated-fiber beam of examples/linear_elasticity/rotated_fibers.py
     in float32: LinearElasticityStratifiedHMM on a macro box of
     ``macro_n`` cells per axis with a 4³ micro cube, f = (0, 0, −0.05·W²),
-    clamped at x₀ = 0, no cell dedup."""
+    clamped at x₀ = 0; no cell dedup unless ``kw`` asks for it."""
     import torch
 
     from hommx_tpu_torch import LinearElasticityStratifiedHMM, create_box, create_unit_cube
@@ -208,7 +280,8 @@ def make_beam(device, macro_n=(20, 6, 6)):
     f = torch.tensor([0.0, 0.0, -0.05 * (BEAM_W / BEAM_L) ** 2], dtype=torch.float64)
     hmm = LinearElasticityStratifiedHMM(macro, beam_coeff(False), lambda x: f,
                                         create_unit_cube(4), 2**-5, beam_rotation,
-                                        dtype=torch.float32, device=device, dedup_cells=False)
+                                        dtype=torch.float32, device=device,
+                                        **{"dedup_cells": False, **kw})
     clamp_x0(hmm)
     return hmm
 
@@ -723,7 +796,7 @@ def phase_golden(device):
 
     macro, micro = create_unit_square(8, 8), create_unit_square(8, 8)
     hmm = PoissonHMM(macro, golden_coeff, lambda x: 1.0, micro, 0.1 / 8,
-                     dtype=torch.float32, device=device)
+                     dtype=torch.float32, device=device, dedup_cells=False)
     u = hmm.solve().array
     l2 = float(l2_norm_fn(hmm._sys.verts64, hmm._sys.cells, u.double()))
     umax = float(u.abs().max())
@@ -747,7 +820,7 @@ def phase_golden_elasticity(device):
     f = torch.tensor([0.0, 0.0, -0.008], dtype=torch.float64)
     hmm = LinearElasticityStratifiedHMM(macro, beam_coeff(False), lambda x: f,
                                         create_unit_cube(3), 2**-5, beam_rotation,
-                                        dtype=torch.float32, device=device)
+                                        dtype=torch.float32, device=device, dedup_cells=False)
     clamp_x0(hmm)
     u = hmm.solve().array
     l2 = float(l2_norm_fn(hmm._sys.verts64, hmm._sys.cells, u.double()))
@@ -777,7 +850,7 @@ def phase_slice(device):
     for label in ("cold", "warm"):
         t0 = time.perf_counter()
         hmm = PoissonHMM(macro, flagship, 1.0, micro, 2**-5, opts,
-                         dtype=torch.float32, device=device, chunk=2048)
+                         dtype=torch.float32, device=device, chunk=2048, dedup_cells=False)
         t_setup = time.perf_counter() - t0
         k2_before = dia.KERNEL.launches
         u = hmm.solve().array
@@ -846,8 +919,7 @@ def _rebuild_system(hmm, macro_f64: bool):
     from hommx_tpu_torch.models.common import assemble_macro_system, merge_bcs
 
     sys = hmm._sys
-    dtype = torch.float64 if macro_f64 else hmm._dtype
-    mask, bvals = merge_bcs(hmm._bcs, hmm.function_space.num_dofs, dtype, hmm._device)
+    mask, bvals = merge_bcs(hmm._bcs, hmm.function_space.num_dofs, torch.float64, hmm._device)
     return assemble_macro_system(sys, hmm.homogenized_tensors(), hmm._b_load, mask, bvals,
                                  macro_f64=macro_f64)
 
@@ -874,7 +946,7 @@ def phase_slice_mg(device, u_jacobi, jacobi):
     for label in ("cold", "warm"):
         t0 = time.perf_counter()
         hmm = PoissonHMM(macro, flagship, 1.0, micro, 2**-5, opts,
-                         dtype=torch.float32, device=device, chunk=2048)
+                         dtype=torch.float32, device=device, chunk=2048, dedup_cells=False)
         t_setup = time.perf_counter() - t0
         k2_before = dia.KERNEL.launches
         solvers.STOP_TEST.readbacks = 0
@@ -983,7 +1055,7 @@ def phase_slice_mg(device, u_jacobi, jacobi):
                     for pc in loops for key, runs in cg.items() if key.startswith(pc)
                     for c in runs)):
         raise AssertionError(f"multigrid slice check failed: {rec}")
-    return launches
+    return launches, hmm
 
 
 def phase_slice_elasticity(device, macro_n=(20, 6, 6), cells: int = 8640, chunk: int = 1080,
@@ -1058,7 +1130,7 @@ def phase_slice_elasticity(device, macro_n=(20, 6, 6), cells: int = 8640, chunk:
     emit(rec)
     if not (rec["finite"] and stage_launches >= 1 and rel < SLICE_ASTAR_RTOL):
         raise AssertionError(f"bench-size micro stage failed its checks: {rec}")
-    return launches
+    return {"chol_solve": launches}, hmm
 
 
 def phase_slice_elasticity_cg(device, macro_n=(40, 12, 12)):
@@ -1125,7 +1197,311 @@ def phase_slice_elasticity_cg(device, macro_n=(40, 12, 12)):
             and rec["solve_ell_f64_rel_diff_to_lu"] < BEAM_CG_RTOL
             and rec["diverged_cells"] == 0 and rec["nan_cells"] == 0):
         raise AssertionError(f"beam multigrid CG run failed its checks: {rec}")
+    return launches, hmm
+
+
+def _solve_record(phase, hmm, t_setup):
+    """Time the dedup fingerprint (when dedup is on; ``solve()`` then finds
+    it cached) and the solve; the record of the run and its u."""
+    import torch
+
+    from hommx_tpu_torch.ops import dia
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if hmm._dedup_cells:
+        hmm._dedup_classes(hmm._sys.centers)
+    torch.cuda.synchronize()
+    t_fp = time.perf_counter() - t0
+    k2_before = dia.KERNEL.launches
+    t0 = time.perf_counter()
+    u = hmm.solve().array
+    torch.cuda.synchronize()
+    dg = hmm.diagnostics
+    rec = {"phase": phase, "dedup_cells": hmm._dedup_cells, "setup_seconds": t_setup,
+           "fingerprint_seconds": t_fp, "solve_seconds": time.perf_counter() - t0,
+           "micro_seconds": dg["micro_seconds"], "macro_seconds": dg["macro_seconds"],
+           "macro_method": hmm._macro_method, "macro_iterations": dg["macro_iterations"],
+           "macro_steps": dg["macro_steps"], "dia_spmv_launches": dia.KERNEL.launches - k2_before,
+           "num_cells": dg["num_cells"], "unique_cells": dg["unique_cells"],
+           "dofs": hmm.function_space.num_dofs,
+           "diverged_cells": int(dg["diverged_cells"].size),
+           "fallback_cells": int(dg["fallback_cells"].size),
+           "nan_cells": int(dg["nan_cells"].size),
+           "finite": bool(torch.isfinite(u).all()), "max_u": float(u.abs().max())}
+    return rec, u
+
+
+def _run_ok(rec) -> bool:
+    """Finite u, no NaN or diverged cell, and a CG that stopped in time with
+    one K2 launch per loop step."""
+    cg_ok = rec["macro_method"] != "cg" or (rec["macro_iterations"] < 20000 and _cg_counts_ok(rec))
+    return rec["finite"] and rec["diverged_cells"] == 0 and rec["nan_cells"] == 0 and cg_ok
+
+
+def _k1_block_iters(hmm):
+    """K1's iterations per block over the chunks the solve gave it (the
+    class representatives with dedup, every cell without), relaunched with
+    ``per_block``: the same inputs, so the same counts."""
+    import torch
+
+    from hommx_tpu_torch.micro.chunk import chunk_system
+    from hommx_tpu_torch.micro.stencil_pcg import launch_config, stencil_pcg_cuda
+
+    eng, centers = hmm._engine, hmm._sys.centers
+    classes = hmm._dedup_classes(centers) if hmm._dedup_cells else None
+    if classes is not None:
+        centers = centers[torch.as_tensor(classes[0], device=centers.device)]
+    cfg = launch_config(eng.n_reduced, eng.s)
+
+    n = centers.shape[0]
+    chunk = min(hmm._chunk or eng._auto_chunk(n), n)
+    # padded as the engine pads its last chunk (copies of the first cell)
+    pad = (-n) % chunk
+    centers = torch.cat([centers, centers[:1].expand(pad, -1)])
+    its = []
+    for i in range(0, n + pad, chunk):
+        sys_ = chunk_system(eng, hmm._coeff, centers[i : i + chunk], hmm._G_fn())
+        ws_s, Fs = sys_.scaled()
+        _, it = stencil_pcg_cuda(ws_s, Fs, sys_.Minv, sys_.st.shape, sys_.st.offsets,
+                                 eng.pcg_tol, eng.pcg_maxiter, per_block=True)
+        its += [int(v) for v in it.cpu()]
+    return {"cells_per_block": cfg.cells_per_block, "threads": cfg.threads,
+            "smem_bytes": cfg.smem_bytes, "blocks": len(its),
+            "iters_per_block_min": min(its), "iters_per_block_median": statistics.median(its),
+            "iters_per_block_max": max(its),
+            "blocks_at_maxiter": sum(v >= eng.pcg_maxiter for v in its)}
+
+
+def _f64_solution(hmm):
+    """The float64 solution of the macro system assembled in float64 from
+    the run's A*: the answer that its A* gives without the float32 macro
+    matrix."""
+    return _f64_solution_of(hmm, *_rebuild_system(hmm, macro_f64=True))
+
+
+def _f64_solution_of(hmm, vals, b):
+    """Multigrid CG to 1e-12 on a float64 system of ``hmm``'s pattern."""
+    from hommx_tpu_torch import SolverOptions
+    from hommx_tpu_torch.ops import solvers
+
+    x, _, _ = solvers.solve_ell(vals, hmm._sys.cols, b,
+                                SolverOptions(rtol=1e-12, atol=0.0, maxiter=20000),
+                                dia=hmm._sys.dia, mg=hmm._sys.mg)
+    return x
+
+
+def _against_no_dedup(hmm, u, hmm_full, u_full) -> dict:
+    """A dedup run against the dedup-off run of the same configuration:
+    A*, the float64 answers of both runs' A* (their systems assembled and
+    solved in float64), u against the float64 solve of its own float32
+    system, and, printed only, u against the float64 answer and against the
+    other run's u.  A float32 macro matrix rounds each entry on its own,
+    which leaves any float32 u ~1e-4 from the float64 answer at these
+    sizes, so two float32 runs whose A* differ at all land ~2e-4 apart."""
+    x64, x64_full = _f64_solution(hmm), _f64_solution(hmm_full)
+    vals32, b32 = _rebuild_system(hmm, macro_f64=False)
+    x_own = _f64_solution_of(hmm, vals32.double(), b32.double())
+    return {"astar_rel_diff_to_no_dedup": rel_diff(hmm.homogenized_tensors(),
+                                                   hmm_full.homogenized_tensors()),
+            "f64_solution_rel_diff_to_no_dedup": rel_diff(x64, x64_full),
+            "max_rel_diff_to_own_system_f64": rel_diff(u, x_own),
+            "max_rel_diff_to_f64_answer": rel_diff(u, x64),
+            "no_dedup_rel_diff_to_f64_answer": rel_diff(u_full, x64_full),
+            "max_rel_diff_to_no_dedup": rel_diff(u, u_full)}
+
+
+def _no_dedup_ok(rec) -> bool:
+    """A* within the bar of A* against float64, the float64 answers within
+    DEDUP_RTOL, and u within slice_mg's bar of its own system's solve."""
+    return (rec["astar_rel_diff_to_no_dedup"] <= SLICE_ASTAR_RTOL
+            and rec["f64_solution_rel_diff_to_no_dedup"] <= DEDUP_RTOL
+            and rec["max_rel_diff_to_own_system_f64"] <= SLICE_MG_RTOL)
+
+
+def phase_slice_default(device, hmm_mg, macro_n: int = 512, micro_n: int = 16):
+    """The flagship as the entry point builds it, default dedup on, with
+    slice_mg's options: the same run as slice_mg but for dedup, held to
+    slice_mg's run (dedup off) in this process by ``_against_no_dedup``."""
+    import torch
+
+    from hommx_tpu_torch import PoissonHMM, SolverOptions, create_unit_square
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.ops import dia
+
+    macro, micro = create_unit_square(macro_n, macro_n), create_unit_square(micro_n, micro_n)
+    opts = SolverOptions(rtol=1e-5, maxiter=20000)
+    stencil_pcg.KERNEL.reset_counts()
+    dia.KERNEL.reset_counts()
+    t0 = time.perf_counter()
+    hmm = PoissonHMM(macro, flagship, 1.0, micro, 2**-5, opts, dtype=torch.float32,
+                     device=device, chunk=2048)
+    rec, u = _solve_record("slice_default", hmm, time.perf_counter() - t0)
+    launches = {"stencil_pcg": stencil_pcg.KERNEL.launches, "dia_spmv": dia.KERNEL.launches}
+    rec.update({"k1_launches": launches["stencil_pcg"], "expected_unique_cells": 2 * macro_n,
+                **_against_no_dedup(hmm, u, hmm_mg, hmm_mg._u.array)})
+    emit(rec)
+    if not (_run_ok(rec) and rec["unique_cells"] == 2 * macro_n and _no_dedup_ok(rec)
+            and min(launches.values()) >= 1):
+        raise AssertionError(f"default-argument slice failed its checks: {rec}")
     return launches
+
+
+def phase_golden_stratified(device):
+    """The golden poisson_stratified configuration (8x8 macro, 8x8 micro,
+    wavy laminate, default dedup) in float32 through K1."""
+    import torch
+
+    from hommx_tpu_torch import PoissonStratifiedHMM, create_unit_square
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.ops.assembly import l2_norm_fn
+
+    stencil_pcg.KERNEL.reset_counts()
+    hmm = PoissonStratifiedHMM(create_unit_square(8, 8), golden_stratified_coeff, lambda x: 1.0,
+                               create_unit_square(8, 8), 2**-4, golden_stratified_dtheta,
+                               dtype=torch.float32, device=device)
+    u = hmm.solve().array
+    launches = {"stencil_pcg": stencil_pcg.KERNEL.launches}
+    l2 = float(l2_norm_fn(hmm._sys.verts64, hmm._sys.cells, u.double()))
+    umax = float(u.abs().max())
+    rel = [abs(g - w) / abs(w) for g, w in zip((l2, umax), GOLDEN_POISSON_STRATIFIED)]
+    emit({"phase": "golden_stratified", "l2": l2, "max_u": umax, "rel_err": rel,
+          "unique_cells": hmm.diagnostics["unique_cells"], "k1_launches": launches["stencil_pcg"],
+          "macro_method": hmm._macro_method})
+    if not (all(math.isfinite(r) and r < GOLDEN_RTOL for r in rel)
+            and launches["stencil_pcg"] >= 1):
+        raise AssertionError(f"stratified golden functionals off: {rel}")
+    return launches
+
+
+def _laminate(device, macro_n, micro_n, **kw):
+    """PoissonStratifiedHMM on examples/diffusion/laminate.py's coefficient
+    and map, f = 1, Darcy boundary conditions, slice_mg's options."""
+    import torch
+
+    from hommx_tpu_torch import PoissonStratifiedHMM, SolverOptions, create_unit_square
+
+    t0 = time.perf_counter()
+    hmm = PoissonStratifiedHMM(create_unit_square(macro_n, macro_n), laminate_coeff,
+                               lambda x: 1.0, create_unit_square(micro_n, micro_n), 2**-5,
+                               laminate_dtheta, SolverOptions(rtol=1e-5, maxiter=20000),
+                               dtype=torch.float32, device=device, **kw)
+    darcy(hmm)
+    return hmm, time.perf_counter() - t0
+
+
+def phase_slice_stratified(device, macro_n: int = 512, micro_n: int = 30, checked: int = 1024):
+    """The laminate on a 512² macro mesh with the example's 30² micro mesh,
+    default arguments (dedup on): K1 at n = 900, s = 2, its iterations per
+    block, and A* of up to ``checked`` cells the fallback detector flags
+    against the plain route in float64."""
+    import torch
+
+    from hommx_tpu_torch import MicroEngine, create_unit_square
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.micro.chunk import tensors_chunk_plain
+    from hommx_tpu_torch.ops import dia
+
+    stencil_pcg.KERNEL.reset_counts()
+    dia.KERNEL.reset_counts()
+    hmm, t_setup = _laminate(device, macro_n, micro_n)
+    rec, _ = _solve_record("slice_stratified", hmm, t_setup)
+    launches = {"stencil_pcg": stencil_pcg.KERNEL.launches, "dia_spmv": dia.KERNEL.launches}
+    rec.update({"k1_launches": launches["stencil_pcg"], **_k1_block_iters(hmm)})
+    # cells that the zero-corrector fallback detector flags, against the
+    # plain route in float64: a generator along the layers has a zero
+    # corrector, A* = A⁰ there, which the detector cannot tell from a
+    # clamped solve
+    flagged = torch.as_tensor(hmm.diagnostics["fallback_cells"][:checked], device=device)
+    if flagged.numel():
+        eng64 = MicroEngine(create_unit_square(micro_n, micro_n), dtype=torch.float64,
+                            device=device)
+        A64 = tensors_chunk_plain(eng64, laminate_coeff, hmm._sys.centers[flagged].double(),
+                                  laminate_dtheta)
+        rec["fallback_astar_rel_err_f64"] = rel_diff(hmm.homogenized_tensors()[flagged], A64)
+    emit(rec)
+    if not (_run_ok(rec) and rec["blocks_at_maxiter"] == 0
+            and rec.get("fallback_astar_rel_err_f64", 0.0) < SLICE_ASTAR_RTOL
+            and rec["unique_cells"] < rec["num_cells"] and min(launches.values()) >= 1):
+        raise AssertionError(f"stratified slice failed its checks: {rec}")
+    return launches
+
+
+def phase_slice_stratified_full(device, macro_n: int = 128, micro_n: int = 30,
+                                checked: int = 1024):
+    """The laminate at 128² with dedup off (every cell through K1) and on,
+    the second held to the first by ``_against_no_dedup``, and A* of
+    ``checked`` cells against the plain route in float64."""
+    import torch
+
+    from hommx_tpu_torch import MicroEngine, create_unit_square
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.micro.chunk import tensors_chunk_plain
+    from hommx_tpu_torch.micro.krylov import _map_chunked
+    from hommx_tpu_torch.ops import dia
+
+    stencil_pcg.KERNEL.reset_counts()
+    dia.KERNEL.reset_counts()
+    recs, us, hmms = [], [], []
+    for dedup in (False, True):
+        hmm, t_setup = _laminate(device, macro_n, micro_n, dedup_cells=dedup)
+        rec, u = _solve_record("slice_stratified_full" if not dedup else
+                               f"slice_stratified_{macro_n}_dedup", hmm, t_setup)
+        recs.append(rec)
+        us.append(u)
+        hmms.append(hmm)
+    launches = {"stencil_pcg": stencil_pcg.KERNEL.launches, "dia_spmv": dia.KERNEL.launches}
+    full = hmms[0]
+    recs[0].update(_k1_block_iters(full))
+    recs[1].update(_against_no_dedup(hmms[1], us[1], full, us[0]))
+    A32 = full.homogenized_tensors()
+    idx = torch.linspace(0, A32.shape[0] - 1, checked, device=device).round().long()
+    eng64 = MicroEngine(create_unit_square(micro_n, micro_n), dtype=torch.float64, device=device)
+    A64 = _map_chunked(lambda c: tensors_chunk_plain(eng64, laminate_coeff, c, laminate_dtheta),
+                       full._sys.centers[idx].double(), checked)
+    recs[0].update({"k1_launches": launches["stencil_pcg"], "checked_cells": checked,
+                    "astar_rel_err_f64": rel_diff(A32[idx], A64)})
+    for rec in recs:
+        emit(rec)
+    if not (all(_run_ok(r) for r in recs) and recs[0]["blocks_at_maxiter"] == 0
+            and recs[0]["unique_cells"] == recs[0]["num_cells"]
+            and recs[0]["astar_rel_err_f64"] < SLICE_ASTAR_RTOL
+            and _no_dedup_ok(recs[1]) and min(launches.values()) >= 1):
+        raise AssertionError(f"full stratified slice failed its checks: {recs}")
+    return launches
+
+
+def phase_slice_elasticity_dedup(device, beam, beam_cg):
+    """The beam with the default dedup at 20x6x6 and at 40x12x12 (with
+    ``dedup_verify=8``), each held to the dedup-off run of this process
+    (``beam``, ``beam_cg``): A* within the bar of A* against float64, and u
+    within the bar of a float32 elasticity solution (GOLDEN_ELASTICITY_RTOL:
+    A*'s float32 rounding, 5e-7 of its largest entry, reaches u amplified by
+    the beam's conditioning, ~1e-4 at 40x12x12)."""
+    from hommx_tpu_torch.ops import chol_kernel, dia
+
+    chol_kernel.KERNEL.reset_counts()
+    dia.KERNEL.reset_counts()
+    failed = []
+    for macro_n, full, verify in (((20, 6, 6), beam, 0), ((40, 12, 12), beam_cg, 8)):
+        k3_before = chol_kernel.KERNEL.launches
+        t0 = time.perf_counter()
+        hmm = make_beam(device, macro_n, dedup_cells=True, dedup_verify=verify)
+        rec, u = _solve_record("slice_elasticity_dedup_" + "x".join(map(str, macro_n)), hmm,
+                               time.perf_counter() - t0)
+        rec.update({"dedup_verify": verify, "k3_launches": chol_kernel.KERNEL.launches - k3_before,
+                    "astar_rel_diff_to_no_dedup": rel_diff(hmm.homogenized_tensors(),
+                                                           full.homogenized_tensors()),
+                    "max_rel_diff_to_no_dedup": rel_diff(u, full._u.array)})
+        emit(rec)
+        if not (_run_ok(rec) and rec["unique_cells"] < rec["num_cells"] and rec["k3_launches"] >= 1
+                and rec["astar_rel_diff_to_no_dedup"] <= SLICE_ASTAR_RTOL
+                and rec["max_rel_diff_to_no_dedup"] <= GOLDEN_ELASTICITY_RTOL):
+            failed.append(rec["phase"])
+    if failed:
+        raise AssertionError(f"beam runs with dedup failed their checks: {failed}")
+    return {"chol_solve": chol_kernel.KERNEL.launches,
+            "dia_spmv_f64": dia.KERNEL.counts["hommx_dia_spmv_f64"]}
 
 
 def main() -> int:
@@ -1147,10 +1523,22 @@ def main() -> int:
     phase_golden(device)
     phase_golden_elasticity(device)
     _, u_jacobi, jacobi = phase_slice(device)
-    # the main path with default options: the multigrid CG slice
-    launches = phase_slice_mg(device, u_jacobi, jacobi)
-    launches["chol_solve"] = phase_slice_elasticity(device)
-    launches.update(phase_slice_elasticity_cg(device))
+    # the main paths: each path's launches, summed per kernel
+    launches, hmm_mg = phase_slice_mg(device, u_jacobi, jacobi)
+
+    def add(counts):
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+
+    add(phase_slice_default(device, hmm_mg))
+    add(phase_golden_stratified(device))
+    add(phase_slice_stratified(device))
+    add(phase_slice_stratified_full(device))
+    counts, beam = phase_slice_elasticity(device)
+    add(counts)
+    counts, beam_cg = phase_slice_elasticity_cg(device)
+    add(counts)
+    add(phase_slice_elasticity_dedup(device, beam, beam_cg))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
         {"name": "stencil_pcg", "route": "cuda",

@@ -1,12 +1,15 @@
 """hommx_tpu_torch — the PyTorch/CUDA port of hommx_tpu (the HMM framework).
 
-Ported so far: ``PoissonHMM.solve()`` on structured meshes (the
-periodic-stencil micro engine with its fused chunk-PCG CUDA kernel, macro
-assembly with Dirichlet lifting, and the macro solve: dense float64
-Cholesky, or Jacobi CG whose matvec is the DIA SpMV CUDA kernel), and the
-elasticity path, ``LinearElasticityHMM`` and
-``LinearElasticityStratifiedHMM`` (the chunk Cholesky micro route with its
-batched factor+solve CUDA kernel, and the float64 direct macro solve).
+Ported so far: ``PoissonHMM`` and ``PoissonStratifiedHMM`` on structured
+meshes (the periodic-stencil micro engine with its fused chunk-PCG CUDA
+kernel, macro assembly with Dirichlet lifting, and the macro solve: dense
+float64 Cholesky, or CG preconditioned by geometric multigrid or Jacobi,
+whose matvec is the DIA SpMV CUDA kernel), and the elasticity path,
+``LinearElasticityHMM`` and ``LinearElasticityStratifiedHMM`` (the chunk
+Cholesky micro route with its batched factor+solve CUDA kernel).  Every
+model takes the reference's constructor arguments and defaults: cell dedup
+on (``dedup_cells``, ``dedup_verify``), ``SolverOptions`` or PETSc-style
+dicts for both solve levels.
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``.
 The JAX package ``hommx_tpu`` is the reference it is tested against; this
@@ -27,6 +30,7 @@ from hommx_tpu_torch.models.hmm import (
     LinearElasticityHMM,
     LinearElasticityStratifiedHMM,
     PoissonHMM,
+    PoissonStratifiedHMM,
 )
 from hommx_tpu_torch.ops.function_space import (
     DirichletBC,
@@ -45,6 +49,7 @@ __all__ = [
     "MicroEngine",
     "BaseHMM",
     "PoissonHMM",
+    "PoissonStratifiedHMM",
     "LinearElasticityHMM",
     "LinearElasticityStratifiedHMM",
     "DirichletBC",

@@ -3,7 +3,9 @@ tensors_chunk_pcg``: the scalar periodic-stencil branch and the non-scalar
 Cholesky branch).
 
 Scalar route: for one chunk of macro cell centers, reduce the coefficient
-per micro element, assemble the stencil weights and the generator loads,
+per micro element (and map it by B_K = GᵀG and GᵀE when the stratified
+variant supplies a gradient map G = Dθᵀ), assemble the stencil weights and
+the generator loads,
 scale the system symmetrically by its diagonal, run the lockstep block-PCG
 on the scaled system, and contract A* by the exact bilinear expansion.  The
 PCG is :func:`~hommx_tpu_torch.micro.stencil_pcg.stencil_pcg`, dispatched
@@ -80,47 +82,64 @@ class ChunkSystem:
         loop carries none."""
         return scale_weights(self.st, self.ws, self.sc[:, 0, :]), self.sc * self.F
 
-    def astar(self, eng, Y, iters):
-        """A* (C, s, s) from an unclamped solve Y (n, s, C) of the scaled
-        system: the zero-corrector energy clamp, the unscaling X = S Y and
-        the bilinear contraction, divided by |Y|."""
+    def corrected(self, eng, Y, iters):
+        """(A* (C, s, s), X (n, s, C)) from an unclamped solve Y (n, s, C)
+        of the scaled system: the zero-corrector energy clamp, the
+        unscaling X = S Y and the bilinear contraction, divided by |Y|."""
         sc = self.sc
         Yc, _ = _solve_linear(
             lambda P: sc * self.matvec(sc * P), self.prec, sc * self.F,
             eng.pcg_tol, eng.pcg_maxiter, raw=lambda B: (Y, iters),
         )
-        return stencil_astar(self.st, self.ws, self.a, eng.E, self.F, sc * Yc) / eng.volume_Y
+        X = sc * Yc
+        return stencil_astar(self.st, self.ws, self.a, eng.E, self.F, X) / eng.volume_Y, X
 
-    def solve(self, eng, pcg):
+    def astar(self, eng, Y, iters):
+        """A* (C, s, s) from an unclamped solve Y of the scaled system."""
+        return self.corrected(eng, Y, iters)[0]
+
+    def solve(self, eng, pcg, with_correctors=False):
         """A* of the chunk with ``pcg`` as the Krylov solve of the scaled
-        system (the signature of ``stencil_pcg``)."""
+        system (the signature of ``stencil_pcg``); with ``with_correctors``
+        also the correctors X (n, s, C)."""
         ws_s, Fs = self.scaled()
         Y, iters = pcg(
             ws_s, Fs, self.Minv, self.st.shape, self.st.offsets, eng.pcg_tol, eng.pcg_maxiter
         )
-        return self.astar(eng, Y, iters)
+        out = self.corrected(eng, Y, iters)
+        return out if with_correctors else out[0]
 
 
-def chunk_system(eng, coeff, centers: torch.Tensor) -> ChunkSystem:
+def chunk_system(eng, coeff, centers: torch.Tensor, G_fn=None) -> ChunkSystem:
     """Coefficient mapping, stencil weights, loads and diagonal scaling for
-    one chunk of centers (C, d)."""
+    one chunk of centers (C, d).  A gradient map ``G_fn`` (Dθᵀ(x), the
+    stratified variants) enters through the weights (B_K = GᵀG) and the
+    loads (GᵀE) alone: the stencil's offsets and the PCG are those of the
+    unmapped problem."""
     st = eng._get_stencil()
     a = torch.func.vmap(lambda x: eng._raw_coeff(coeff, x))(centers)  # (C, nE)
-    ws = stencil_weights(st, a)
-    F = stencil_rhs(st, a, eng.E)
+    B_K = GE = None
+    if G_fn is not None:
+        G = _map_G(eng, G_fn, centers)  # (C, d, d)
+        B_K = torch.einsum("cmr,cmt->crt", G, G)
+        GE = torch.einsum("ctr,ts->crs", G, eng.E)  # Gᵀ E
+    ws = stencil_weights(st, a, B_K)
+    F = stencil_rhs(st, a, eng.E, TE=GE)
     n, C = eng.n_reduced, a.shape[0]
     if eng.diag_scale:
-        # per-dof diagonal proxy d[n, c] = Σ_e a[c, e]·Σ_r D[e, r, n]²
-        # (exact for unmapped scalar coefficients); the reference scale d0
-        # uses the unit coefficient through the same formula
+        # per-dof diagonal proxy d[n, c] = Σ_e t[c, e]·Σ_r D[e, r, n]² with
+        # t = a·tr(B_K)/r (exact for unmapped scalar coefficients); the
+        # reference scale d0 uses the unit coefficient through the same
+        # formula
+        t = a if B_K is None else a * (torch.einsum("crr->c", B_K) / eng.r)[:, None]
         wsum = eng.wq_dev.sum(dim=1)
         if eng.D is not None:
             dD = torch.einsum("ern,ern->en", eng.D, eng.D)
-            dp = torch.einsum("ce,en->nc", a, dD)
+            dp = torch.einsum("ce,en->nc", t, dD)
             d0p = torch.einsum("e,en->n", wsum, dD)
         else:
             dDl = torch.einsum("erl,erl->el", eng.Draw, eng.Draw)  # (nE, nbl)
-            tl = torch.einsum("ce,el->elc", a, dDl)
+            tl = torch.einsum("ce,el->elc", t, dDl)
             idx = eng.loc2red.reshape(-1)
             dp = torch.zeros((n, C), dtype=eng.dtype, device=eng.device)
             dp.index_add_(0, idx, tl.reshape(-1, C))
@@ -136,17 +155,25 @@ def chunk_system(eng, coeff, centers: torch.Tensor) -> ChunkSystem:
     return ChunkSystem(st, a, ws, F, sc, eng._get_K0inv())
 
 
-def tensors_chunk_pcg(eng, coeff, centers):
-    """A*(c_T) (C, s, s) for one chunk of centers: the fused PCG kernel on
+def _map_G(eng, G_fn, centers):
+    """Dθᵀ(c_T) per center, (C, d, d) in the engine's dtype."""
+    return torch.func.vmap(
+        lambda x: torch.as_tensor(G_fn(x), device=x.device).to(eng.dtype)
+    )(centers)
+
+
+def tensors_chunk_pcg(eng, coeff, centers, G_fn=None, with_correctors=False):
+    """A*(c_T) (C, s, s) for one chunk of centers, and with
+    ``with_correctors`` the correctors (n, s, C): the fused PCG kernel on
     CUDA tensors, its plain version on CPU tensors."""
-    return chunk_system(eng, coeff, centers).solve(eng, stencil_pcg)
+    return chunk_system(eng, coeff, centers, G_fn).solve(eng, stencil_pcg, with_correctors)
 
 
-def tensors_chunk_plain(eng, coeff, centers):
+def tensors_chunk_plain(eng, coeff, centers, G_fn=None):
     """The same A* through the plain PCG loop on any device and dtype.  No
     entry point calls it: it is the float64 check a card run holds the
     float32 main path against."""
-    return chunk_system(eng, coeff, centers).solve(eng, stencil_pcg_plain)
+    return chunk_system(eng, coeff, centers, G_fn).solve(eng, stencil_pcg_plain)
 
 
 def _get_stencil(eng):
@@ -187,12 +214,14 @@ class CholSystem:
         term1 = torch.einsum("rs,crt,tm->csm", E, self.Abar, E)
         return eng._expand_astar((term1 - XtF - XtF.transpose(1, 2) + XtKX) / eng.volume_Y)
 
-    def solve(self, eng, solver):
+    def solve(self, eng, solver, with_correctors=False):
         """A* of the chunk with ``solver`` (the signature of
         ``fused_chol_solve``) as the direct solve of the equilibrated
-        system."""
+        system; with ``with_correctors`` also the solve X (n, s, C)."""
         Ks, Fs, sc = self.equilibrated(eng)
-        return self.astar(eng, solver(Ks, Fs) * sc[:, None, :])
+        X = solver(Ks, Fs) * sc[:, None, :]
+        A = self.astar(eng, X)
+        return (A, X) if with_correctors else A
 
 
 def chol_system(eng, coeff, centers: torch.Tensor, G_fn=None) -> CholSystem:
@@ -201,11 +230,7 @@ def chol_system(eng, coeff, centers: torch.Tensor, G_fn=None) -> CholSystem:
     C = centers.shape[0]
     nE, r, s, n = eng.nE, eng.r, eng.s, eng.n_reduced
     Ae = torch.func.vmap(lambda x: eng._raw_coeff(coeff, x))(centers)  # (C, nE, r, r)
-    G = None
-    if G_fn is not None:
-        G = torch.func.vmap(
-            lambda x: torch.as_tensor(G_fn(x), device=x.device).to(eng.dtype)
-        )(centers)
+    G = None if G_fn is None else _map_G(eng, G_fn, centers)
     T = eng._grad_map(G)
     if T is not None and T.ndim == 2:
         T = T.expand(C, r, r)
@@ -241,10 +266,11 @@ def chol_system(eng, coeff, centers: torch.Tensor, G_fn=None) -> CholSystem:
     return CholSystem(Kc, F * keep[:, None, None], Ae.sum(dim=1))
 
 
-def tensors_chunk_chol(eng, coeff, centers, G_fn=None):
-    """A*(c_T) (C, s_full, s_full) for one chunk of centers: the K3 CUDA
-    kernel on CUDA tensors, its plain version on CPU tensors."""
-    return chol_system(eng, coeff, centers, G_fn).solve(eng, fused_chol_solve)
+def tensors_chunk_chol(eng, coeff, centers, G_fn=None, with_correctors=False):
+    """A*(c_T) (C, s_full, s_full) for one chunk of centers, and with
+    ``with_correctors`` the solve X (n, s, C): the K3 CUDA kernel on CUDA
+    tensors, its plain version on CPU tensors."""
+    return chol_system(eng, coeff, centers, G_fn).solve(eng, fused_chol_solve, with_correctors)
 
 
 def tensors_chunk_chol_plain(eng, coeff, centers, G_fn=None):

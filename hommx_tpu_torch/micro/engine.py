@@ -12,7 +12,8 @@ Periodicity is eliminated through the reduced vertex index
 vertex 0.  Two routes are ported (micro/chunk.py):
 
 - scalar problems with a scalar coefficient: the periodic-stencil chunk
-  block-PCG, whose Krylov loop is the CUDA kernel K1;
+  block-PCG, whose Krylov loop is the CUDA kernel K1 (a stratified gradient
+  map G = Dθᵀ enters its weights and loads, not the kernel);
 - vector problems (elasticity, s = d(d+1)/2 Voigt generators, T the
   symmetrized or stratified strain map): the chunk Cholesky route, whose
   batched direct solve is the CUDA kernel K3.  The reference takes it in float32 only (float64 runs the
@@ -21,7 +22,7 @@ vertex 0.  Two routes are ported (micro/chunk.py):
 Other routes — per-cell dense solves (and with them matrix coefficients),
 PCG on vector problems, P2 micro
 elements, FFT and multigrid cell preconditioners, low-rank coefficients —
-raise ``NotImplementedError`` (ROADMAP A6, A9).
+raise ``NotImplementedError`` (ROADMAP A9).
 
 Coefficients are torch callables ``A(x, y)`` on 1-D points, evaluated with
 nested ``torch.func.vmap``; quadrature coordinates stay float64 whatever
@@ -283,6 +284,12 @@ class MicroEngine:
         e = torch.as_tensor(self.sym_expand, device=A.device)
         return A[..., e[:, None], e[None, :]]
 
+    def _expand_cols(self, X: torch.Tensor) -> torch.Tensor:
+        """Voigt (…, s) correctors → full (…, d²) column layout."""
+        if self.sym_expand is None:
+            return X
+        return X[..., torch.as_tensor(self.sym_expand, device=X.device)]
+
     # -- coefficients --------------------------------------------------------
     def _raw_coeff(self, coeff: Callable, x_center: torch.Tensor) -> torch.Tensor:
         """Per-element reduced coefficient at one center in compact form:
@@ -331,22 +338,27 @@ class MicroEngine:
         return out[:, :-1].reshape(-1, sf, sf), out[:, -1]
 
     # -- batched over macro quadrature points --------------------------------
-    def tensors_for_centers(self, coeff: Callable, centers, G_fn=None, chunk: int = 0):
+    def tensors_for_centers(
+        self, coeff: Callable, centers, G_fn=None, chunk: int = 0, with_correctors: bool = False
+    ):
         """A*(c_T) (nc, s_full, s_full) for a batch of macro cell centers
         (nc, d); ``G_fn`` is the optional Dθᵀ(x) map of the stratified
-        variants."""
+        variants.  With ``with_correctors`` also the correctors (nc, n,
+        s_full): the unscaled solves of the cell systems (S·Y on the PCG
+        route, the direct solve's X on the Cholesky route), in the full
+        generator layout."""
         from hommx_tpu_torch.micro.chunk import tensors_chunk_chol, tensors_chunk_pcg
 
         centers = torch.as_tensor(centers, device=self.device).to(self.dtype)
         chunk = chunk or self._auto_chunk(centers.shape[0])
-        if self.solver == "cholesky":
-            fn = lambda cs: tensors_chunk_chol(self, coeff, cs, G_fn)
-        elif G_fn is not None:
-            raise NotImplementedError(
-                "stratified scalar problems (PoissonStratifiedHMM) are ROADMAP A6"
-            )
-        else:
-            fn = lambda cs: tensors_chunk_pcg(self, coeff, cs)
+        route = tensors_chunk_chol if self.solver == "cholesky" else tensors_chunk_pcg
+        if not with_correctors:
+            return _map_chunked(lambda cs: route(self, coeff, cs, G_fn), centers, chunk)
+
+        def fn(cs):
+            A, X = route(self, coeff, cs, G_fn, with_correctors=True)
+            return A, self._expand_cols(X.permute(2, 0, 1))
+
         return _map_chunked(fn, centers, chunk)
 
     def _auto_chunk(self, nc: int) -> int:

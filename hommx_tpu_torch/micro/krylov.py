@@ -117,12 +117,15 @@ def _chunk_pcg_raw(matvec, prec, F, tol, maxiter):
 def _map_chunked(fn, xs: torch.Tensor, chunk: int):
     """Apply the chunk-level ``fn`` over ``xs`` in chunks of ``chunk`` rows
     (bounds peak memory).  The batch is padded with copies of its first row
-    to a chunk multiple, as the reference does; outputs are concatenated
-    and cut back to len(xs)."""
+    to a chunk multiple, as the reference does, so every chunk has one
+    shape; outputs (a tensor or a tuple of tensors) are concatenated and
+    cut back to len(xs)."""
     n = xs.shape[0]
     chunk = max(1, min(chunk, n))
     n_pad = (-n) % chunk
     if n_pad:
         xs = torch.cat([xs, xs[:1].expand(n_pad, *xs.shape[1:])], dim=0)
     outs = [fn(xs[i : i + chunk]) for i in range(0, n + n_pad, chunk)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts, dim=0)[:n] for parts in zip(*outs))
     return torch.cat(outs, dim=0)[:n]

@@ -39,22 +39,27 @@ def assemble_macro_system(sys, A_star, b, mask, bvals, *, macro_f64: bool):
     """A*(c_T) batch -> BC-applied macro ELL system (vals_bc, b_bc): per-cell
     stiffness S_loc = |T|·P A*ᵀ Pᵀ (P the P1 gradients, or the strain
     coefficients of the vector basis), ELL scatter assembly and symmetric
-    Dirichlet lifting.  ``macro_f64`` runs the chain in float64 (the
-    direct-solve path and every vector system)."""
-    vector = sys.V.bs > 1
-    if macro_f64:
-        vols = sys.vols64
-        P = sys.strain_P64 if vector else sys.grads64
-        A_T = A_star.transpose(-1, -2).to(torch.float64)
-        bvals = bvals.to(torch.float64)
-        b = b.to(torch.float64)
-    else:
-        vols = sys.vols
-        P = sys.strain_P if vector else sys.grads
-        A_T = A_star.transpose(-1, -2)  # reference index order
-    S_loc = torch.einsum("c,cad,cde,cbe->cab", vols, P, A_T, P)
+    Dirichlet lifting.
+
+    The chain runs in float64 on every path.  With ``macro_f64`` (the
+    direct path and every vector system) the system stays float64; else it
+    is rounded once to the pipeline dtype.  The reference accumulates a
+    float32 system in float32, whose roundings break the zero row sums of
+    the stiffness, and the solve amplifies them by up to κ: on the 512²
+    Poisson slice its solution lies 6.6e-4 from the float64 system's, the
+    once-rounded system's 1.0e-4 (``tools/macro_rounding.py`` on an NVIDIA
+    H100 80GB HBM3 at 700 W)."""
+    P = sys.strain_P64 if sys.V.bs > 1 else sys.grads64
+    A_T = A_star.transpose(-1, -2).to(torch.float64)  # reference index order
+    S_loc = torch.einsum("c,cad,cde,cbe->cab", sys.vols64, P, A_T, P)
     vals = assemble_ell(sys.pattern, S_loc, sys.slots)
-    return apply_dirichlet(vals, sys.cols, sys.diag_slots, b, mask, bvals, dia=sys.dia)
+    vals_bc, b_bc = apply_dirichlet(
+        vals, sys.cols, sys.diag_slots, b.to(torch.float64), mask,
+        bvals.to(torch.float64), dia=sys.dia,
+    )
+    if macro_f64:
+        return vals_bc, b_bc
+    return vals_bc.to(sys.dtype), b_bc.to(sys.dtype)
 
 
 def macro_precs(sys, options):
@@ -134,11 +139,10 @@ class MacroSystem:
             self.pattern.diag_slots.astype(np.int64), device=device
         )
         self.cells = torch.as_tensor(V.mesh.cells.astype(np.int64), device=device)
-        # geometry in f64, kept both ways: f64 for the f64 direct path, the
-        # pipeline dtype for the CG path
+        # geometry in f64, which the assembly uses on every path; the
+        # pipeline-dtype copies serve ``local_stiffness``
         self.verts64 = torch.as_tensor(V.mesh.vertices, dtype=torch.float64, device=device)
         self.grads64, self.vols64 = cell_geometry(self.verts64, self.cells)
-        self.verts = self.verts64.to(dtype)
         self.grads = self.grads64.to(dtype)
         self.vols = self.vols64.to(dtype)
         self.centers = self.verts64[self.cells].mean(dim=1).to(dtype)  # c_T

@@ -1,10 +1,12 @@
 """HMM solver classes (torch port of ``hommx_tpu/models/hmm.py``:
-``BaseHMM``, ``PoissonHMM``, ``LinearElasticityHMM`` and
-``LinearElasticityStratifiedHMM``).
+``BaseHMM``, ``PoissonHMM``, ``PoissonStratifiedHMM``,
+``LinearElasticityHMM`` and ``LinearElasticityStratifiedHMM``).
 
 ``solve()`` runs
 
-    micro stage:  A*(c_T) for every macro cell (micro/engine.py)
+    micro stage:  A*(c_T) for every macro cell (micro/engine.py), one
+                  representative per class of identical cell problems
+                  (``dedup_cells``, on by default as in the reference)
     macro stage:  S_loc[c] = |T_c| · P A*(c_T)ᵀ Pᵀ (P the P1 gradients, or
                   the strain coefficients for elasticity), ELL scatter
                   assembly, symmetric Dirichlet lifting, CG / dense-Cholesky
@@ -15,26 +17,29 @@ scaling chain, so it does not enter the computation.
 
 Above ``direct_threshold`` the macro solve is CG preconditioned by the
 geometric multigrid V-cycle (the default ``SolverOptions()``), in float32
-for a float32 Poisson system and in float64 for every elasticity system,
-whose assembly is float64 on every path.  Divergences from the reference
-(ROADMAP C): cell dedup is off by default and ``dedup_cells=True`` raises
-(ROADMAP A7); a CG macro solve with ``pc`` 'auto'/'mg' on a mesh without a
-geometric hierarchy raises (aggregation AMG, ROADMAP A10).
-``PoissonStratifiedHMM``, ``build_pipeline`` and sharding wait for later
-slices.
+for a float32 Poisson system and in float64 for every elasticity system.
+Every macro system is assembled in float64; a float32 Poisson CG system is
+rounded to float32 once, after its assembly (a divergence from the
+reference, which accumulates it in float32; ROADMAP C).  Both option levels take
+``SolverOptions`` or PETSc-style dicts.  Divergences from the reference
+(ROADMAP C): a CG macro solve with ``pc`` 'auto'/'mg' on a mesh without a
+geometric hierarchy raises (aggregation AMG, ROADMAP A10); ``shard_mesh``
+raises (ROADMAP A12); ``build_pipeline`` waits for A11.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 
 from hommx_tpu_torch.config import as_device, default_dtype, sync
+from hommx_tpu_torch.micro.chunk import _map_G
 from hommx_tpu_torch.micro.engine import MicroEngine
+from hommx_tpu_torch.micro.krylov import _map_chunked
 from hommx_tpu_torch.models.common import (
     MacroSystem,
     assemble_macro_system,
@@ -51,9 +56,19 @@ from hommx_tpu_torch.ops.function_space import (
     locate_dofs_geometrical,
 )
 from hommx_tpu_torch.ops.solvers import STOP_TEST, solve_ell
-from hommx_tpu_torch.utils.options import SolverOptions
+from hommx_tpu_torch.ops.sparse import ell_to_dense
+from hommx_tpu_torch.utils.options import SolverOptions, cell_problem_engine_kwargs
 
-__all__ = ["BaseHMM", "PoissonHMM", "LinearElasticityHMM", "LinearElasticityStratifiedHMM"]
+__all__ = [
+    "BaseHMM",
+    "PoissonHMM",
+    "PoissonStratifiedHMM",
+    "LinearElasticityHMM",
+    "LinearElasticityStratifiedHMM",
+]
+
+#: random projections per cell in the dedup fingerprint
+_FP_PROJECTIONS = 16
 
 logger = logging.getLogger("hommx_tpu_torch")
 
@@ -82,13 +97,35 @@ class BaseHMM:
             vector for elasticity).
         msh_micro: the unit-cell micro mesh (structured box).
         eps: microscopic scale (API parity; cancels).
-        options_global_solve: macro SolverOptions.
+        options_global_solve: macro SolverOptions or PETSc-style dict.
+        options_cell_problem: cell-problem SolverOptions or PETSc-style
+            dict, translated by ``cell_problem_engine_kwargs`` into the
+            micro engine's options.
         dtype: pipeline dtype (default: float64 on CPU, float32 on CUDA).
         device: torch device of every tensor of the solve (the card by
             default; pass "cpu" for the CPU).
         chunk: cells per micro chunk (0 = auto).
-        engine_kwargs: extra MicroEngine options (``pcg_tol``, ...).
-        dedup_cells: must be False in this port (ROADMAP A7).
+        engine_kwargs: extra MicroEngine options (``pcg_tol``, ...); they
+            win over ``options_cell_problem``.
+        shard_mesh: multi-device solves are not ported (ROADMAP A12); only
+            None is accepted.
+        dedup_cells: solve one representative per class of identical cell
+            problems.  Two macro cells whose solve inputs — the reduced
+            coefficient A(c_T, y_q) and the stratified map Dθᵀ(c_T) — are
+            bitwise equal have the same homogenized tensor; the classes come
+            from 16 random projections of those inputs per cell.  Declined
+            below a 2× reduction or under 16 cells.  Exact for the direct
+            micro solver; on the lockstep PCG results move within solver
+            tolerance (the chunks hold other cells).  Pass False to solve
+            every cell, as throughput measurements do.
+            ``diagnostics["unique_cells"]`` records the class count.
+        dedup_verify: re-solve up to this many random non-representative
+            class members and raise RuntimeError if they disagree with
+            their representative beyond solver tolerance (a fingerprint
+            collision).
+        petsc_options_global_solve, petsc_options_cell_problem,
+        petsc_options_prefix: the reference's aliases of the two option
+            levels (the prefix is accepted and unused).
     """
 
     _bs: int = 1
@@ -100,8 +137,8 @@ class BaseHMM:
         f,
         msh_micro,
         eps: float,
-        options_global_solve: Optional[SolverOptions] = None,
-        options_cell_problem=None,
+        options_global_solve: Union[SolverOptions, dict, None] = None,
+        options_cell_problem: Union[SolverOptions, dict, None] = None,
         *,
         quad_degree_micro: int = 2,
         quad_degree_rhs: int = 2,
@@ -109,19 +146,19 @@ class BaseHMM:
         device="cuda",
         chunk: int = 0,
         engine_kwargs: Optional[dict] = None,
-        dedup_cells: bool = False,
+        shard_mesh=None,
+        dedup_cells: bool = True,
+        dedup_verify: int = 0,
+        petsc_options_global_solve: Optional[dict] = None,
+        petsc_options_cell_problem: Optional[dict] = None,
+        petsc_options_prefix: str = "",
     ):
         if msh.dim not in (2, 3):
             raise ValueError("Topology should be 3D or 2D")
         if msh.dim != msh_micro.dim:
             raise ValueError("Micro and macro mesh should have the same dimensionality.")
-        if dedup_cells:
-            raise NotImplementedError("cell dedup is not ported yet (ROADMAP A7)")
-        if options_cell_problem is not None:
-            raise NotImplementedError(
-                "options_cell_problem is not ported yet (ROADMAP A13); use "
-                "engine_kwargs"
-            )
+        if shard_mesh is not None:
+            raise NotImplementedError("multi-device solves are not ported yet (ROADMAP A12)")
         self._msh = msh
         self._cell_mesh = msh_micro
         self._coeff = A
@@ -129,13 +166,23 @@ class BaseHMM:
         self._device = as_device(device)
         self._dtype = dtype or default_dtype(self._device)
         self._tdim = msh.dim
+        options_global_solve = options_global_solve or petsc_options_global_solve
+        options_cell_problem = options_cell_problem or petsc_options_cell_problem
         self._options_global = SolverOptions.from_any(options_global_solve)
+        self._options_cell = SolverOptions.from_any(options_cell_problem)
         self._chunk = chunk
         self._quad_degree_rhs = quad_degree_rhs
+        self._dedup_cells = bool(dedup_cells)
+        self._dedup_verify = int(dedup_verify)
+        self._n_unique: Optional[int] = None
+        self._fp_fn = None
+        self._dedup_cache = False  # False = not yet computed (None is valid)
 
         bs = self._block_size()
         self._V_macro = FunctionSpace(msh, bs)
         self._sys = MacroSystem(self._V_macro, self._dtype, self._device)
+        cell_kw = cell_problem_engine_kwargs(options_cell_problem)
+        cell_kw.update(engine_kwargs or {})
         self._engine = MicroEngine(
             msh_micro,
             bs=bs,
@@ -143,12 +190,13 @@ class BaseHMM:
             quad_degree=quad_degree_micro,
             dtype=self._dtype,
             device=self._device,
-            **(engine_kwargs or {}),
+            **cell_kw,
         )
         self._f_fn = _as_source(f, bs)
         self._bcs: list = []
         self._A_star: Optional[torch.Tensor] = None
         self._b_load = None
+        self._last_vals_bc = None
         self._u: Optional[Function] = None
         m = self._options_global.method
         if m == "auto":
@@ -186,14 +234,163 @@ class BaseHMM:
     def set_boundary_conditions(self, bcs):
         self._bcs = bcs if isinstance(bcs, list) else [bcs]
 
+    def set_right_hand_side(self, f):
+        """Replace the rhs f; the micro stage's tensors stay cached, only
+        the load vector is rebuilt at the next solve."""
+        self._f_fn = _as_source(f, self._V_macro.bs)
+        self._b_load = None
+
+    def _micro(self, centers: torch.Tensor) -> torch.Tensor:
+        return self._engine.tensors_for_centers(
+            self._coeff, centers, G_fn=self._G_fn(), chunk=self._chunk
+        )
+
     def homogenized_tensors(self) -> torch.Tensor:
         """A*(c_T) per macro cell, (nc, s, s) — the micro stage output,
-        cached across solves."""
+        cached across solves.  With ``dedup_cells`` one representative per
+        class is solved and its tensor scattered to the class."""
         if self._A_star is None:
-            self._A_star = self._engine.tensors_for_centers(
-                self._coeff, self._sys.centers, G_fn=self._G_fn(), chunk=self._chunk
-            )
+            centers = self._sys.centers
+            classes = self._dedup_classes(centers) if self._dedup_cells else None
+            if classes is not None:
+                rep, inverse = classes
+                A_u = self._micro(centers[torch.as_tensor(rep, device=self._device)])
+                if self._dedup_verify > 0:
+                    self._audit_dedup(centers, rep, inverse, A_u)
+                self._A_star = A_u[torch.as_tensor(inverse, device=self._device)]
+            else:
+                self._A_star = self._micro(centers)
         return self._A_star
+
+    def _audit_dedup(self, centers, rep, inverse, A_u):
+        """Re-solve up to ``dedup_verify`` random non-representative class
+        members and compare them with their representative's tensor.  Class
+        members have bitwise-equal inputs, so a re-solve agrees to solver
+        accuracy (exactly for the direct micro solver, within PCG tolerance
+        for the lockstep chunks); a fingerprint collision between distinct
+        cells disagrees at O(1)."""
+        rng = np.random.default_rng(0xA0D17)
+        members = np.setdiff1d(np.arange(centers.shape[0]), np.asarray(rep))
+        if members.size == 0:
+            return
+        k = min(self._dedup_verify, int(members.size))
+        sample = rng.choice(members, size=k, replace=False)
+        dev = self._device
+        A_resolved = self._micro(centers[torch.as_tensor(sample, device=dev)])
+        A_claimed = A_u[torch.as_tensor(np.asarray(inverse)[sample], device=dev)]
+        # the engine's effective tolerance: a user-loosened iterative solve
+        # legitimately moves re-solves by ~pcg_tol
+        tol = 1e-4 if self._dtype == torch.float32 else 1e-8
+        if self._engine.solver == "pcg":
+            tol = max(tol, 10.0 * self._engine.pcg_tol)
+        scale = float(A_u.abs().max())
+        diff = float((A_resolved - A_claimed).abs().max()) / (scale + 1e-300)
+        if not diff < tol:
+            raise RuntimeError(
+                f"dedup audit failed: re-solved class members disagree with "
+                f"their representatives (rel {diff:.2e} > {tol:.0e}) "
+                f"— fingerprint collision between distinct cell problems; "
+                f"re-run with dedup_cells=False"
+            )
+        logger.info("dedup audit: %d re-solved members agree (rel %.2e)", k, diff)
+
+    def _fingerprint(self):
+        """The dedup key function, cached: centers (C, d) -> (C, 16), the
+        reduced coefficient (and Dθᵀ) of each cell times fixed random
+        projections.  W is drawn from one seeded generator in the
+        reference's order (coefficient first, then the map), so both
+        packages compute the same keys."""
+        if self._fp_fn is None:
+            eng, coeff, G_fn = self._engine, self._coeff, self._G_fn()
+            k = _FP_PROJECTIONS
+            rng = np.random.default_rng(0x5EED)
+            n_raw = eng.nE if eng.coeff_kind == "scalar" else eng.nE * eng.r * eng.r
+            opts = dict(dtype=eng.dtype, device=eng.device)
+            W = torch.as_tensor(rng.standard_normal((n_raw, k)), **opts)
+            Wg = None
+            if G_fn is not None:
+                Wg = torch.as_tensor(rng.standard_normal((eng.d * eng.d, k)), **opts)
+
+            def fp(cs):
+                C = cs.shape[0]
+                raw = torch.func.vmap(lambda x: eng._raw_coeff(coeff, x))(cs)
+                out = raw.reshape(C, -1) @ W
+                if Wg is not None:
+                    out = out + _map_G(eng, G_fn, cs).reshape(C, -1) @ Wg
+                return out
+
+            self._fp_fn = fp
+        return self._fp_fn
+
+    def _dedup_classes(self, centers):
+        """Exact-duplicate classes of the cell batch: (rep_indices, inverse)
+        with ``A_star = A_star_unique[inverse]``, or None when dedup does not
+        pay (< 2× reduction, or under 16 cells).
+
+        The keys are computed on the device in chunks of one shape (the last
+        one padded), so that identical cells get bitwise-identical keys
+        whatever chunk they fall in, and read back for ``np.unique``.  The
+        result is cached: the coefficient and the centers are fixed at
+        construction."""
+        if self._dedup_cache is not False:
+            return self._dedup_cache
+        nc = int(centers.shape[0])
+        if nc < 16:
+            self._dedup_cache = None
+            return None
+        chunk = self._chunk or self._engine._auto_chunk(nc)
+        keys = _map_chunked(self._fingerprint(), centers, chunk).cpu().numpy()
+        uniq, rep, inverse = np.unique(keys, axis=0, return_index=True, return_inverse=True)
+        n_unique = int(uniq.shape[0])
+        if n_unique * 2 > nc:
+            # every cell is solved, so diagnostics report the full count
+            self._n_unique = None
+            self._dedup_cache = None
+            return None
+        self._n_unique = n_unique
+        logger.info(
+            "micro stage deduplicated: %d cells -> %d unique cell problems", nc, n_unique
+        )
+        self._dedup_cache = (rep.astype(np.int64), inverse.reshape(-1).astype(np.int64))
+        return self._dedup_cache
+
+    def cell_correctors(self, cells=None):
+        """Generator correctors on the micro mesh for selected macro cells.
+
+        Args:
+            cells: macro cell indices (default: all cells).
+        Returns:
+            (A_star, X_full): homogenized tensors (nc_sel, s, s) and
+            correctors (nc_sel, n_micro_nodes·bs, s) expanded to the full
+            periodic micro node set.
+        """
+        centers = self._sys.centers
+        if cells is not None:
+            centers = centers[torch.as_tensor(np.asarray(cells), device=self._device)]
+        A_star, X = self._engine.tensors_for_centers(
+            self._coeff, centers, G_fn=self._G_fn(), with_correctors=True
+        )
+        eng = self._engine
+        red = np.asarray(eng.pmap.reduced_index)  # (n_nodes,)
+        comp = np.arange(eng.bs)
+        idx = (red[:, None] * eng.bs + comp[None, :]).reshape(-1)
+        return A_star, X[:, torch.as_tensor(idx, device=X.device), :]
+
+    def local_stiffness(self) -> torch.Tensor:
+        """S_loc per cell, (nc, nb, nb) in the pipeline dtype: |T|·P A*ᵀ Pᵀ
+        with P the P1 gradients (or the strain coefficients)."""
+        A_T = self.homogenized_tensors().transpose(-1, -2)  # reference index order
+        sys = self._sys
+        if self._V_macro.bs == 1:
+            return torch.einsum("c,cad,cde,cbe->cab", sys.vols, sys.grads, A_T, sys.grads)
+        return torch.einsum("c,cmr,crt,cnt->cmn", sys.vols, sys.strain_P, A_T, sys.strain_P)
+
+    def matrix_dense(self) -> np.ndarray:
+        """The BC-applied macro matrix of the last solve as dense numpy
+        (debugging and parity checks)."""
+        if self._last_vals_bc is None:
+            raise RuntimeError("call solve() first")
+        return ell_to_dense(self._last_vals_bc, self._sys.cols).cpu().numpy()
 
     def _guard(self, A_star):
         """Divergence and zero-corrector-fallback masks (nc,) and the max
@@ -269,12 +466,11 @@ class BaseHMM:
             )
         self.diagnostics_contrast = float(stats[3])
 
-        bc_dtype = torch.float64 if self._macro_f64 else self._dtype
-        mask, bvals = merge_bcs(self._bcs, self._V_macro.num_dofs, bc_dtype, dev)
+        # the macro chain runs in float64 (models/common.py)
+        mask, bvals = merge_bcs(self._bcs, self._V_macro.num_dofs, torch.float64, dev)
         if self._b_load is None:
-            verts = sys.verts64 if self._macro_f64 else sys.verts
             self._b_load = assemble_load_vector(
-                verts, sys.cells, self._f_fn, bs=self._V_macro.bs,
+                sys.verts64, sys.cells, self._f_fn, bs=self._V_macro.bs,
                 degree=self._quad_degree_rhs,
             )
         t0 = time.perf_counter()
@@ -294,6 +490,7 @@ class BaseHMM:
                 "maxiter=%d with residual %.3e", iters, res,
             )
         n_cells = int(sys.centers.shape[0])
+        self._last_vals_bc = vals_bc
         self.diagnostics = {
             "micro_seconds": t_micro,
             "macro_seconds": t_macro,
@@ -305,7 +502,7 @@ class BaseHMM:
             "diverged_cells": diverged_cells,
             "fallback_cells": fallback_cells,
             "num_cells": n_cells,
-            "unique_cells": n_cells,
+            "unique_cells": self._n_unique or n_cells,
         }
         self._u = Function(self._V_macro, x.to(self._dtype))
         self._u.solver_iterations = int(iters)
@@ -323,6 +520,22 @@ class PoissonHMM(BaseHMM):
     def __init__(self, msh, A, f, msh_micro, eps, *args, **kwargs):
         super().__init__(msh, A, f, msh_micro, eps, *args, **kwargs)
         self._bcs = [_box_boundary_zero_bc(self._V_macro)]
+
+
+class PoissonStratifiedHMM(PoissonHMM):
+    r"""Stratified (deformed-laminate) Poisson HMM: the coefficient is
+    A(x, θ(x)/eps); the user supplies ``Dtheta_transpose(x) -> (d, d)``
+    with entries ∂θ_j/∂x_i, which maps the corrector gradients of the cell
+    problems (stencil weights from GᵀG, loads from GᵀE; K1 unchanged)."""
+
+    def __init__(
+        self, msh, A, f, msh_micro, eps, Dtheta_transpose: Callable, *args, **kwargs
+    ):
+        self._Dtheta_t = Dtheta_transpose
+        super().__init__(msh, A, f, msh_micro, eps, *args, **kwargs)
+
+    def _G_fn(self):
+        return self._Dtheta_t
 
 
 class LinearElasticityHMM(BaseHMM):

@@ -335,7 +335,7 @@ def test_golden_elasticity_f64(name):
 
 
 def test_elasticity_error_probes():
-    """What this slice does not port raises instead of running: cell dedup,
+    """What the port lacks raises instead of running: multi-device solves,
     and PCG or the chunk Cholesky on the wrong problem kind.  The elasticity
     CG macro solve runs (float64 assembly, float64 multigrid CG)."""
     args = (ht.create_rectangle([[0.0, 0.0], [1.0, 0.25]], [4, 2]), TORCH_A2, [0.0, -0.01],
@@ -343,8 +343,8 @@ def test_elasticity_error_probes():
     h = ht.LinearElasticityHMM(*args, options_global_solve=ht.SolverOptions(method="cg"),
                                device="cpu")
     assert h._macro_method == "cg" and h._macro_f64 and h._sys.mg is not None
-    with pytest.raises(NotImplementedError):
-        ht.LinearElasticityHMM(*args, dedup_cells=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="A12"):
+        ht.LinearElasticityHMM(*args, shard_mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError):
         ht.MicroEngine(ht.create_unit_square(4), bs=2, coeff_kind="tensor4", solver="pcg",
                        device="cpu")
@@ -358,7 +358,8 @@ def test_entry_points_default_to_the_card():
     carrying on on the CPU."""
     for cls in (ht.BaseHMM, ht.MicroEngine, ht.Function):
         assert inspect.signature(cls).parameters["device"].default == "cuda", cls
-    for cls in (ht.PoissonHMM, ht.LinearElasticityHMM, ht.LinearElasticityStratifiedHMM):
+    for cls in (ht.PoissonHMM, ht.PoissonStratifiedHMM, ht.LinearElasticityHMM,
+                ht.LinearElasticityStratifiedHMM):
         # the models pass ``device`` on to BaseHMM unless they name it
         param = inspect.signature(cls).parameters.get("device")
         assert issubclass(cls, ht.BaseHMM) and (param is None or param.default == "cuda")

@@ -56,7 +56,7 @@ def test_cg_slice_matches_reference():
     ht_hmm = ht.PoissonHMM(
         port_mesh(jmac), TORCH_A, lambda x: 1.0, port_mesh(jmic), 2**-5,
         options_global_solve=ht.SolverOptions(method="cg", pc="jacobi", rtol=1e-12),
-        device="cpu",
+        dedup_cells=False, device="cpu",
     )
     u = ht_hmm.solve().array.numpy()
     assert np.abs(u - u_ref).max() / np.abs(u_ref).max() < 1e-8
@@ -116,8 +116,11 @@ def test_error_probes():
                       0.1, ht.SolverOptions(method="cg"), device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         h.solve()
-    with pytest.raises(NotImplementedError, match="A7"):
-        _tiny(dedup_cells=True)
+    # cell dedup is on by default, as in the reference; multi-device
+    # solves are what the constructor still refuses, naming A12
+    assert _tiny()._dedup_cells and not _tiny(dedup_cells=False)._dedup_cells
+    with pytest.raises(NotImplementedError, match="A12"):
+        _tiny(shard_mesh=object())
     # the default method="auto" keeps the direct solve up to 4096 dofs
     h = _tiny()
     assert h._macro_method == "direct"
