@@ -80,8 +80,33 @@ prints no result line):
                (with the audit, dedup_verify=8), A* and u against the
                dedup-off runs of slice_elasticity and slice_elasticity_cg
 
+11. the periodic, FEM and per-cell slice (float32 unless stated):
+   fem_flagship  examples/hmm.py's fine-mesh reference at 1024x1024 on the
+               5x5 rectangle (1,050,625 dofs, A(x, x/ε), ε = 1/32, f = 0,
+               Darcy BCs) through fem_solve with the default options
+               (multigrid CG, K2), held to a float64 multigrid CG solve of
+               its system; the example's 15x15 HMM against it (relative L2)
+   golden_periodic_fem  the goldens periodic_tensor (PoissonPeriodicHMM
+               through K1) and fem (PoissonFEM, 32x32)
+   periodic_identity  PoissonPeriodicHMM against PoissonHMM (dedup on: one
+               unique cell) for A = 2 + sin 2πy₀, 512x512 macro, 16x16
+               micro: u and the assembled macro ELL values
+   elasticity_periodic  ElasticityPeriodicHMM with the beam's Hooke tensor
+               (rotation frozen at x = 0) on the 4³ cube (K3) and the
+               40x12x12 beam box (float64 multigrid CG, K2 f64), A_hom
+               against the float64 plain route; LinearElasticityFEM against
+               LinearElasticityHMM with one constant Hooke tensor, 20x6x6
+   chol_batched  the 8640-cell elasticity micro stage with
+               HOMMX_CHOL_SOLVE_BATCH=1 (one K3 launch over the whole batch)
+               against the in-chunk route, the launch timed
+   kc_gather   the fixed-order Kc assembly (the CUDA default): two identical
+               dedup solves of the 40x12x12 beam bitwise equal, gather
+               against scatter, the 8640-cell stage in turns
+
 Phases 1-9 pass ``dedup_cells=False`` and so solve every cell, as before
-the models' default became dedup.  The line before the last is the kernels' JSON record, the last line
+the models' default became dedup.  ``--only fem_flagship,kc_gather`` runs
+the named phases of part 11 alone (after the build) and prints no result
+line.  The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -113,6 +138,16 @@ K3_PLAIN_FACTOR = 2.0  # kernel residual and float64 distance, at most this time
 SLICE_ASTAR_RTOL = 1e-4  # float32 slice vs plain float64 port
 DEDUP_RTOL = 1e-4  # the answer with dedup vs without, max norm, relative
 GOLDEN_POISSON_STRATIFIED = (0.03822425690690816, 0.06951174381273492)
+# frozen float64 goldens of tests/test_golden.py: periodic_tensor (A_hom[0, 0],
+# A_hom[1, 1]) and fem (L2 norm, max|u|)
+GOLDEN_PERIODIC_TENSOR = (1.7357329281298157, 1.9999999999999982)
+GOLDEN_FEM = (0.04186291691698005, 0.07429713437642609)
+FEM_FLAGSHIP_RTOL = 5e-4  # float32 MG-CG FEM vs the float64 solve of its system
+IDENTITY_U_RTOL = 1e-4  # PoissonPeriodicHMM vs PoissonHMM for A = A(y), u
+IDENTITY_ELL_RTOL = 1e-5  # the same, assembled macro ELL values
+PERIODIC_ASTAR_RTOL = 1e-4  # float32 A_hom vs the float64 plain route
+FEM_HMM_RTOL = 1e-5  # LinearElasticityFEM vs LinearElasticityHMM, constant tensor
+GATHER_RTOL = 1e-6  # beam A*, gather assembly vs scatter
 
 # NVIDIA H100 SXM peaks (data sheet, dense): float32 outside the tensor
 # cores and device memory bandwidth, for each kernel's least time
@@ -235,18 +270,21 @@ def laminate_dtheta(x):
                         torch.stack([o, z])])
 
 
-def darcy(hmm):
+def darcy_bcs(V):
     """u = 1 on the left edge, 0 on the right, natural elsewhere."""
     import numpy as np
 
     from hommx_tpu_torch import dirichletbc
     from hommx_tpu_torch.ops.function_space import boundary_dofs
 
-    V = hmm.function_space
     lo, hi = V.mesh.bounding_box()
     left = boundary_dofs(V, lambda x: np.isclose(x[0], lo[0]))
     right = boundary_dofs(V, lambda x: np.isclose(x[0], hi[0]))
-    hmm.set_boundary_conditions([dirichletbc(1.0, left, V), dirichletbc(0.0, right, V)])
+    return [dirichletbc(1.0, left, V), dirichletbc(0.0, right, V)]
+
+
+def darcy(hmm):
+    hmm.set_boundary_conditions(darcy_bcs(hmm.function_space))
 
 
 def rel_diff(u, v) -> float:
@@ -1504,7 +1542,427 @@ def phase_slice_elasticity_dedup(device, beam, beam_cg):
             "dia_spmv_f64": dia.KERNEL.counts["hommx_dia_spmv_f64"]}
 
 
-def main() -> int:
+# -- phases of the periodic, FEM and per-cell slice ---------------------------
+
+
+def _true_residual(vals, cols, b, x) -> float:
+    """‖b − A x‖ / ‖b‖ in float64."""
+    import torch
+
+    from hommx_tpu_torch.ops.sparse import spmv
+
+    b = b.double()
+    return float(torch.linalg.vector_norm(b - spmv(vals.double(), cols, x.double()))
+                 / torch.linalg.vector_norm(b))
+
+
+def phase_fem_flagship(device, n: int = 1024, hmm_n: int = 15):
+    """examples/hmm.py's fine-mesh reference at n² on the 5x5 rectangle:
+    fem_solve of A(x, x/ε) (ε = 1/32), f = 0, Darcy boundary conditions,
+    default SolverOptions (multigrid CG, float32, K2), held to a float64
+    multigrid CG solve of the same system; then the example's HMM (hmm_n²
+    macro, hmm_n² micro) against this FEM, as the example prints it."""
+    import torch
+
+    from hommx_tpu_torch import PoissonHMM, SolverOptions, create_rectangle, create_unit_square
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.models.common import merge_bcs
+    from hommx_tpu_torch.models.fem import fem_solve, fem_system
+    from hommx_tpu_torch.ops import dia, solvers
+    from hommx_tpu_torch.ops.function_space import FunctionSpace
+    from hommx_tpu_torch.utils.validation import relative_l2_vs_reference
+
+    eps = 2**-5
+
+    def coeff(x):
+        return flagship(x, x / eps)
+
+    dia.KERNEL.reset_counts()
+    stencil_pcg.KERNEL.reset_counts()
+    t0 = time.perf_counter()
+    V = FunctionSpace(create_rectangle([[0, 0], [5, 5]], [n, n]), 1)
+    bcs = darcy_bcs(V)
+    u = fem_solve(V, coeff, 0.0, bcs, dtype=torch.float32, device=device)
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t0
+    k2 = dia.KERNEL.launches
+    dg = u.diagnostics
+    rec = {"phase": "fem_flagship", "n": n, "dofs": V.num_dofs, "cells": V.mesh.num_cells,
+           "cells_per_period": n / 5 * eps, "total_seconds": t_total, **dg,
+           "macro_method": u.macro_method, "macro_iterations": u.solver_iterations,
+           "macro_residual": u.solver_residual, "dia_spmv_launches": k2,
+           "finite": bool(torch.isfinite(u.array).all())}
+    # the float64 multigrid CG of the same (float32-stored) system
+    sys = u.system
+    mask, bvals = merge_bcs(bcs, V.num_dofs, torch.float64, device)
+    vals, b = fem_system(sys, coeff, "scalar", 0.0, mask, bvals)
+    vals, b = vals.float().double(), b.float().double()
+    x64, k64, _ = solvers.solve_ell(vals, sys.cols, b,
+                                    SolverOptions(rtol=1e-12, atol=0.0, maxiter=20000),
+                                    dia=sys.dia, mg=sys.mg)
+    rec.update({"f64_iterations": k64, "f64_true_rel_residual": _true_residual(vals, sys.cols, b, x64),
+                "true_rel_residual_f64": _true_residual(vals, sys.cols, b, u.array),
+                "float32_floor_rel_residual": _true_residual(vals, sys.cols, b, x64.float()),
+                "max_rel_diff_to_f64": rel_diff(u.array, x64)})
+    # the example's HMM against this reference
+    t0 = time.perf_counter()
+    hmm = PoissonHMM(create_rectangle([[0, 0], [5, 5]], [hmm_n, hmm_n]), flagship, 0.0,
+                     create_unit_square(hmm_n, hmm_n), eps, dtype=torch.float32, device=device)
+    darcy(hmm)
+    u_hmm = hmm.solve()
+    torch.cuda.synchronize()
+    rec.update({"hmm_seconds": time.perf_counter() - t0,
+                "hmm_unique_cells": hmm.diagnostics["unique_cells"],
+                "hmm_k1_launches": stencil_pcg.KERNEL.launches,
+                "hmm_rel_l2_vs_fem": relative_l2_vs_reference(u_hmm, u)})
+    emit(rec)
+    if not (rec["finite"] and rec["macro_method"] == "cg" and _cg_counts_ok(rec)
+            and rec["macro_iterations"] < SolverOptions().maxiter
+            and rec["max_rel_diff_to_f64"] <= FEM_FLAGSHIP_RTOL
+            and rec["f64_true_rel_residual"] <= 1e-10 and k2 >= 1
+            and math.isfinite(rec["hmm_rel_l2_vs_fem"])):
+        raise AssertionError(f"FEM flagship failed its checks: {rec}")
+    return {"dia_spmv": k2, "stencil_pcg": stencil_pcg.KERNEL.launches}
+
+
+def phase_golden_periodic_fem(device):
+    """The goldens periodic_tensor (PoissonPeriodicHMM, 4x4 macro, 16x16
+    micro, A = 2 + sin 2πy₀; through K1) and fem (PoissonFEM on 32x32,
+    float64 direct solve of the float64-assembled system) in float32."""
+    import torch
+
+    from hommx_tpu_torch import PoissonFEM, PoissonPeriodicHMM, create_unit_square
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.ops.assembly import l2_norm_fn
+
+    stencil_pcg.KERNEL.reset_counts()
+    t0 = time.perf_counter()
+    ph = PoissonPeriodicHMM(create_unit_square(4), lambda y: 2.0 + torch.sin(2 * torch.pi * y[0]),
+                            lambda x: 1.0, create_unit_square(16), dtype=torch.float32,
+                            device=device)
+    t_setup = time.perf_counter() - t0
+    A = ph.compute_effective_tensor()
+    torch.cuda.synchronize()
+    t_micro = time.perf_counter() - t0 - t_setup
+    k1 = stencil_pcg.KERNEL.launches
+    got_p = (float(A[0, 0]), float(A[1, 1]))
+    msh = create_unit_square(32)
+    fem = PoissonFEM(msh, lambda x: 1.0 + 0.5 * torch.sin(2 * torch.pi * x[0])
+                     * torch.sin(2 * torch.pi * x[1]), lambda x: 1.0, dtype=torch.float32,
+                     device=device)
+    u = fem.solve().array
+    fem_dg = fem._u.diagnostics
+    verts = torch.as_tensor(msh.vertices, device=device)
+    cells = torch.as_tensor(msh.cells, device=device)
+    got_f = (float(l2_norm_fn(verts, cells, u.double())), float(u.abs().max()))
+    rel = {"periodic_tensor": [abs(g - w) / abs(w) for g, w in zip(got_p, GOLDEN_PERIODIC_TENSOR)],
+           "fem": [abs(g - w) / abs(w) for g, w in zip(got_f, GOLDEN_FEM)]}
+    emit({"phase": "golden_periodic_fem", "periodic_tensor": got_p, "fem": got_f,
+          "rel_err": rel, "k1_launches": k1, "periodic_setup_seconds": t_setup,
+          "periodic_micro_seconds": t_micro, "fem_macro_method": fem._u.macro_method,
+          "fem_setup_seconds": fem_dg["setup_seconds"],
+          "fem_assembly_seconds": fem_dg["assembly_seconds"],
+          "fem_solve_seconds": fem_dg["solve_seconds"]})
+    if not (all(math.isfinite(r) and r < GOLDEN_RTOL for v in rel.values() for r in v)
+            and k1 >= 1):
+        raise AssertionError(f"periodic / FEM goldens off: {rel}")
+    return {"stencil_pcg": k1}
+
+
+def phase_periodic_identity(device, macro_n: int = 512, micro_n: int = 16):
+    """PoissonPeriodicHMM against PoissonHMM (default dedup: one unique
+    cell) for A = 2 + sin 2πy₀ on the 512² macro mesh and the 16² micro
+    mesh, zero box-boundary BCs, slice_mg's options: u and the assembled
+    macro ELL values."""
+    import torch
+
+    from hommx_tpu_torch import PoissonHMM, PoissonPeriodicHMM, SolverOptions, create_unit_square
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.ops import dia
+    from hommx_tpu_torch.utils.validation import zero_dirichlet_bcs
+
+    macro, micro = create_unit_square(macro_n), create_unit_square(micro_n)
+    opts = SolverOptions(rtol=1e-5, maxiter=20000)
+    stencil_pcg.KERNEL.reset_counts()
+    dia.KERNEL.reset_counts()
+    t0 = time.perf_counter()
+    per = PoissonPeriodicHMM(macro, lambda y: 2.0 + torch.sin(2 * torch.pi * y[0]), lambda x: 1.0,
+                             micro, 2**-5, opts, dtype=torch.float32, device=device)
+    per.set_boundary_conditions(zero_dirichlet_bcs(per.function_space))
+    t_setup = time.perf_counter() - t0
+    u_p = per.solve().array
+    torch.cuda.synchronize()
+    t_per = time.perf_counter() - t0
+    k1_per, k2_per = stencil_pcg.KERNEL.launches, dia.KERNEL.launches
+    t0 = time.perf_counter()
+    hmm = PoissonHMM(macro, lambda x, y: 2.0 + torch.sin(2 * torch.pi * y[0]), lambda x: 1.0,
+                     micro, 2**-5, opts, dtype=torch.float32, device=device)
+    hmm.set_boundary_conditions(zero_dirichlet_bcs(hmm.function_space))
+    u_h = hmm.solve().array
+    torch.cuda.synchronize()
+    t_hmm = time.perf_counter() - t0
+    v_p, v_h = per._last_vals_bc.double(), hmm._last_vals_bc.double()
+    dp = per.diagnostics
+    rec = {"phase": "periodic_identity", "dofs": per.function_space.num_dofs,
+           "periodic_setup_seconds": t_setup, "periodic_total_seconds": t_per,
+           "periodic_micro_seconds": dp["micro_seconds"],
+           "periodic_macro_seconds": dp["macro_seconds"],
+           "periodic_macro_iterations": dp["macro_iterations"],
+           "hmm_total_seconds": t_hmm, "hmm_micro_seconds": hmm.diagnostics["micro_seconds"],
+           "hmm_macro_seconds": hmm.diagnostics["macro_seconds"],
+           "hmm_macro_iterations": hmm.diagnostics["macro_iterations"],
+           "hmm_unique_cells": hmm.diagnostics["unique_cells"],
+           "A_hom": per.A_hom.tolist(),
+           "astar_rel_diff": rel_diff(hmm.homogenized_tensors()[0], per.A_hom),
+           "k1_launches_periodic": k1_per, "k2_launches_periodic": k2_per,
+           "k1_launches": stencil_pcg.KERNEL.launches, "dia_spmv_launches": dia.KERNEL.launches,
+           "u_rel_diff": rel_diff(u_p, u_h),
+           "ell_rel_diff": float((v_p - v_h).abs().max() / v_h.abs().max()),
+           "finite": bool(torch.isfinite(u_p).all() and torch.isfinite(u_h).all())}
+    emit(rec)
+    if not (rec["finite"] and rec["hmm_unique_cells"] == 1 and k1_per >= 1 and k2_per >= 1
+            and rec["u_rel_diff"] <= IDENTITY_U_RTOL and rec["ell_rel_diff"] <= IDENTITY_ELL_RTOL):
+        raise AssertionError(f"PoissonPeriodicHMM vs PoissonHMM identity failed: {rec}")
+    return {"stencil_pcg": rec["k1_launches"], "dia_spmv": rec["dia_spmv_launches"]}
+
+
+def phase_elasticity_periodic(device, macro_n=(40, 12, 12), fem_n=(20, 6, 6)):
+    """ElasticityPeriodicHMM with the beam's Hooke tensor as A(y) (its
+    rotation frozen at x = 0, where it is the identity) on the 4³ cube (K3,
+    n = 192, s = 6) and the beam box with the beam's load and clamp
+    (default options: float64 multigrid CG through K2's float64 instance);
+    A_hom against the float64 plain route; then LinearElasticityFEM
+    against LinearElasticityHMM with one constant Hooke tensor on 20x6x6."""
+    import torch
+
+    from hommx_tpu_torch import (
+        ElasticityPeriodicHMM,
+        LinearElasticityFEM,
+        LinearElasticityHMM,
+        MicroEngine,
+        create_box,
+        create_unit_cube,
+    )
+    from hommx_tpu_torch.micro.chunk import tensors_chunk_chol_plain
+    from hommx_tpu_torch.ops import chol_kernel, dia
+    from hommx_tpu_torch.utils.validation import hooke_tensor
+
+    chol_kernel.KERNEL.reset_counts()
+    dia.KERNEL.reset_counts()
+    coeff = beam_coeff(False)
+    zero = torch.zeros(3, dtype=torch.float64)
+    A_y = lambda y: coeff(zero.to(y.device), y)  # noqa: E731
+    box = [[0, 0, 0], [BEAM_L, BEAM_W, BEAM_H]]
+    f = torch.tensor([0.0, 0.0, -0.05 * (BEAM_W / BEAM_L) ** 2], dtype=torch.float64)
+    t0 = time.perf_counter()
+    per = ElasticityPeriodicHMM(create_box(box, list(macro_n)), A_y, lambda x: f,
+                                create_unit_cube(4), 2**-5, dtype=torch.float32, device=device)
+    clamp_x0(per)
+    t_setup = time.perf_counter() - t0
+    u = per.solve().array
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t0
+    dp = per.diagnostics
+    k3, k2_64 = chol_kernel.KERNEL.launches, dia.KERNEL.counts["hommx_dia_spmv_f64"]
+    eng64 = MicroEngine(create_unit_cube(4), bs=3, coeff_kind="tensor4", dtype=torch.float64,
+                        device=device)
+    A64 = tensors_chunk_chol_plain(eng64, lambda x, y: A_y(y),
+                                   torch.zeros((1, 3), dtype=torch.float64, device=device))[0]
+    rec = {"phase": "elasticity_periodic", "macro_n": list(macro_n),
+           "dofs": per.function_space.num_dofs, "setup_seconds": t_setup,
+           "total_seconds": t_total, "micro_seconds": dp["micro_seconds"],
+           "macro_seconds": dp["macro_seconds"], "macro_method": dp["macro_method"],
+           "macro_iterations": dp["macro_iterations"], "macro_steps": dp["macro_steps"],
+           "k3_launches": k3, "dia_spmv_f64_launches": k2_64,
+           "dia_spmv_f32_launches": dia.KERNEL.counts["hommx_dia_spmv_f32"],
+           "A_hom_rel_err_f64": rel_diff(per.A_hom.reshape(9, 9), A64),
+           "finite": bool(torch.isfinite(u).all()), "tip_uz_min": float(u.reshape(-1, 3)[:, 2].min())}
+    # a constant Hooke tensor: the HMM's A* is the tensor itself
+    C = hooke_tensor(3, lambda x, y: 1.0, lambda x, y: 0.5)
+    runs = {}
+    for name in ("fem", "hmm"):
+        mesh = create_box(box, list(fem_n))
+        if name == "fem":
+            model = LinearElasticityFEM(mesh, lambda x: C(x, x), lambda x: f,
+                                        dtype=torch.float32, device=device)
+        else:
+            model = LinearElasticityHMM(mesh, C, lambda x: f, create_unit_cube(4), 2**-5,
+                                        dtype=torch.float32, device=device)
+        clamp_x0(model)
+        runs[name] = model.solve().array
+    rec["fem_vs_hmm_rel_diff"] = rel_diff(runs["hmm"], runs["fem"])
+    rec["k3_launches_all"] = chol_kernel.KERNEL.launches
+    emit(rec)
+    if not (rec["finite"] and rec["macro_method"] == "cg" and k3 >= 1
+            and _cg_counts_ok(rec, "dia_spmv_f64_launches") and rec["dia_spmv_f32_launches"] == 0
+            and rec["A_hom_rel_err_f64"] <= PERIODIC_ASTAR_RTOL
+            and rec["fem_vs_hmm_rel_diff"] <= FEM_HMM_RTOL):
+        raise AssertionError(f"elasticity periodic / FEM checks failed: {rec}")
+    return {"chol_solve": rec["k3_launches_all"],
+            "dia_spmv_f64": dia.KERNEL.counts["hommx_dia_spmv_f64"]}
+
+
+def phase_chol_batched(device, cells: int = 8640, chunk: int = 1080):
+    """The bench row's elasticity micro stage (8640 fresh cells, 4³ cube,
+    chunk 1080) with HOMMX_CHOL_SOLVE_BATCH=1: one K3 launch over the whole
+    batch.  A* against the in-chunk route's; the kernel's residual on the
+    whole batch against the plain version's (phase 5's bar); the one
+    launch timed beside the plain version and torch.linalg.solve (LU, no
+    refinement) on the same batch, with its bound from the batch's
+    shapes."""
+    import numpy as np
+    import torch
+
+    from hommx_tpu_torch import MicroEngine, create_unit_cube
+    from hommx_tpu_torch.micro.chunk import chol_batched_system
+    from hommx_tpu_torch.ops import chol_kernel
+    from hommx_tpu_torch.ops.chol_kernel import fused_chol_solve_cuda, fused_chol_solve_plain
+
+    eng = MicroEngine(create_unit_cube(4), bs=3, coeff_kind="tensor4", dtype=torch.float32,
+                      device=device)
+    centers = torch.as_tensor(np.random.default_rng(1).uniform(0, 1, (cells, 3)),
+                              dtype=torch.float32, device=device)
+    coeff = beam_coeff(True)
+    chol_kernel.KERNEL.reset_counts()
+    times = {"in_chunk": [], "batched": []}
+    out = {}
+    saved = os.environ.get("HOMMX_CHOL_SOLVE_BATCH")
+    try:
+        for _ in range(2):
+            for route, flag in (("in_chunk", "0"), ("batched", "1")):
+                os.environ["HOMMX_CHOL_SOLVE_BATCH"] = flag
+                before = chol_kernel.KERNEL.launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[route] = eng.tensors_for_centers(coeff, centers, G_fn=beam_rotation,
+                                                     chunk=chunk)
+                torch.cuda.synchronize()
+                times[route].append(time.perf_counter() - t0)
+                out[route + "_launches"] = chol_kernel.KERNEL.launches - before
+    finally:
+        if saved is None:
+            os.environ.pop("HOMMX_CHOL_SOLVE_BATCH", None)
+        else:
+            os.environ["HOMMX_CHOL_SOLVE_BATCH"] = saved
+    launches = chol_kernel.KERNEL.launches
+    Ks, Fs, _, _ = chol_batched_system(eng, coeff, centers, beam_rotation, chunk)
+    Xk = fused_chol_solve_cuda(Ks, Fs)
+    Xp = fused_chol_solve_plain(Ks, Fs)
+
+    def residual(X):  # max over cells of ‖F − K X‖∞ / ‖F‖∞, float64
+        R = Fs.double() - torch.einsum("cij,jsc->isc", Ks.double(), X.double())
+        return float((R.abs().amax(dim=(0, 1)) / Fs.double().abs().amax(dim=(0, 1))).max())
+
+    C, n, s = Ks.shape[0], eng.n_reduced, eng.s
+    flops = C * (n**3 / 3 + 4.0 * n * n * s + 2.0 * n * n * s)
+    bound_ms, bound_by = bound(flops, 4.0 * C * (n * n + 2 * n * s))
+    rec = {"phase": "chol_batched", "cells": cells, "chunk": chunk, "n": n, "s": s,
+           "seconds": times, "k3_launches_in_chunk": out["in_chunk_launches"],
+           "k3_launches_batched": out["batched_launches"],
+           "astar_rel_diff_to_in_chunk": rel_diff(out["batched"], out["in_chunk"]),
+           "residual": residual(Xk), "plain_residual": residual(Xp),
+           "whole_batch_ms": time_ms(lambda: fused_chol_solve_cuda(Ks, Fs), reps=10),
+           "plain_ms": time_ms(lambda: fused_chol_solve_plain(Ks, Fs), reps=3, warmup=1),
+           "library_ms": time_ms(lambda: torch.linalg.solve(Ks, Fs.permute(2, 0, 1)), reps=3,
+                                 warmup=1),
+           "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+           "resident_gib": (Ks.numel() + Fs.numel()) * 4 / 2**30,
+           "finite": bool(torch.isfinite(out["batched"]).all())}
+    del Ks, Fs, Xk, Xp
+    torch.cuda.empty_cache()
+    emit(rec)
+    if not (rec["finite"] and rec["k3_launches_batched"] == 1
+            and rec["astar_rel_diff_to_in_chunk"] <= SLICE_ASTAR_RTOL
+            and rec["residual"] < K3_RTOL
+            and rec["residual"] <= K3_PLAIN_FACTOR * rec["plain_residual"]):
+        raise AssertionError(f"whole-batch Cholesky route failed its checks: {rec}")
+    return {"chol_solve": launches}
+
+
+def phase_kc_gather(device, cells: int = 8640, chunk: int = 1080):
+    """The fixed-order Kc assembly: two identical dedup solves of the
+    40x12x12 beam (A* and u bitwise equal); the beam's A* with the gather
+    against the scatter; the bench-size elasticity micro stage with the
+    gather and the scatter in turns, timed."""
+    import numpy as np
+    import torch
+
+    from hommx_tpu_torch import MicroEngine, create_unit_cube
+    from hommx_tpu_torch.micro.chunk import _get_kc_gather
+    from hommx_tpu_torch.ops import chol_kernel, dia
+
+    chol_kernel.KERNEL.reset_counts()
+    dia.KERNEL.reset_counts()
+    saved = os.environ.pop("HOMMX_KC_ASSEMBLY", None)
+    try:
+        runs, seconds = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            hmm = make_beam(device, (40, 12, 12), dedup_cells=True)
+            t_setup = time.perf_counter() - t0
+            u = hmm.solve().array
+            runs.append((hmm.homogenized_tensors(), u, hmm))
+            seconds.append({"setup": t_setup, "micro": hmm.diagnostics["micro_seconds"],
+                            "macro": hmm.diagnostics["macro_seconds"]})
+        gathered = _get_kc_gather(runs[0][2]._engine) is not None
+        launches = {"chol_solve": chol_kernel.KERNEL.launches,
+                    "dia_spmv_f64": dia.KERNEL.counts["hommx_dia_spmv_f64"]}
+        os.environ["HOMMX_KC_ASSEMBLY"] = "scatter"
+        hmm_s = make_beam(device, (40, 12, 12), dedup_cells=True)
+        A_s = hmm_s.homogenized_tensors()
+        scattered = _get_kc_gather(hmm_s._engine) is None
+        # the bench-size micro stage, gather and scatter in turns
+        centers = torch.as_tensor(np.random.default_rng(1).uniform(0, 1, (cells, 3)),
+                                  dtype=torch.float32, device=device)
+        coeff = beam_coeff(True)
+        engines = {}
+        for mode in ("gather", "scatter"):
+            os.environ["HOMMX_KC_ASSEMBLY"] = mode
+            engines[mode] = MicroEngine(create_unit_cube(4), bs=3, coeff_kind="tensor4",
+                                        dtype=torch.float32, device=device)
+            _get_kc_gather(engines[mode])
+            engines[mode].tensors_for_centers(coeff, centers[:chunk], G_fn=beam_rotation)
+        times, A = {"gather": [], "scatter": []}, {}
+        for mode in ("gather", "scatter", "scatter", "gather", "gather", "scatter"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            A[mode] = engines[mode].tensors_for_centers(coeff, centers, G_fn=beam_rotation,
+                                                        chunk=chunk)
+            torch.cuda.synchronize()
+            times[mode].append(time.perf_counter() - t0)
+    finally:
+        if saved is None:
+            os.environ.pop("HOMMX_KC_ASSEMBLY", None)
+        else:
+            os.environ["HOMMX_KC_ASSEMBLY"] = saved
+    (A1, u1, h1), (A2, u2, h2) = runs
+    rec = {"phase": "kc_gather", "gather_default_on_cuda": gathered,
+           "scatter_when_asked": scattered, "unique_cells": h1.diagnostics["unique_cells"],
+           "macro_iterations": [h1.diagnostics["macro_iterations"],
+                                h2.diagnostics["macro_iterations"]],
+           "beam_seconds": seconds,
+           "astar_bitwise_equal": bool(torch.equal(A1, A2)),
+           "u_bitwise_equal": bool(torch.equal(u1, u2)),
+           "u_max_abs_diff": float((u1.double() - u2.double()).abs().max()),
+           "astar_rel_diff_gather_vs_scatter": rel_diff(A1, A_s),
+           "stage_astar_rel_diff_gather_vs_scatter": rel_diff(A["gather"], A["scatter"]),
+           "stage_seconds_gather": times["gather"], "stage_seconds_scatter": times["scatter"],
+           "cells": cells, "chunk": chunk, **{f"{k}_launches": v for k, v in launches.items()}}
+    emit(rec)
+    if not (gathered and scattered and rec["astar_bitwise_equal"] and rec["u_bitwise_equal"]
+            and rec["astar_rel_diff_gather_vs_scatter"] <= GATHER_RTOL
+            and rec["stage_astar_rel_diff_gather_vs_scatter"] <= SLICE_ASTAR_RTOL
+            and min(launches.values()) >= 1):
+        raise AssertionError(f"fixed-order Kc assembly failed its checks: {rec}")
+    return launches
+
+
+#: the phases of the periodic, FEM and per-cell slice, in their order
+NEW_PHASES = (phase_fem_flagship, phase_golden_periodic_fem, phase_periodic_identity,
+              phase_elasticity_periodic, phase_chol_batched, phase_kc_gather)
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1517,6 +1975,13 @@ def main() -> int:
     torch.cuda.set_device(device)
     name, smi = phase_device()
     phase_build()
+    if argv[:1] == ["--only"]:
+        # development runs: the named phases of NEW_PHASES alone, and no
+        # result line
+        for phase in NEW_PHASES:
+            if phase.__name__[len("phase_"):] in argv[1].split(","):
+                phase(device)
+        return 1
     k2, k2_f64 = phase_dia(device)
     k1 = phase_stencil(device)
     k3 = phase_chol(device)
@@ -1539,6 +2004,8 @@ def main() -> int:
     counts, beam_cg = phase_slice_elasticity_cg(device)
     add(counts)
     add(phase_slice_elasticity_dedup(device, beam, beam_cg))
+    for phase in NEW_PHASES:
+        add(phase(device))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
         {"name": "stencil_pcg", "route": "cuda",
@@ -1569,4 +2036,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

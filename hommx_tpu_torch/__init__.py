@@ -4,12 +4,16 @@ Ported so far: ``PoissonHMM`` and ``PoissonStratifiedHMM`` on structured
 meshes (the periodic-stencil micro engine with its fused chunk-PCG CUDA
 kernel, macro assembly with Dirichlet lifting, and the macro solve: dense
 float64 Cholesky, or CG preconditioned by geometric multigrid or Jacobi,
-whose matvec is the DIA SpMV CUDA kernel), and the elasticity path,
+whose matvec is the DIA SpMV CUDA kernel), the elasticity path,
 ``LinearElasticityHMM`` and ``LinearElasticityStratifiedHMM`` (the chunk
-Cholesky micro route with its batched factor+solve CUDA kernel).  Every
-model takes the reference's constructor arguments and defaults: cell dedup
-on (``dedup_cells``, ``dedup_verify``), ``SolverOptions`` or PETSc-style
-dicts for both solve levels.
+Cholesky micro route with its batched factor+solve CUDA kernel), periodic
+homogenization (``PoissonPeriodicHMM``, ``ElasticityPeriodicHMM``), the
+single-scale P1 FEM (``fem_solve``, ``PoissonFEM``,
+``LinearElasticityFEM``), the per-cell micro route
+(``MicroEngine.cell_tensor``, ``MicroEngine.solve_periodic``) and
+``helpers``.  Every model takes the reference's constructor arguments and
+defaults: cell dedup on (``dedup_cells``, ``dedup_verify``),
+``SolverOptions`` or PETSc-style dicts for both solve levels.
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``.
 The JAX package ``hommx_tpu`` is the reference it is tested against; this
@@ -17,14 +21,19 @@ package imports neither JAX nor ``hommx_tpu``.
 """
 
 from hommx_tpu_torch import config  # noqa: F401  (precision policy: TF32 off)
+from hommx_tpu_torch import helpers  # noqa: F401
 from hommx_tpu_torch.meshes import (
     SimplexMesh,
     create_box,
+    create_interval,
     create_rectangle,
     create_unit_cube,
     create_unit_square,
+    rescale_mesh,
+    rescale_mesh_in_place,
 )
 from hommx_tpu_torch.micro.engine import MicroEngine
+from hommx_tpu_torch.models.fem import LinearElasticityFEM, PoissonFEM, fem_solve
 from hommx_tpu_torch.models.hmm import (
     BaseHMM,
     LinearElasticityHMM,
@@ -32,29 +41,46 @@ from hommx_tpu_torch.models.hmm import (
     PoissonHMM,
     PoissonStratifiedHMM,
 )
+from hommx_tpu_torch.models.periodic import (
+    BasePeriodicHMM,
+    ElasticityPeriodicHMM,
+    PoissonPeriodicHMM,
+)
 from hommx_tpu_torch.ops.function_space import (
     DirichletBC,
     Function,
     FunctionSpace,
     dirichletbc,
+    locate_dofs_geometrical,
 )
 from hommx_tpu_torch.utils.options import SolverOptions
 
 __all__ = [
     "SimplexMesh",
     "create_box",
+    "create_interval",
     "create_rectangle",
     "create_unit_cube",
     "create_unit_square",
+    "rescale_mesh",
+    "rescale_mesh_in_place",
+    "helpers",
     "MicroEngine",
     "BaseHMM",
     "PoissonHMM",
     "PoissonStratifiedHMM",
     "LinearElasticityHMM",
     "LinearElasticityStratifiedHMM",
+    "BasePeriodicHMM",
+    "PoissonPeriodicHMM",
+    "ElasticityPeriodicHMM",
+    "PoissonFEM",
+    "LinearElasticityFEM",
+    "fem_solve",
     "DirichletBC",
     "Function",
     "FunctionSpace",
     "dirichletbc",
+    "locate_dofs_geometrical",
     "SolverOptions",
 ]

@@ -2,7 +2,10 @@ from hommx_tpu_torch.meshes.simplex import (  # noqa: F401
     BoxStructure,
     SimplexMesh,
     create_box,
+    create_interval,
     create_rectangle,
     create_unit_cube,
     create_unit_square,
+    rescale_mesh,
+    rescale_mesh_in_place,
 )

@@ -2,8 +2,8 @@
 ``hommx_tpu/meshes/simplex.py``.
 
 The mesh is host state (numpy); solvers move what they need to a torch
-device.  ``mesh_from_delaunay``/``mesh_from_file`` and the rescale helpers
-are not ported yet (ROADMAP A10).
+device.  ``mesh_from_delaunay``/``mesh_from_file`` are not ported yet
+(ROADMAP A10).
 
 Replaces DOLFINx's C++ mesh stack (``mesh.create_unit_square/cube/rectangle/
 box``, ``helpers.py:125-209`` of the reference) with plain arrays:
@@ -31,10 +31,13 @@ import numpy as np
 __all__ = [
     "SimplexMesh",
     "BoxStructure",
+    "create_interval",
     "create_rectangle",
     "create_unit_square",
     "create_box",
     "create_unit_cube",
+    "rescale_mesh",
+    "rescale_mesh_in_place",
 ]
 
 
@@ -125,16 +128,28 @@ class SimplexMesh:
         for idxs in itertools.combinations(range(d + 1), d):
             facets.append(np.sort(self.cells[:, list(idxs)], axis=1))
         facets = np.concatenate(facets, axis=0)
-        uniq, counts = np.unique(facets, axis=0, return_counts=True)
-        return uniq[counts == 1]
+        nv = self.num_vertices
+        if float(nv) ** d >= 2.0**62:
+            uniq, counts = np.unique(facets, axis=0, return_counts=True)
+            return uniq[counts == 1]
+        # one int64 key per sorted facet orders the facets as the row-wise
+        # unique does, and sorts ~20× faster than np.unique(axis=0)
+        key = facets[:, 0].astype(np.int64)
+        for k in range(1, d):
+            key = key * nv + facets[:, k]
+        _, first, counts = np.unique(key, return_index=True, return_counts=True)
+        return facets[first[counts == 1]]
 
     def boundary_vertices(self) -> np.ndarray:
-        """Indices of vertices on the domain boundary (facet-based).
+        """Indices of vertices on the domain boundary (facet-based), cached
+        per mesh (the topology never changes).
 
         Replaces ``mesh.locate_entities_boundary`` with an all-boundary
         marker (reference ``test_unit.py:30-31``).
         """
-        return np.unique(self.boundary_facets().ravel())
+        if getattr(self, "_boundary_vertices", None) is None:
+            self._boundary_vertices = np.unique(self.boundary_facets().ravel())
+        return self._boundary_vertices
 
     def __repr__(self):
         return (
@@ -146,6 +161,15 @@ class SimplexMesh:
 # ---------------------------------------------------------------------------
 # structured constructors
 # ---------------------------------------------------------------------------
+
+
+def create_interval(nx: int, points=(0.0, 1.0)) -> SimplexMesh:
+    """1D mesh of ``nx`` intervals on [points[0], points[1]]."""
+    a, b = float(points[0]), float(points[1])
+    verts = np.linspace(a, b, nx + 1)[:, None]
+    cells = np.stack([np.arange(nx), np.arange(1, nx + 1)], axis=1)
+    structure = BoxStructure(np.array([a]), np.array([b]), (nx,), 1)
+    return SimplexMesh(verts, cells, structure)
 
 
 def create_rectangle(points, n, diagonal: str = "right") -> SimplexMesh:
@@ -247,3 +271,38 @@ def create_unit_cube(nx: int, ny: Optional[int] = None, nz: Optional[int] = None
     ny = nx if ny is None else ny
     nz = nx if nz is None else nz
     return create_box([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]], [nx, ny, nz])
+
+
+# ---------------------------------------------------------------------------
+# rescaling (reference helpers.py:181-209)
+# ---------------------------------------------------------------------------
+
+
+def rescale_mesh(msh: SimplexMesh, scale: float = 1.0, shift: Sequence[float] = None) -> SimplexMesh:
+    """Rescaled and shifted copy, x -> scale·x + shift, in any dimension
+    (the reference's copy variant is 2D only)."""
+    d = msh.dim
+    shift = np.zeros(d) if shift is None else np.asarray(shift, dtype=np.float64)[:d]
+    verts = scale * msh.vertices + shift
+    structure = None
+    if msh.structure is not None:
+        structure = BoxStructure(
+            scale * msh.structure.lo + shift,
+            scale * msh.structure.hi + shift,
+            msh.structure.shape,
+            msh.structure.cells_per_box,
+            msh.structure.diagonal,
+        )
+    return SimplexMesh(verts, msh.cells.copy(), structure)
+
+
+def rescale_mesh_in_place(msh: SimplexMesh, scale: float = 1.0, shift=None) -> SimplexMesh:
+    """The same transformation applied to ``msh`` itself; returns it."""
+    d = msh.dim
+    shift = np.zeros(d) if shift is None else np.asarray(shift, dtype=np.float64)[:d]
+    msh.vertices *= scale
+    msh.vertices += shift
+    if msh.structure is not None:
+        object.__setattr__(msh.structure, "lo", scale * msh.structure.lo + shift)
+        object.__setattr__(msh.structure, "hi", scale * msh.structure.hi + shift)
+    return msh

@@ -20,15 +20,25 @@ F = −Σ_e D_eᵀ(TᵀĀ_e)E, equilibrate with S = √(d₀/d), solve with
 :func:`~hommx_tpu_torch.ops.chol_kernel.fused_chol_solve` (the CUDA kernel
 K3 on the card, its plain version on the CPU) and contract A* bilinearly.
 
-The reference's opt-in switches (``HOMMX_KC_ASSEMBLY``, ``HOMMX_ASTAR``,
-``HOMMX_CHOL_REFINE``, ``HOMMX_CHOL_KERNEL``, ``HOMMX_CHOL_BODY``) are not
-ported: the port takes their defaults (scatter, bilinear, refinement on,
-the kernel).  Other routes (dense-K PCG, FFT and multigrid cell
-preconditioners, low-rank, matrix-free gather) wait for later slices.
+The Kc assembly honours the reference's ``HOMMX_KC_ASSEMBLY`` switch
+(``scatter`` | ``gather``) with another default: gather on CUDA, scatter
+on the CPU (the reference's default everywhere).  The gather form inverts
+the scatter map on the host once (:func:`_get_kc_gather`), so every Kc and
+Fc entry is added in one fixed order; ``index_add_`` on CUDA adds in the
+order its atomics land, and two identical float32 runs then differ.
+``HOMMX_CHOL_SOLVE_BATCH=1`` takes :func:`tensors_chol_batched`: the
+chunks are assembled and equilibrated, one K3 launch solves the whole
+batch, and A* is contracted per chunk.  The other opt-in switches
+(``HOMMX_ASTAR``, ``HOMMX_CHOL_REFINE``, ``HOMMX_CHOL_KERNEL``,
+``HOMMX_CHOL_BODY``) are not ported: the port takes their defaults
+(bilinear, refinement on, the kernel).  Other routes (dense-K PCG, FFT and
+multigrid cell preconditioners, low-rank, matrix-free gather) wait for
+later slices.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -45,6 +55,7 @@ from hommx_tpu_torch.micro.stencil import (
     stencil_weights,
 )
 from hommx_tpu_torch.micro.stencil_pcg import stencil_pcg, stencil_pcg_plain
+from hommx_tpu_torch.ops.assembly import GatherPlan, gather_sum, invert_scatter
 from hommx_tpu_torch.ops.chol_kernel import fused_chol_solve, fused_chol_solve_plain
 
 __all__ = [
@@ -56,6 +67,8 @@ __all__ = [
     "tensors_chunk_chol_plain",
     "chol_system",
     "CholSystem",
+    "tensors_chol_batched",
+    "chol_batched_system",
 ]
 
 
@@ -245,24 +258,37 @@ def chol_system(eng, coeff, centers: torch.Tensor, G_fn=None) -> CholSystem:
         TkT = torch.einsum("cmr,ctn->cmtrn", T, T).reshape(C, r * r, r * r)
         AKv = torch.bmm(Ae.reshape(C, nE, r * r), TkT)
         blocks = torch.einsum("cex,exy->cey", AKv, _get_kron_M(eng))
-    # scatter of the element blocks into the dense reduced operators
-    l2r = eng.loc2red
-    flat = (l2r[:, :, None] * n + l2r[:, None, :]).reshape(-1)
-    Kc = torch.zeros((C, n * n), dtype=eng.dtype, device=eng.device)
-    Kc.index_add_(1, flat, blocks.reshape(C, -1))
     keep = (~eng.pin_mask).to(eng.dtype)
-    Kc = Kc.reshape(C, n, n) * keep[None, :, None] * keep[None, None, :] + torch.diag(
-        eng.pin_mask.to(eng.dtype)
-    )[None]
+    kcg = _get_kc_gather(eng)
+    if kcg is not None:
+        # fixed-order assembly: a gather and a sum over the contributors of
+        # every coupled dof pair, the keep/pin masks folded into per-target
+        # vectors, then one placement gather into the dense layout
+        vals = gather_sum(blocks.reshape(C, -1), kcg.plan) * kcg.keep_vec + kcg.pin_vec
+        vals = torch.cat([vals, vals.new_zeros(C, 1)], dim=1)
+        Kc = vals.index_select(1, kcg.inv_map).reshape(C, n, n)
+    else:
+        # scatter of the element blocks into the dense reduced operators
+        l2r = eng.loc2red
+        flat = (l2r[:, :, None] * n + l2r[:, None, :]).reshape(-1)
+        Kc = torch.zeros((C, n * n), dtype=eng.dtype, device=eng.device)
+        Kc.index_add_(1, flat, blocks.reshape(C, -1))
+        Kc = Kc.reshape(C, n, n) * keep[None, :, None] * keep[None, None, :] + torch.diag(
+            eng.pin_mask.to(eng.dtype)
+        )[None]
     # loads F = −Σ_e D_eᵀ (TᵀĀ_e) E, the cell axis minor
     AE = torch.einsum("cert,ts->cers", A_F, eng.E)  # (C, nE, r, s)
     if eng.D is not None:
         F = -torch.einsum("zn,czs->nsc", eng.D.reshape(nE * r, n), AE.reshape(C, nE * r, s))
     else:
         wl = torch.einsum("erl,cers->cels", eng.Draw, AE).reshape(C, -1, s)
-        Fc = torch.zeros((C, n, s), dtype=eng.dtype, device=eng.device)
-        Fc.index_add_(1, l2r.reshape(-1), wl)
-        F = -Fc.permute(1, 2, 0)
+        if kcg is not None:
+            Fc = gather_sum(wl.transpose(1, 2), kcg.fc_plan)  # (C, s, n)
+            F = -Fc.permute(2, 1, 0)
+        else:
+            Fc = torch.zeros((C, n, s), dtype=eng.dtype, device=eng.device)
+            Fc.index_add_(1, eng.loc2red.reshape(-1), wl)
+            F = -Fc.permute(1, 2, 0)
     return CholSystem(Kc, F * keep[:, None, None], Ae.sum(dim=1))
 
 
@@ -282,10 +308,132 @@ def tensors_chunk_chol_plain(eng, coeff, centers, G_fn=None):
 
 def _get_kron_M(eng) -> torch.Tensor:
     """Static per-element Gram map M[e, (r,t), (l,m)] = Draw[e,r,l]·
-    Draw[e,t,m] for the Kron fast path, (nE, r², nbl²) on the device."""
+    Draw[e,t,m] for the Kron fast path, (nE, r², nbl²), built on the
+    device in float64 from the engine's Draw (each entry one product, so
+    it equals a host build) and cached per engine."""
     if eng._kron_M is None:
-        D = eng.Draw_np
+        D = torch.as_tensor(eng.Draw_np, device=eng.device)
         nE, r, nbl = D.shape
-        M = np.einsum("erl,etm->ertlm", D, D).reshape(nE, r * r, nbl * nbl)
-        eng._kron_M = torch.as_tensor(M, dtype=eng.dtype, device=eng.device)
+        M = torch.einsum("erl,etm->ertlm", D, D).reshape(nE, r * r, nbl * nbl)
+        eng._kron_M = M.to(eng.dtype)
     return eng._kron_M
+
+
+def kc_assembly_mode(device) -> str:
+    """The reference's ``HOMMX_KC_ASSEMBLY`` switch ('scatter' | 'gather')
+    with the port's default: gather on CUDA, where ``index_add_`` adds in
+    no fixed order, scatter on the CPU (the reference's default)."""
+    mode = os.environ.get("HOMMX_KC_ASSEMBLY") or (
+        "gather" if torch.device(device).type == "cuda" else "scatter"
+    )
+    if mode not in ("scatter", "gather"):
+        raise ValueError(f"HOMMX_KC_ASSEMBLY must be 'scatter' or 'gather', got {mode!r}")
+    return mode
+
+
+@dataclass
+class KcGather:
+    """The fixed-order assembly of the Cholesky route's Kc and loads (see
+    :func:`_get_kc_gather`)."""
+
+    tab: torch.Tensor  # (nnz, m) contributors of each coupled dof pair, the reference's table
+    inv_map: torch.Tensor  # (n²,) position of each dense entry among the nnz (nnz: none)
+    keep_vec: torch.Tensor  # (nnz,) 1 where neither dof is pinned
+    pin_vec: torch.Tensor  # (nnz,) 1 on the pinned diagonal
+    plan: GatherPlan  # ``tab`` on the device
+    fc_plan: GatherPlan  # the loads' scatter over the reduced dofs (no dense D)
+
+
+def _get_kc_gather(eng):
+    """The gather tables of the Kc assembly (torch port of the reference's
+    ``_get_kc_gather``, ``hommx_tpu/micro/chunk.py:857-916``), or None when
+    ``kc_assembly_mode`` says scatter or a pathological mesh folds more
+    than 64 element entries onto one dof pair.
+
+    The host inverts the scatter map of the element blocks (C, nE·nbl²):
+    ``tab`` lists the contributors of each of the nnz coupled dof pairs
+    (padded with the index of an appended zero), ``inv_map`` places them
+    in the dense (n, n) layout, the keep/pin masks fold into per-target
+    vectors; the loads' scatter over the reduced dofs gets its own table.
+    Both run as :class:`GatherPlan`s on the device, cached per engine with
+    the mode read at its first call."""
+    if getattr(eng, "_kc_gather", False) is False:
+        eng._kc_gather = None
+        if kc_assembly_mode(eng.device) == "gather":
+            n = eng.n_reduced
+            l2r = eng.loc2red_np.astype(np.int64)  # (nE, nbl)
+            flat = (l2r[:, :, None] * n + l2r[:, None, :]).reshape(-1)
+            nz, inv = np.unique(flat, return_inverse=True)
+            tab = invert_scatter(inv, nz.size, max_mult=64)
+            if tab is not None:
+                inv_map = np.full(n * n, nz.size, dtype=np.int64)
+                inv_map[nz] = np.arange(nz.size)
+                pin = eng.pin_np
+                keepn = ~pin
+                ti, tj = nz // n, nz % n
+                dev, dt = eng.device, eng.dtype
+                eng._kc_gather = KcGather(
+                    tab=tab,
+                    inv_map=torch.as_tensor(inv_map, device=dev),
+                    keep_vec=torch.as_tensor(keepn[ti] & keepn[tj], dtype=dt, device=dev),
+                    pin_vec=torch.as_tensor((ti == tj) & pin[ti], dtype=dt, device=dev),
+                    plan=GatherPlan(tab, flat.size, dev),
+                    fc_plan=GatherPlan(invert_scatter(l2r, n), l2r.size, dev),
+                )
+    return eng._kc_gather
+
+
+def chol_batched_system(eng, coeff, centers, G_fn=None, chunk: int = 0):
+    """Step 1 of :func:`tensors_chol_batched`: the equilibrated operators Ks
+    (N, n, n), loads Fs (n, s, N) and Σ_e Ā_e (N, r, r) of the whole batch,
+    assembled chunk by chunk into resident tensors; N pads the batch to a
+    chunk multiple with copies of its first center, as ``_map_chunked``
+    does.  Returns (Ks, Fs, Abar, chunk)."""
+    centers = torch.as_tensor(centers, device=eng.device).to(eng.dtype)
+    nc, n, s = centers.shape[0], eng.n_reduced, eng.s
+    chunk = max(1, min(chunk or eng._auto_chunk(nc), nc))
+    n_pad = (-nc) % chunk
+    if n_pad:
+        centers = torch.cat([centers, centers[:1].expand(n_pad, -1)])
+    N = nc + n_pad
+    Ks = torch.empty((N, n, n), dtype=eng.dtype, device=eng.device)
+    Fs = torch.empty((n, s, N), dtype=eng.dtype, device=eng.device)
+    Abar = torch.empty((N, eng.r, eng.r), dtype=eng.dtype, device=eng.device)
+    for i in range(0, N, chunk):
+        sys_ = chol_system(eng, coeff, centers[i : i + chunk], G_fn)
+        Ks[i : i + chunk], Fs[:, :, i : i + chunk], _ = sys_.equilibrated(eng)
+        Abar[i : i + chunk] = sys_.Abar
+        del sys_
+    return Ks, Fs, Abar, chunk
+
+
+def tensors_chol_batched(eng, coeff, centers, G_fn=None, chunk: int = 0):
+    """A*(c_T) (nc, s_full, s_full) with one direct solve over the whole
+    batch (torch port of ``hommx_tpu/micro/chunk.py::
+    tensors_chol_batched``, the ``HOMMX_CHOL_SOLVE_BATCH=1`` route).
+
+    1. per chunk: coefficient mapping, Kc assembly, loads and equilibration
+       into the resident (nc, n, n) operators Ks and (n, s, nc) loads Fs
+       (:func:`chol_batched_system`);
+    2. ONE :func:`~hommx_tpu_torch.ops.chol_kernel.fused_chol_solve` over
+       the whole batch (a single K3 launch on the card, refinement sweep
+       included);
+    3. per chunk: the bilinear A* in scaled quantities (XᵀKX = XsᵀKsXs,
+       FᵀX = FsᵀXs).
+
+    Holds the whole batch's equilibrated operators (nc·n² values, 1.27 GB
+    at 8640 beam cells in float32) where the in-chunk route holds one
+    chunk's.  Tensors only: no correctors."""
+    nc = centers.shape[0]
+    Ks, Fs, Abar, chunk = chol_batched_system(eng, coeff, centers, G_fn, chunk)
+    Xs = fused_chol_solve(Ks, Fs)  # (n, s, N)
+    E = eng.E
+    out = []
+    for i in range(0, Ks.shape[0], chunk):
+        X = Xs[:, :, i : i + chunk].permute(2, 0, 1)  # (C, n, s)
+        F = Fs[:, :, i : i + chunk].permute(2, 0, 1)
+        XtF = X.transpose(1, 2) @ F
+        XtKX = X.transpose(1, 2) @ (Ks[i : i + chunk] @ X)
+        term1 = torch.einsum("rs,crt,tm->csm", E, Abar[i : i + chunk], E)
+        out.append((term1 - XtF - XtF.transpose(1, 2) + XtKX) / eng.volume_Y)
+    return eng._expand_astar(torch.cat(out)[:nc])

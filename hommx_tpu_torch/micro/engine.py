@@ -19,10 +19,16 @@ vertex 0.  Two routes are ported (micro/chunk.py):
   batched direct solve is the CUDA kernel K3.  The reference takes it in float32 only (float64 runs the
   per-cell route); the port takes it in every dtype.
 
-Other routes — per-cell dense solves (and with them matrix coefficients),
-PCG on vector problems, P2 micro
-elements, FFT and multigrid cell preconditioners, low-rank coefficients —
-raise ``NotImplementedError`` (ROADMAP A9).
+``tensors_for_centers`` takes one of those two routes (with
+``HOMMX_CHOL_SOLVE_BATCH=1`` the Cholesky route solves the whole batch in
+one K3 launch, micro/chunk.py::tensors_chol_batched).  The per-cell route
+is public as :meth:`MicroEngine.cell_tensor` (one macro point, dense K,
+Cholesky or block-PCG with ``torch.linalg``) and
+:meth:`MicroEngine.solve_periodic` (a general periodic variational solve),
+micro/percell.py; ``tensors_for_centers`` does not dispatch to it.  Other
+routes — matrix coefficients, PCG on vector problems, P2 micro elements,
+FFT and multigrid cell preconditioners, low-rank coefficients — raise
+``NotImplementedError`` (ROADMAP A9).
 
 Coefficients are torch callables ``A(x, y)`` on 1-D points, evaluated with
 nested ``torch.func.vmap``; quadrature coordinates stay float64 whatever
@@ -31,6 +37,7 @@ the compute dtype.
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -40,6 +47,7 @@ from hommx_tpu_torch.config import as_device, default_dtype
 from hommx_tpu_torch.meshes.simplex import SimplexMesh
 from hommx_tpu_torch.micro.krylov import _map_chunked
 from hommx_tpu_torch.micro.periodic import build_periodic_map
+from hommx_tpu_torch.ops.assembly import gather_sum
 
 __all__ = ["MicroEngine"]
 
@@ -126,8 +134,8 @@ class MicroEngine:
             )
         if solver == "cholesky" and bs == 1:
             raise NotImplementedError(
-                "the Cholesky route for scalar coefficients is the per-cell "
-                "route, not ported yet (ROADMAP A9); solver='pcg' takes them"
+                "tensors_for_centers does not send scalar problems to the "
+                "per-cell Cholesky route yet (ROADMAP A9); solver='pcg' takes them"
             )
         if solver not in ("pcg", "cholesky"):
             raise ValueError("solver must be 'auto', 'pcg' or 'cholesky'")
@@ -253,23 +261,41 @@ class MicroEngine:
         one = torch.ones((), dtype=d.dtype, device=d.device)
         return torch.where(bad, one, torch.sqrt(d0 / torch.where(bad, one, d))).to(self.dtype)
 
+    def _static(self, name: str, like: torch.Tensor) -> torch.Tensor:
+        """The engine's static operator ``name`` ('Draw' or 'D') in the
+        dtype and on the device of ``like``."""
+        t = getattr(self, name)
+        if t.dtype == like.dtype and t.device == like.device:
+            return t
+        return torch.as_tensor(getattr(self, name + "_np"), dtype=like.dtype, device=like.device)
+
     def _assemble_dense(self, A_K: torch.Tensor) -> torch.Tensor:
-        """K = D_flatᵀ (A_K D)_flat over (nE·r, nred), on the host."""
-        D = torch.as_tensor(self.D_np, dtype=A_K.dtype)
+        """K = D_flatᵀ (A_K D)_flat over (nE·r, nred), on A_K's device."""
+        D = self._static("D", A_K)
         Z = torch.einsum("ert,etn->ern", A_K, D)
         nE, r, nred = Z.shape
         return D.reshape(nE * r, nred).T @ Z.reshape(nE * r, nred)
 
     def _assemble_scatter(self, A_K: torch.Tensor) -> torch.Tensor:
-        """Per-element (nbl, nbl) blocks scattered into the dense reduced
-        operator, on the host."""
-        Draw = torch.as_tensor(self.Draw_np, dtype=A_K.dtype)
-        vals = torch.einsum("erl,ert,etm->elm", Draw, A_K, Draw)
-        l2r = torch.as_tensor(self.loc2red_np)
-        flat = (l2r[:, :, None] * self.n_reduced + l2r[:, None, :]).reshape(-1)
-        K = torch.zeros(self.n_reduced * self.n_reduced, dtype=A_K.dtype)
-        K.index_add_(0, flat, vals.reshape(-1))
-        return K.reshape(self.n_reduced, self.n_reduced)
+        """Per-element (nbl, nbl) blocks summed into the dense reduced
+        operator on A_K's device: a scatter-add, or on an engine whose Kc
+        assembly is the gather (micro/chunk.py::kc_assembly_mode, the CUDA
+        default) the same sum in a fixed order."""
+        from hommx_tpu_torch.micro.chunk import _get_kc_gather
+
+        Draw = self._static("Draw", A_K)
+        vals = torch.einsum("erl,ert,etm->elm", Draw, A_K, Draw).reshape(-1)
+        n = self.n_reduced
+        # the host build of K0 takes the scatter, which is in order there
+        kcg = _get_kc_gather(self) if A_K.device.type == self.device.type else None
+        if kcg is not None:
+            nz_vals = gather_sum(vals, kcg.plan)
+            return torch.cat([nz_vals, nz_vals.new_zeros(1)])[kcg.inv_map].reshape(n, n)
+        l2r = torch.as_tensor(self.loc2red_np, device=A_K.device)
+        flat = (l2r[:, :, None] * n + l2r[:, None, :]).reshape(-1)
+        K = torch.zeros(n * n, dtype=A_K.dtype, device=A_K.device)
+        K.index_add_(0, flat, vals)
+        return K.reshape(n, n)
 
     def _get_stencil(self):
         from hommx_tpu_torch.micro.chunk import _get_stencil
@@ -289,6 +315,33 @@ class MicroEngine:
         if self.sym_expand is None:
             return X
         return X[..., torch.as_tensor(self.sym_expand, device=X.device)]
+
+    # -- the per-cell route (micro/percell.py) -------------------------------
+    def element_coeff(self, coeff: Callable, x_center) -> torch.Tensor:
+        """Ā_e = Σ_q w_eq A(c_T, y_eq) in canonical (nE, r, r) matrix form
+        (a scalar coefficient becomes ā_e·I)."""
+        x_center = torch.as_tensor(x_center, device=self.device)
+        if not x_center.is_floating_point():
+            x_center = x_center.to(torch.float64)
+        a = self._raw_coeff(coeff, x_center)
+        if self.coeff_kind == "scalar":
+            return a[:, None, None] * torch.eye(self.r, dtype=self.dtype, device=self.device)
+        return a
+
+    def cell_tensor(self, Ae: torch.Tensor, G: Optional[torch.Tensor] = None):
+        """A* (s_full, s_full) and the generator correctors X (n, s_full)
+        of one macro point by the per-cell route: dense K, then Cholesky
+        or block-PCG (micro/percell.py::cell_tensor)."""
+        from hommx_tpu_torch.micro.percell import cell_tensor
+
+        return cell_tensor(self, Ae, G)
+
+    def solve_periodic(self, coeff, rhs=None, grad_rhs=None, x_center=None) -> torch.Tensor:
+        """The general periodic variational solve a(u, v) = L(v) on the
+        unit cell (micro/percell.py::solve_periodic)."""
+        from hommx_tpu_torch.micro.percell import solve_periodic
+
+        return solve_periodic(self, coeff, rhs, grad_rhs, x_center)
 
     # -- coefficients --------------------------------------------------------
     def _raw_coeff(self, coeff: Callable, x_center: torch.Tensor) -> torch.Tensor:
@@ -347,10 +400,25 @@ class MicroEngine:
         s_full): the unscaled solves of the cell systems (S·Y on the PCG
         route, the direct solve's X on the Cholesky route), in the full
         generator layout."""
-        from hommx_tpu_torch.micro.chunk import tensors_chunk_chol, tensors_chunk_pcg
+        from hommx_tpu_torch.micro.chunk import (
+            tensors_chol_batched,
+            tensors_chunk_chol,
+            tensors_chunk_pcg,
+        )
 
         centers = torch.as_tensor(centers, device=self.device).to(self.dtype)
-        chunk = chunk or self._auto_chunk(centers.shape[0])
+        nc = centers.shape[0]
+        chunk = chunk or self._auto_chunk(nc)
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        if (
+            self.solver == "cholesky"
+            and not with_correctors
+            and os.environ.get("HOMMX_CHOL_SOLVE_BATCH", "0") == "1"
+            # the resident operators and the solve's panels, 2·nc·n²
+            # values: past 6 GB the in-chunk route takes the batch
+            and 2 * nc * self.n_reduced**2 * itemsize <= (6 << 30)
+        ):
+            return tensors_chol_batched(self, coeff, centers, G_fn, chunk)
         route = tensors_chunk_chol if self.solver == "cholesky" else tensors_chunk_pcg
         if not with_correctors:
             return _map_chunked(lambda cs: route(self, coeff, cs, G_fn), centers, chunk)

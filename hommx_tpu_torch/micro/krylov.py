@@ -15,6 +15,7 @@ import torch
 
 __all__ = [
     "_amp_cap",
+    "_block_pcg_matfree",
     "_solve_linear",
     "_clamp_good",
     "_chunk_pcg_raw",
@@ -33,6 +34,15 @@ def _amp_cap(dtype) -> float:
     """Amplification-clamp threshold of the energy clamp (≈1/√eps of the
     working dtype): 1e4 in float32, 1e8 in float64."""
     return 1e4 if dtype == torch.float32 else 1e8
+
+
+def _block_pcg_matfree(matvec, F, Minv, tol, maxiter):
+    """Block-CG with s right-hand sides F (n, s) on ONE SPD system given as
+    a matvec, preconditioned by the explicit shared inverse Minv = K0⁻¹
+    (the reference's ``_block_pcg_matfree``, the per-cell route's PCG):
+    the chunk loop's lockstep, freeze and stall rules on one cell, then the
+    zero-corrector energy clamp.  Returns X (n, s)."""
+    return _solve_linear(matvec, lambda R: Minv @ R, F, tol, maxiter)[0]
 
 
 def _solve_linear(matvec, prec, F, tol, maxiter, raw=None):

@@ -1,22 +1,40 @@
-"""Static operator construction for the micro engine (torch port of
-``hommx_tpu/micro/percell.py::build_operators``, P1 branch, scalar and
+"""Static operator construction and the per-cell solve route of the micro
+engine (torch port of ``hommx_tpu/micro/percell.py``, P1, scalar and
 vector dofs).
 
-Runs once at engine construction on the host: the per-element gradient
-operators, the reduced dof map, the generator fields (the Voigt set for
-elasticity) and the nullspace pinning.  The per-cell solve route
-(``cell_tensor``) is not ported yet (ROADMAP A9).
+``build_operators`` runs once at engine construction on the host: the
+per-element gradient operators, the reduced dof map, the generator fields
+(the Voigt set for elasticity) and the nullspace pinning.
+
+``cell_tensor`` solves the cell problems of ONE macro point with a dense
+reduced operator K: a Cholesky factorization (float32: equilibrated, plus
+one refinement sweep) or the block-PCG preconditioned by K0⁻¹.
+``solve_periodic`` is the general periodic variational solve a(u, v) =
+L(v) on the unit cell.  These are dense per-cell solves that the reference
+runs with ``jax.scipy.linalg`` and no Pallas kernel; ``torch.linalg`` runs
+them here.  Above 4096 reduced dofs ``solve_periodic`` runs the block-PCG
+with the Jacobi preconditioner on the matrix-free operator (the
+reference's route without a block stencil; its block stencil and torus
+multigrid are ROADMAP A9).  Scatters onto the reduced dofs run in a fixed
+order where the engine's Kc assembly is the gather (the CUDA default).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from hommx_tpu_torch.micro.engine import _sym_map
+from hommx_tpu_torch.micro.krylov import _block_pcg_matfree, _chunk_pcg_raw
+from hommx_tpu_torch.ops.assembly import gather_sum
 from hommx_tpu_torch.ops.elements import cell_geometry, quad_points_physical
 
-__all__ = ["build_operators"]
+__all__ = ["build_operators", "cell_tensor", "solve_periodic"]
+
+#: largest reduced space ``solve_periodic`` factorizes densely
+_DENSE_MAX = 4096
 
 
 def build_operators(eng):
@@ -27,7 +45,7 @@ def build_operators(eng):
     verts = torch.as_tensor(mesh.vertices, dtype=torch.float64)
     cells = torch.as_tensor(mesh.cells)
     grads, _ = cell_geometry(verts, cells)  # (ne, d+1, d)
-    xq, wq, _ = quad_points_physical(verts, cells, eng.quad_degree)
+    xq, wq, lam_q = quad_points_physical(verts, cells, eng.quad_degree)
     ne, nq = wq.shape
     grads_np = grads.numpy()
 
@@ -49,6 +67,9 @@ def build_operators(eng):
                 Draw[:, i * d : (i + 1) * d, a * bs + i] = grads_np[:, a, :]
     eng.yq = xq.numpy()  # (ne, nq, d) quadrature points (f64)
     eng.wq = wq.numpy()  # (ne, nq) weights, sum = |Y|
+    # P1 basis values at the quadrature points (the barycentric
+    # coordinates, shared by the elements) for solve_periodic's loads
+    eng.phi_q = np.broadcast_to(lam_q.numpy()[None], (ne, nq, d + 1)).copy()
     eng.nE, eng.nq = ne, nq
     eng.Draw_np = Draw
     eng.Draw = torch.as_tensor(Draw, dtype=eng.dtype, device=eng.device)
@@ -115,3 +136,177 @@ def build_operators(eng):
         eng._get_K0inv()
     else:
         eng._get_K0diag()
+
+
+def _to_reduced(eng, vals: torch.Tensor) -> torch.Tensor:
+    """Σ over local dofs onto reduced dofs: (nE·nbl, k) -> (n, k), in the
+    gather's fixed order where the engine has the gather tables."""
+    from hommx_tpu_torch.micro.chunk import _get_kc_gather
+
+    kcg = _get_kc_gather(eng)
+    if kcg is not None:
+        return gather_sum(vals.T, kcg.fc_plan).T
+    out = vals.new_zeros((eng.n_reduced, vals.shape[1]))
+    return out.index_add_(0, eng.loc2red.reshape(-1), vals)
+
+
+def _pinned_dense(eng, A_K: torch.Tensor, dense: bool) -> torch.Tensor:
+    """The reduced operator of the element blocks A_K, with the identity
+    on the pinned dofs."""
+    K = eng._assemble_dense(A_K) if dense else eng._assemble_scatter(A_K)
+    keep = (~eng.pin_mask).to(K.dtype)
+    return K * keep[:, None] * keep[None, :] + torch.diag(eng.pin_mask.to(K.dtype))
+
+
+def cell_tensor(eng, Ae: torch.Tensor, G: Optional[torch.Tensor] = None):
+    """Homogenized tensor A* (s_full, s_full) and generator correctors X
+    (n, s_full) of one macro point (``hommx_tpu/micro/percell.py:191-325``).
+
+    Ae: (nE, r, r) per-element reduced coefficient (``element_coeff``).
+    G:  optional Dθᵀ(c_T) gradient map (stratified variants).
+    """
+    Ae = torch.as_tensor(Ae, device=eng.device).to(eng.dtype)
+    if G is not None:
+        G = torch.as_tensor(G, device=eng.device).to(eng.dtype)
+    T = eng._grad_map(G)
+    # test/trial-mapped element blocks: K-side TᵀĀT, F-side TᵀĀ
+    if T is None:
+        A_K = A_F = Ae
+    else:
+        A_K = torch.einsum("mr,emt,tn->ern", T, Ae, T)
+        A_F = torch.einsum("mr,emt->ert", T, Ae)
+    s = eng.s
+    # loads F = −Σ_e D_eᵀ (TᵀĀ_e) E, the pinned dofs zeroed
+    AE = torch.einsum("ert,ts->ers", A_F, eng.E)
+    F = _to_reduced(eng, -torch.einsum("erl,ers->els", eng.Draw, AE).reshape(-1, s))
+    keep = (~eng.pin_mask).to(eng.dtype)
+    pinf = eng.pin_mask.to(eng.dtype)
+    F = F * keep[:, None]
+
+    if eng.solver == "cholesky":
+        K = _pinned_dense(eng, A_K, eng.assembly == "dense")
+        if eng.dtype == torch.float32 and eng.diag_scale:
+            # float32: symmetric equilibration Ks = S K S and one
+            # refinement sweep against K
+            sc = eng._scale_from_diag(torch.diagonal(K))[:, None]
+            L = torch.linalg.cholesky_ex(sc * K * sc.T).L
+            X = sc * torch.cholesky_solve(sc * F, L)
+            X = X + sc * torch.cholesky_solve(sc * (F - K @ X), L)
+        else:
+            X = torch.cholesky_solve(F, torch.linalg.cholesky_ex(K).L)
+    else:
+        # matrix-free block-PCG: K·p = D̃ᵀ(A_K ∘ D̃p), K never formed
+        def matvec(p):
+            pk = p * keep[:, None]
+            if eng.D is not None:
+                Dp = torch.einsum("ern,ns->ers", eng.D, pk)
+                Kp = torch.einsum("ern,ers->ns", eng.D, torch.einsum("ert,ets->ers", A_K, Dp))
+            else:
+                Dp = torch.einsum("erl,els->ers", eng.Draw, pk[eng.loc2red])
+                wl = torch.einsum("erl,ers->els", eng.Draw,
+                                  torch.einsum("ert,ets->ers", A_K, Dp))
+                Kp = _to_reduced(eng, wl.reshape(-1, p.shape[1]))
+            return Kp * keep[:, None] + pinf[:, None] * p
+
+        Minv = eng._get_K0inv()
+        if eng.diag_scale:
+            # the exact diag(K) without forming K
+            if eng.D is not None:
+                dg = torch.einsum("ern,ert,etn->n", eng.D, A_K, eng.D)
+            else:
+                dl = torch.einsum("erl,ert,etl->el", eng.Draw, A_K, eng.Draw)
+                dg = _to_reduced(eng, dl.reshape(-1, 1))[:, 0]
+            sc = eng._scale_from_diag(dg)[:, None]
+            X = sc * _block_pcg_matfree(lambda p: sc * matvec(sc * p), sc * F, Minv,
+                                        eng.pcg_tol, eng.pcg_maxiter)
+        else:
+            X = _block_pcg_matfree(matvec, F, Minv, eng.pcg_tol, eng.pcg_maxiter)
+
+    # corrected element fields Φ_e = E + T D_e X_loc, then
+    # A*[n, m] = (1/|Y|) Σ_e Φ[:, n]ᵀ Ā_e Φ[:, m]
+    DX = torch.einsum("erl,els->ers", eng.Draw, X[eng.loc2red])
+    if T is not None:
+        DX = torch.einsum("rt,ets->ers", T, DX)
+    Phi = eng.E[None] + DX
+    Astar = torch.einsum("ern,ert,etm->nm", Phi, Ae, Phi) / eng.volume_Y
+    return eng._expand_astar(Astar), eng._expand_cols(X)
+
+
+def _at_quad_points(eng, fn) -> torch.Tensor:
+    """``fn(y)`` at every micro quadrature point, (nE, nq, ...) in the
+    engine's dtype."""
+    def one(y):
+        return torch.as_tensor(fn(y), device=y.device).to(eng.dtype)
+
+    return torch.func.vmap(torch.func.vmap(one))(eng.yq_dev)
+
+
+def solve_periodic(eng, coeff, rhs=None, grad_rhs=None, x_center=None) -> torch.Tensor:
+    """Periodic variational solve on the unit cell Y
+    (``hommx_tpu/micro/percell.py:326-477``):
+
+        ∫_Y ∇v · A(x₀, y) ∇u dy = ∫_Y f(y)·v dy + ∫_Y g(y)·∇v dy
+
+    on the reduced periodic space with the nullspace pinned (the bs dofs of
+    reduced vertex 0); as in the reference, the f term must be compatible
+    (zero total force per component).
+
+    Args:
+        coeff: the engine's coefficient A(x, y) (scalar or (d,d,d,d),
+            matching ``coeff_kind``).
+        rhs: optional load f(y) -> scalar (bs = 1) or (bs,).
+        grad_rhs: optional gradient-weighted load g(y) -> (r,) (r = d, or
+            the d² flattened gradient rows of a vector problem).
+        x_center: the macro point x₀ passed to the coefficient (default 0).
+
+    Returns:
+        u on the FULL periodic node set, (n_nodes·bs,).
+    """
+    if rhs is None and grad_rhs is None:
+        raise ValueError("solve_periodic needs rhs and/or grad_rhs")
+    x0 = (
+        torch.zeros(eng.d, dtype=torch.float64, device=eng.device)
+        if x_center is None
+        else torch.as_tensor(x_center, dtype=torch.float64, device=eng.device)
+    )
+    Ae = eng.element_coeff(coeff, x0)  # (nE, r, r)
+    n, bs = eng.n_reduced, eng.bs
+    wq = eng.wq_dev  # (nE, nq)
+    b = torch.zeros(n, dtype=eng.dtype, device=eng.device)
+    if rhs is not None:
+        fv = _at_quad_points(eng, rhs).reshape(eng.nE, eng.nq, bs)
+        phi = torch.as_tensor(eng.phi_q, dtype=eng.dtype, device=eng.device)
+        # (nE, nnd·bs) in (a, i) dof order, the order of loc2red
+        b_loc = torch.einsum("eq,eqi,eqa->eai", wq, fv, phi).reshape(-1, 1)
+        b = b + _to_reduced(eng, b_loc)[:, 0]
+    if grad_rhs is not None:
+        ge = torch.einsum("eq,eqr->er", wq, _at_quad_points(eng, grad_rhs))
+        b = b + _to_reduced(eng, torch.einsum("er,erl->el", ge, eng.Draw).reshape(-1, 1))[:, 0]
+    keep = (~eng.pin_mask).to(eng.dtype)
+    b = b * keep
+
+    T = eng._grad_map(None)
+    A_K = Ae if T is None else torch.einsum("mr,emt,tn->ern", T, Ae, T)
+    if n <= _DENSE_MAX:
+        K = _pinned_dense(eng, A_K, eng.assembly == "dense" and eng.D is not None)
+        u = torch.cholesky_solve(b[:, None], torch.linalg.cholesky_ex(K).L)[:, 0]
+    else:
+        # one-cell block-PCG on the matrix-free operator, Jacobi-preconditioned
+        pinf = eng.pin_mask.to(eng.dtype)
+        keep3, pinf3 = keep[:, None, None], pinf[:, None, None]
+
+        def matvec(P):
+            p_loc = (P * keep3)[:, 0, 0][eng.loc2red]
+            Dp = torch.einsum("erl,el->er", eng.Draw, p_loc)
+            wl = torch.einsum("erl,er->el", eng.Draw, torch.einsum("ert,et->er", A_K, Dp))
+            return _to_reduced(eng, wl.reshape(-1, 1))[:, :, None] * keep3 + pinf3 * P
+
+        dl = torch.einsum("erl,ert,etl->el", eng.Draw, A_K, eng.Draw)
+        dg = _to_reduced(eng, dl.reshape(-1, 1))[:, 0]
+        dg = torch.where(eng.pin_mask | (dg <= 0), torch.ones_like(dg), dg)
+        u3, _ = _chunk_pcg_raw(matvec, lambda R: R / dg[:, None, None], b[:, None, None],
+                               eng.pcg_tol, eng.pcg_maxiter)
+        u = u3[:, 0, 0]
+    red = np.asarray(eng.pmap.reduced_index)
+    idx = (red[:, None] * bs + np.arange(bs)[None, :]).reshape(-1)
+    return u[torch.as_tensor(idx, device=u.device)]

@@ -18,7 +18,13 @@ import numpy as np
 import torch
 
 from hommx_tpu_torch.config import as_device
-from hommx_tpu_torch.ops.assembly import apply_dirichlet, assemble_ell
+from hommx_tpu_torch.ops.assembly import (
+    GatherPlan,
+    apply_dirichlet,
+    assemble_ell,
+    build_gather_assembly,
+    invert_scatter,
+)
 from hommx_tpu_torch.ops.dia import build_dia_from_ell
 from hommx_tpu_torch.ops.elements import cell_geometry
 from hommx_tpu_torch.ops.function_space import DirichletBC, FunctionSpace
@@ -52,7 +58,7 @@ def assemble_macro_system(sys, A_star, b, mask, bvals, *, macro_f64: bool):
     P = sys.strain_P64 if sys.V.bs > 1 else sys.grads64
     A_T = A_star.transpose(-1, -2).to(torch.float64)  # reference index order
     S_loc = torch.einsum("c,cad,cde,cbe->cab", sys.vols64, P, A_T, P)
-    vals = assemble_ell(sys.pattern, S_loc, sys.slots)
+    vals = assemble_ell(sys.pattern, S_loc, sys.slots, gather=sys.gather_asm)
     vals_bc, b_bc = apply_dirichlet(
         vals, sys.cols, sys.diag_slots, b.to(torch.float64), mask,
         bvals.to(torch.float64), dia=sys.dia,
@@ -150,6 +156,18 @@ class MacroSystem:
             self.strain_P64 = strain_coefficients(self.grads64, V.bs)
             self.strain_P = self.strain_P64.to(dtype)  # (nc, nb, d²)
         self._mg = False  # lazily built (False = not yet, None = unavailable)
+        # fixed-order gather plans of the ELL assembly and of the load
+        # vector for a CUDA system, built on the device: index_add_ there
+        # adds colliding entries in the order its atomics land, so two
+        # identical runs would differ in the last bits.  None on the CPU,
+        # where the scatter is in order (and at a pathological multiplicity)
+        self.gather_asm = self.load_gather = None
+        if device.type == "cuda":
+            table = build_gather_assembly(self.pattern, device=device)
+            if table is not None:
+                self.gather_asm = GatherPlan(table, self.pattern.slots.size, device)
+            table = invert_scatter(self.cell_dofs, V.num_dofs, device=device)
+            self.load_gather = GatherPlan(table, self.cell_dofs.size, device)
 
     @property
     def mg(self):

@@ -47,6 +47,7 @@ from hommx_tpu_torch.models.common import (
     merge_bcs,
     probe_coeff_kind,
 )
+from hommx_tpu_torch.models.fem import _as_source
 from hommx_tpu_torch.ops.assembly import assemble_load_vector
 from hommx_tpu_torch.ops.function_space import (
     DirichletBC,
@@ -71,18 +72,6 @@ __all__ = [
 _FP_PROJECTIONS = 16
 
 logger = logging.getLogger("hommx_tpu_torch")
-
-
-def _as_source(f, bs: int) -> Callable:
-    """Normalize the rhs: a torch callable, a constant scalar, or a
-    constant (bs,) vector."""
-    if callable(f):
-        return f
-    if bs == 1:
-        val = float(f)
-        return lambda x: val
-    arr = torch.as_tensor(np.broadcast_to(np.asarray(f, dtype=np.float64), (bs,)).copy())
-    return lambda x: arr
 
 
 class BaseHMM:
@@ -471,7 +460,7 @@ class BaseHMM:
         if self._b_load is None:
             self._b_load = assemble_load_vector(
                 sys.verts64, sys.cells, self._f_fn, bs=self._V_macro.bs,
-                degree=self._quad_degree_rhs,
+                degree=self._quad_degree_rhs, gather=sys.load_gather,
             )
         t0 = time.perf_counter()
         vals_bc, b_bc = assemble_macro_system(

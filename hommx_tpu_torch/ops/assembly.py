@@ -3,8 +3,6 @@ the H1 seminorm (torch port of ``hommx_tpu/ops/assembly.py``)."""
 
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 import torch
 
@@ -15,6 +13,9 @@ from hommx_tpu_torch.ops.sparse import ELLPattern, spmv
 __all__ = [
     "assemble_ell",
     "build_gather_assembly",
+    "invert_scatter",
+    "GatherPlan",
+    "gather_sum",
     "apply_dirichlet",
     "assemble_load_vector",
     "l2_norm_fn",
@@ -22,43 +23,91 @@ __all__ = [
 ]
 
 
+def invert_scatter(targets, num_targets: int, max_mult: int = 0, device=None):
+    """Inversion of the scatter ``out[targets[i]] += src[i]`` on ``device``
+    (the host by default): an int64 (num_targets, m) table whose row t
+    lists the source positions that add into t in ascending order, padded
+    with ``targets.size`` (the index of a zero appended to the source).
+    None when the multiplicity m exceeds ``max_mult`` (0: no limit)."""
+    t = torch.as_tensor(np.asarray(targets), device=device).reshape(-1).long()
+    counts = torch.bincount(t, minlength=num_targets)
+    m = int(counts.max()) if counts.numel() else 0
+    if m == 0 or (max_mult and m > max_mult):
+        return None
+    order = torch.argsort(t, stable=True)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(t.numel(), device=t.device) - starts[t[order]]
+    table = torch.full((num_targets, m), t.numel(), dtype=torch.int64, device=t.device)
+    table[t[order], pos] = order
+    return table
+
+
+class GatherPlan:
+    """An :func:`invert_scatter` table made ready for the device: the
+    targets grouped by their number of contributors k, each group a dense
+    (n_k, k) table with no padding, and the map back to target order.
+    Summing a group is one gather and one reduction over its k
+    contributors, so the work follows the contributions, not the largest
+    multiplicity (on the beam's 4³ cell: 3.6 contributors a target on
+    average, 24 at most)."""
+
+    def __init__(self, table, num_sources: int, device=None):
+        table = torch.as_tensor(table, device=device)
+        counts = (table != num_sources).sum(dim=1)  # the padding is num_sources
+        pos = torch.empty(table.shape[0], dtype=torch.int64, device=table.device)
+        self.tables, start = [], 0
+        for k in torch.unique(counts[counts > 0]).tolist():
+            rows = torch.nonzero(counts == k)[:, 0]
+            self.tables.append(table[rows, :k].contiguous())
+            pos[rows] = start + torch.arange(rows.numel(), device=table.device)
+            start += rows.numel()
+        pos[counts == 0] = start  # an appended zero
+        self.order = pos
+        self.num_targets = table.shape[0]
+
+
+def gather_sum(src: torch.Tensor, plan: GatherPlan) -> torch.Tensor:
+    """The scatter that ``plan`` inverts, as gathers along the last axis of
+    ``src`` (..., S) -> (..., T).  Every gather and reduction has a fixed
+    order, so each target sums its contributors the same way on every run
+    (``index_add_`` on CUDA adds in the order its atomics land)."""
+    lead = src.shape[:-1]
+    parts = [
+        src.index_select(-1, t.reshape(-1)).reshape(*lead, *t.shape).sum(dim=-1)
+        for t in plan.tables
+    ]
+    parts.append(src.new_zeros(*lead, 1))
+    return torch.cat(parts, dim=-1).index_select(-1, plan.order)
+
+
 def assemble_ell(
     pattern: ELLPattern,
     S_loc: torch.Tensor,
     slots: torch.Tensor,
-    gather: Optional[torch.Tensor] = None,
+    gather: GatherPlan = None,
 ) -> torch.Tensor:
     """Assemble per-cell blocks (nc, nb, nb) into the flat ELL value array.
 
     Default: one scatter-add over ``slots`` (int64, on the device).  With
-    ``gather`` (from :func:`build_gather_assembly`, on the device) the same
-    sum is a gather over a static contributor table and a row reduction;
-    the two differ only by floating-point reassociation.
+    ``gather``, a :class:`GatherPlan` of :func:`build_gather_assembly`'s
+    table, the same sum runs as fixed-order gathers; the two differ only
+    by floating-point reassociation.
     """
     if gather is not None:
-        flat = torch.cat([S_loc.reshape(-1), S_loc.new_zeros(1)])
-        return flat[gather].sum(dim=1)
+        return gather_sum(S_loc.reshape(-1), gather)
     vals = S_loc.new_zeros(pattern.num_dofs * pattern.row_width)
     return vals.index_add_(0, slots.reshape(-1), S_loc.reshape(-1))
 
 
-def build_gather_assembly(pattern: ELLPattern, max_mult: int = 32):
-    """Host-side inversion of the assembly scatter map: an int64
-    (num_slots, m) numpy table of the contributing entries of every ELL
-    slot in ``S_loc.reshape(-1)``, padded with ``S_loc.size`` (an appended
-    zero).  None when the multiplicity m exceeds ``max_mult``."""
-    slots = pattern.slots.reshape(-1).astype(np.int64)
-    num_slots = pattern.num_dofs * pattern.row_width
-    counts = np.bincount(slots, minlength=num_slots)
-    m = int(counts.max()) if counts.size else 0
-    if m == 0 or m > max_mult:
-        return None
-    order = np.argsort(slots, kind="stable")
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    pos = np.arange(slots.size) - starts[slots[order]]
-    contrib = np.full((num_slots, m), slots.size, dtype=np.int64)
-    contrib[slots[order], pos] = order
-    return contrib
+def build_gather_assembly(pattern: ELLPattern, max_mult: int = 32, device=None):
+    """Inversion of the assembly scatter map (:func:`invert_scatter` on
+    ``device``): an int64 (num_slots, m) table of the contributing entries
+    of every ELL slot in ``S_loc.reshape(-1)``, padded with ``S_loc.size``
+    (an appended zero).  None when the multiplicity m exceeds
+    ``max_mult``."""
+    return invert_scatter(
+        pattern.slots, pattern.num_dofs * pattern.row_width, max_mult, device
+    )
 
 
 def apply_dirichlet(
@@ -102,12 +151,15 @@ def apply_dirichlet(
     return v.reshape(-1), b
 
 
-def assemble_load_vector(vertices, cells, f, bs: int = 1, degree: int = 2):
+def assemble_load_vector(vertices, cells, f, bs: int = 1, degree: int = 2, gather=None):
     """b_i = ∫ f · v_i dx with quadrature of the given degree.
 
     Args:
         vertices: (nv, d) tensor; cells: (nc, d+1) integer tensor.
         f: torch callable x:(d,) -> scalar (bs=1) or (bs,) vector.
+        gather: optional :class:`GatherPlan` of the cell dofs
+            (``MacroSystem.load_gather``): the sum in a fixed order instead
+            of a scatter-add.
     Returns: (num_vertices * bs,) load vector in the vertices' dtype.
     """
     xq, wq, lam = quad_points_physical(vertices, cells, degree)
@@ -116,10 +168,14 @@ def assemble_load_vector(vertices, cells, f, bs: int = 1, degree: int = 2):
     if bs == 1:
         fvals = fvals.reshape(xq.shape[0], xq.shape[1])
         contrib = torch.einsum("cq,qa->ca", wq * fvals, lam)
+        if gather is not None:
+            return gather_sum(contrib.reshape(-1), gather)
         b = contrib.new_zeros(vertices.shape[0])
         return b.index_add_(0, cells.reshape(-1), contrib.reshape(-1))
     fvals = fvals.reshape(xq.shape[0], xq.shape[1], bs)
     contrib = torch.einsum("cq,cqk,qa->cak", wq, fvals, lam)
+    if gather is not None:
+        return gather_sum(contrib.reshape(-1), gather)
     b = contrib.new_zeros(vertices.shape[0] * bs)
     dofs = (cells[:, :, None] * bs + torch.arange(bs, device=cells.device)).reshape(-1)
     return b.index_add_(0, dofs, contrib.reshape(-1))

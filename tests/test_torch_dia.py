@@ -16,6 +16,7 @@ from hommx_tpu.ops.sparse import spmv as jax_spmv
 from hommx_tpu_torch import _cuda
 from hommx_tpu_torch.ops import dia as tdia
 from hommx_tpu_torch.ops.assembly import (
+    GatherPlan,
     apply_dirichlet,
     assemble_ell,
     build_gather_assembly,
@@ -227,7 +228,7 @@ def test_assemble_ell_scatter_and_gather(gather):
     tp = build_ell_pattern(mesh.cells, mesh.num_vertices)
     rng = np.random.default_rng(4)
     S = rng.standard_normal((mesh.num_cells, 3, 3))
-    table = torch.as_tensor(build_gather_assembly(tp)) if gather else None
+    table = GatherPlan(build_gather_assembly(tp), tp.slots.size) if gather else None
     vals = assemble_ell(tp, torch.as_tensor(S), torch.as_tensor(tp.slots.astype(np.int64)), gather=table)
     dense = np.zeros((tp.num_dofs, tp.num_dofs))
     c = mesh.cells
@@ -393,3 +394,28 @@ def test_launch_counts_per_instance(monkeypatch):
     assert kern.counts == {"hommx_fake": 2, "hommx_fake_f64": 3} and kern.launches == 5
     kern.reset_counts()
     assert kern.counts == {"hommx_fake": 0, "hommx_fake_f64": 0} and kern.launches == 0
+
+
+@pytest.mark.parametrize("case", ["uniform", "ragged", "empty_targets"])
+def test_gather_plan_sums_like_the_scatter(case):
+    """invert_scatter and GatherPlan: the fixed-order gather sum equals
+    index_add_ on a map where every target has the same number of
+    contributors, on a ragged one, and on one with targets that none
+    reaches (they sum to 0)."""
+    from hommx_tpu_torch.ops.assembly import GatherPlan, gather_sum, invert_scatter
+
+    rng = np.random.default_rng(12)
+    if case == "uniform":
+        targets = np.repeat(np.arange(40), 3)[rng.permutation(120)]
+        T = 40
+    elif case == "ragged":
+        targets, T = rng.integers(0, 30, 200), 30
+    else:
+        targets, T = rng.integers(0, 25, 60) * 2, 50
+    src = torch.as_tensor(rng.standard_normal((3, targets.size)))
+    table = invert_scatter(targets, T)
+    assert table.shape[0] == T and (table[table < targets.size] >= 0).all()
+    got = gather_sum(src, GatherPlan(table, targets.size))
+    ref = torch.zeros((3, T), dtype=src.dtype).index_add_(1, torch.as_tensor(targets), src)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-13)
+    assert invert_scatter(targets, T, max_mult=1) is None

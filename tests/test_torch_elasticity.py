@@ -368,3 +368,100 @@ def test_entry_points_default_to_the_card():
             ht.MicroEngine(ht.create_unit_square(4))
         with pytest.raises((RuntimeError, AssertionError)):
             ht.Function(ht.FunctionSpace(ht.create_unit_square(2)))
+
+
+# -- the fixed-order Kc assembly and the whole-batch route --------------------
+
+
+def _cube_engines(dtype="float64", solver_kw=True):
+    """(JAX engine, port engine) on the 3³ micro cube."""
+    jm = hx.create_unit_cube(3)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    je = JaxEngine(jm, bs=3, coeff_kind="tensor4", dtype=jdt, solver="cholesky")
+    te = ht.MicroEngine(port_mesh(jm), bs=3, coeff_kind="tensor4", dtype=tdt, device="cpu")
+    return je, te
+
+
+def test_kc_gather_tables_equal_reference(monkeypatch):
+    """With HOMMX_KC_ASSEMBLY=gather both packages invert the Kc scatter
+    map into the same tables, entry for entry; the CPU default is the
+    scatter (no tables), and an unknown mode raises."""
+    from hommx_tpu.micro.chunk import _get_kc_gather as jax_kc_gather
+    from hommx_tpu_torch.micro.chunk import _get_kc_gather, kc_assembly_mode
+
+    assert kc_assembly_mode("cpu") == "scatter" and kc_assembly_mode("cuda") == "gather"
+    _, te = _cube_engines()
+    assert _get_kc_gather(te) is None
+    monkeypatch.setenv("HOMMX_KC_ASSEMBLY", "gather")
+    je, te = _cube_engines()
+    ref = jax_kc_gather(je)
+    got = _get_kc_gather(te)
+    assert ref is not None and got is not None
+    for g, r in zip((got.tab, got.inv_map, got.keep_vec, got.pin_vec), ref):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(r))
+    monkeypatch.setenv("HOMMX_KC_ASSEMBLY", "sideways")
+    with pytest.raises(ValueError):
+        kc_assembly_mode("cpu")
+
+
+@pytest.mark.parametrize("dfree", [False, True])
+def test_kc_gather_assembly_matches_scatter_and_reference(monkeypatch, dfree):
+    """A* of the rotated fibre on the 3³ cube with the gather assembly (Kc,
+    and with no dense D the loads F too): equal to the scatter's and to the
+    reference's float64 route within 1e-12."""
+    c = np.random.default_rng(8).uniform(0, 1, (5, 3))
+    je, te_s = _cube_engines()
+    A_ref = np.asarray(je.tensors_for_centers(JAX_A3, jnp.asarray(c), G_fn=jax_rotation))
+    if dfree:
+        te_s.D = None
+    # the mode is read at an engine's first assembly
+    A_s = te_s.tensors_for_centers(TORCH_A3, torch.as_tensor(c), G_fn=torch_rotation).numpy()
+    monkeypatch.setenv("HOMMX_KC_ASSEMBLY", "gather")
+    _, te_g = _cube_engines()
+    if dfree:
+        te_g.D = None
+    A_g = te_g.tensors_for_centers(TORCH_A3, torch.as_tensor(c), G_fn=torch_rotation).numpy()
+    assert te_g._kc_gather is not None and te_s._kc_gather is None
+    scale = np.abs(A_ref).max()
+    assert np.abs(A_g - A_s).max() / scale < 1e-12
+    assert np.abs(A_g - A_ref).max() / scale < 1e-12
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_tensors_chol_batched_matches_reference(monkeypatch, dtype):
+    """HOMMX_CHOL_SOLVE_BATCH=1 in both packages: the port's
+    tensors_for_centers takes the whole-batch route (one solve over every
+    cell, a ragged last chunk padded), and its A* equals the reference's
+    whole-batch route (float64: called directly, as the reference routes
+    float64 elsewhere) within 1e-10, float32 within 5e-6; with correctors
+    the in-chunk route takes the batch."""
+    import hommx_tpu.micro.chunk as jax_chunk
+    import hommx_tpu_torch.micro.chunk as chunk
+    from hommx_tpu_torch.ops import chol_kernel
+
+    c = np.random.default_rng(9).uniform(0, 1, (7, 3))
+    monkeypatch.setenv("HOMMX_CHOL_SOLVE_BATCH", "1")
+    je, te = _cube_engines(dtype)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    if dtype == "float64":
+        je._get_K0diag()  # built on the host before the route traces it
+        ref = jax_chunk.tensors_chol_batched(je, JAX_A3, jnp.asarray(c), jax_rotation, 3)
+    else:
+        ref = je.tensors_for_centers(JAX_A3, jnp.asarray(c, jdt), G_fn=jax_rotation, chunk=3)
+    calls, solves = [], []
+    batched, solve = chunk.tensors_chol_batched, chunk.fused_chol_solve
+    monkeypatch.setattr(chunk, "tensors_chol_batched",
+                        lambda *a, **k: calls.append(1) or batched(*a, **k))
+    monkeypatch.setattr(chunk, "fused_chol_solve",
+                        lambda *a, **k: solves.append(a[0].shape[0]) or solve(*a, **k))
+    got = te.tensors_for_centers(TORCH_A3, torch.as_tensor(c, dtype=tdt), G_fn=torch_rotation,
+                                 chunk=3)
+    assert calls == [1] and solves == [9]  # 7 cells padded to 3 chunks of 3
+    assert got.shape == (7, 9, 9) and got.dtype == tdt
+    tol = 1e-10 if dtype == "float64" else 5e-6
+    ref = np.asarray(ref)
+    assert np.abs(got.numpy() - ref).max() / np.abs(ref).max() < tol
+    te.tensors_for_centers(TORCH_A3, torch.as_tensor(c, dtype=tdt), G_fn=torch_rotation,
+                           chunk=3, with_correctors=True)
+    assert calls == [1]
+    assert chol_kernel.KERNEL.launches == 0  # the CPU takes the plain version
