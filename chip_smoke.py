@@ -103,10 +103,31 @@ prints no result line):
                dedup solves of the 40x12x12 beam bitwise equal, gather
                against scatter, the 8640-cell stage in turns
 
+12. differentiation (J = Σu², θ a parameter of the coefficient, float32
+   on the card, each float64 reference on the CPU through the plain
+   versions; the forward and backward passes' seconds, peak memory and
+   each kernel's launches per pass):
+   pipeline_grad  PoissonHMM.build_pipeline on the 512x512 slice (16x16
+               micro, default options, A = 1.1 + θx₀ + sin 2πy₀): u
+               against solve() with dedup off, dJ/dθ (a first pass and a
+               warm one) through K1 and the
+               multigrid CG through K2 forward and adjoint (K1's iterations
+               and time per launch, the adjoint CG's iterations) against a
+               central difference; at 64x64 against the CPU's float64
+               gradient; d²J/dθ² at 8x8 (K1 twice, the direct macro solve)
+               against the CPU's float64 value
+   pipeline_grad_elasticity  the 20x6x6 rotated-fibre beam, θ scaling the
+               fibre modulus: dJ/dθ through K3 forward and adjoint against
+               the CPU's float64 gradient
+   fem_grad    fem_solve_fn on fem_flagship's 1024x1024 configuration
+               (A = 1.1 + θx₀ + sin(2πx₀/ε)): dJ/dθ through the multigrid
+               CG (K2 forward and adjoint) against a central difference; at
+               64x64 against the CPU's float64 gradient
+
 Phases 1-9 pass ``dedup_cells=False`` and so solve every cell, as before
 the models' default became dedup.  ``--only fem_flagship,kc_gather`` runs
-the named phases of part 11 alone (after the build) and prints no result
-line.  The line before the last is the kernels' JSON record, the last line
+the named phases of parts 11 and 12 alone (after the build) and prints no
+result line.  The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -148,6 +169,13 @@ IDENTITY_ELL_RTOL = 1e-5  # the same, assembled macro ELL values
 PERIODIC_ASTAR_RTOL = 1e-4  # float32 A_hom vs the float64 plain route
 FEM_HMM_RTOL = 1e-5  # LinearElasticityFEM vs LinearElasticityHMM, constant tensor
 GATHER_RTOL = 1e-6  # beam A*, gather assembly vs scatter
+# differentiation (the bars that PERF.md states with its prediction, before the run)
+PIPELINE_U_RTOL = 1e-6  # step(centers) vs solve(dedup_cells=False), max norm
+GRAD_FD_H = 0.05  # central-difference step in θ of the float32 checks
+GRAD_FD_RTOL = 2e-2  # float32 dJ/dθ vs the central difference of the float32 forward
+GRAD_F64_RTOL = 1e-3  # float32 dJ/dθ on the card vs the CPU's float64 gradient
+GRAD2_F64_RTOL = 1e-3  # float32 d²J/dθ² on the card (8²) vs the CPU's float64
+BEAM_GRAD_RTOL = 1e-3  # the beam's float32 dJ/dθ vs the CPU's float64 (10x its measured error)
 
 # NVIDIA H100 SXM peaks (data sheet, dense): float32 outside the tensor
 # cores and device memory bandwidth, for each kernel's least time
@@ -1957,9 +1985,309 @@ def phase_kc_gather(device, cells: int = 8640, chunk: int = 1080):
     return launches
 
 
-#: the phases of the periodic, FEM and per-cell slice, in their order
+def _theta_flagship(holder):
+    """The flagship coefficient with a parameter: A = 1.1 + θx₀ + sin 2πy₀,
+    θ read from ``holder[0]`` at each evaluation."""
+    import torch
+
+    def A(x, y):
+        return 1.1 + holder[0] * x[0] + torch.sin(2 * torch.pi * y[0])
+
+    return A
+
+
+def _grad_pass(loss, theta, order: int = 1) -> dict:
+    """One forward and one backward pass of ``loss(theta)`` (the backward
+    twice for ``order`` 2): J, the derivative, each pass's seconds, and on
+    the card each kernel's launches in each pass and the peak memory after
+    each."""
+    import torch
+
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.ops import chol_kernel, dia
+
+    kernels = {"stencil_pcg": stencil_pcg.KERNEL, "dia_spmv": dia.KERNEL,
+               "chol_solve": chol_kernel.KERNEL}
+    cuda = theta.is_cuda
+
+    def mark():
+        if cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter(), {k: v.launches for k, v in kernels.items()}
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0, n0 = mark()
+    J = loss(theta)
+    t1, n1 = mark()
+    rec = {"forward_seconds": t1 - t0}
+    if cuda:
+        rec["forward_peak_bytes"] = torch.cuda.max_memory_allocated()
+    (g,) = torch.autograd.grad(J, theta, create_graph=order > 1)
+    if order > 1:
+        (g,) = torch.autograd.grad(g, theta)
+    t2, n2 = mark()
+    rec.update({"J": float(J.detach()), "derivative": float(g.detach()),
+                "backward_seconds": t2 - t1})
+    if cuda:
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rec["forward_launches"] = {k: n1[k] - n0[k] for k in kernels}
+        rec["backward_launches"] = {k: n2[k] - n1[k] for k in kernels}
+    return rec
+
+
+def _k1_log():
+    """Wrap the K1 wrapper that the chunk route calls, keeping each
+    launch's iteration count and CUDA-event time (forward and adjoint
+    solves alike); returns (log, restore)."""
+    import torch
+
+    from hommx_tpu_torch.micro import chunk
+
+    orig = chunk.stencil_pcg
+    log = []
+
+    def pcg(*args):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = orig(*args)
+        b.record()
+        log.append((out[1], a, b))
+        return out
+
+    chunk.stencil_pcg = pcg
+    return log, lambda: setattr(chunk, "stencil_pcg", orig)
+
+
+def _k1_summary(entries) -> dict:
+    its = [int(k) for k, _, _ in entries]
+    ms = [a.elapsed_time(b) for _, a, b in entries]
+    if not its:
+        return {"launches": 0}
+    return {"launches": len(its), "iters_min": min(its),
+            "iters_median": statistics.median(its), "iters_max": max(its),
+            "ms_total": sum(ms), "ms_median": statistics.median(ms)}
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / abs(b)
+
+
+def _central_difference(loss, theta: float, h: float, device, dtype) -> float:
+    """(J(θ + h) − J(θ − h)) / 2h of the forward alone."""
+    import torch
+
+    with torch.no_grad():
+        jp, jm = (float(loss(torch.tensor(theta + d, dtype=dtype, device=device)))
+                  for d in (h, -h))
+    return (jp - jm) / (2 * h)
+
+
+def _poisson_grad(device, dtype, macro_n, micro_n, order=1):
+    """dJ/dθ (or d²J/dθ²) of J = Σu² through PoissonHMM.build_pipeline on
+    the flagship with θ, at θ = 1, default options; (record, loss, step)."""
+    import torch
+
+    from hommx_tpu_torch import PoissonHMM, create_unit_square
+
+    holder = [1.0]
+    hmm = PoissonHMM(create_unit_square(macro_n, macro_n), _theta_flagship(holder),
+                     lambda x: 1.0, create_unit_square(micro_n, micro_n), 2**-5,
+                     dtype=dtype, device=device, dedup_cells=False)
+    step, centers = hmm.build_pipeline()
+
+    def loss(th):
+        holder[0] = th
+        return (step(centers).double() ** 2).sum()
+
+    theta = torch.tensor(1.0, dtype=dtype, device=device, requires_grad=True)
+    rec = _grad_pass(loss, theta, order)
+    rec["macro_iterations"] = list(step.macro_solve.iterations)
+    return rec, loss, (hmm, step, centers, holder)
+
+
+def phase_pipeline_grad(device, macro_n: int = 512, micro_n: int = 16, check_n: int = 64,
+                        d2_n: int = 8):
+    """Differentiation of the Poisson pipeline (A = 1.1 + θx₀ + sin 2πy₀,
+    J = Σu², default options, float32): at macro_n² (the 512² slice, 16²
+    micro) step(centers) against solve() with dedup off, dJ/dθ with each
+    pass's seconds, K1's and K2's launches, K1's iterations and time in
+    the forward and adjoint launches, the adjoint CG's iterations and the
+    peak memory, against a central difference of the float32 forward; at
+    check_n² dJ/dθ against the CPU's float64 gradient of the same pipeline
+    (plain versions); at d2_n² (the golden size: K1 twice, the direct macro
+    solve) d²J/dθ² against the CPU's float64 value."""
+    import torch
+
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.ops import dia
+
+    stencil_pcg.KERNEL.reset_counts()
+    dia.KERNEL.reset_counts()
+    log, restore = _k1_log()
+    try:
+        main, loss, (hmm, step, centers, holder) = _poisson_grad(
+            device, torch.float32, macro_n, micro_n)
+        torch.cuda.synchronize()
+        n_fwd = main["forward_launches"]["stencil_pcg"]
+        k1 = {"forward": _k1_summary(log[:n_fwd]), "adjoint": _k1_summary(log[n_fwd:])}
+    finally:
+        restore()
+    theta = torch.tensor(1.0, device=device, requires_grad=True)
+    warm = _grad_pass(loss, theta)  # the first pass paid one-time costs
+    with torch.no_grad():
+        holder[0] = torch.tensor(1.0, device=device)
+        u_step = step(centers)
+        u_solve = hmm.solve().array
+    fd = _central_difference(loss, 1.0, GRAD_FD_H, device, torch.float32)
+    rec = {"phase": "pipeline_grad", "macro_n": macro_n, "micro_n": micro_n,
+           "cells": int(centers.shape[0]), "dofs": hmm.function_space.num_dofs,
+           "macro_method": hmm._macro_method, **main, "k1": k1,
+           "warm": {k: warm[k] for k in ("forward_seconds", "backward_seconds", "peak_bytes",
+                                         "derivative")},
+           "u_rel_diff_to_solve": rel_diff(u_step, u_solve),
+           "u_bitwise_equal_to_solve": bool(torch.equal(u_step, u_solve)),
+           "fd_h": GRAD_FD_H, "fd": fd, "rel_err_fd": _rel(main["derivative"], fd)}
+    del hmm, step, centers, loss, u_step, u_solve
+    torch.cuda.empty_cache()
+    # the float32 gradient on the card against the CPU's float64 one
+    card, _, _ = _poisson_grad(device, torch.float32, check_n, micro_n)
+    cpu, _, _ = _poisson_grad("cpu", torch.float64, check_n, micro_n)
+    rec["check"] = {"macro_n": check_n, "card": card, "cpu_f64": cpu,
+                    "rel_err": _rel(card["derivative"], cpu["derivative"])}
+    card, _, _ = _poisson_grad(device, torch.float32, d2_n, d2_n, order=2)
+    cpu, _, _ = _poisson_grad("cpu", torch.float64, d2_n, d2_n, order=2)
+    rec["second"] = {"macro_n": d2_n, "micro_n": d2_n, "card": card, "cpu_f64": cpu,
+                     "rel_err": _rel(card["derivative"], cpu["derivative"])}
+    emit(rec)
+    bwd = main["backward_launches"]
+    if not (math.isfinite(main["derivative"]) and rec["u_rel_diff_to_solve"] <= PIPELINE_U_RTOL
+            and rec["rel_err_fd"] <= GRAD_FD_RTOL and rec["check"]["rel_err"] <= GRAD_F64_RTOL
+            and rec["second"]["rel_err"] <= GRAD2_F64_RTOL
+            and bwd["stencil_pcg"] >= 1 and bwd["dia_spmv"] >= 1
+            and rec["second"]["card"]["backward_launches"]["stencil_pcg"] >= 1
+            and len(main["macro_iterations"]) == 2):
+        raise AssertionError(f"pipeline gradient failed its checks: {rec}")
+    return {"stencil_pcg": stencil_pcg.KERNEL.launches, "dia_spmv": dia.KERNEL.launches}
+
+
+def _beam_grad(device, dtype, macro_n):
+    """dJ/dθ of J = Σu² through the rotated-fibre beam's pipeline, θ
+    scaling the fibre modulus (μ = 100θ in the fibre), at θ = 1."""
+    import torch
+
+    from hommx_tpu_torch import LinearElasticityStratifiedHMM, create_box, create_unit_cube
+    from hommx_tpu_torch.utils.validation import hooke_tensor
+
+    holder = [1.0]
+
+    def mu(x, y):
+        one = torch.ones((), dtype=y.dtype, device=y.device)
+        return torch.where(fibre(y[1], y[2]), 100.0 * holder[0] * one, 0.001 * one)
+
+    macro = create_box([[0, 0, 0], [BEAM_L, BEAM_W, BEAM_H]], list(macro_n))
+    f = torch.tensor([0.0, 0.0, -0.05 * (BEAM_W / BEAM_L) ** 2], dtype=torch.float64)
+    hmm = LinearElasticityStratifiedHMM(macro, hooke_tensor(3, mu, lambda x, y: 1.0),
+                                        lambda x: f, create_unit_cube(4), 2**-5,
+                                        beam_rotation, dtype=dtype, device=device,
+                                        dedup_cells=False)
+    clamp_x0(hmm)
+    step, centers = hmm.build_pipeline()
+
+    def loss(th):
+        holder[0] = th
+        return (step(centers).double() ** 2).sum()
+
+    theta = torch.tensor(1.0, dtype=dtype, device=device, requires_grad=True)
+    rec = _grad_pass(loss, theta)
+    rec.update({"cells": int(centers.shape[0]), "dofs": hmm.function_space.num_dofs,
+                "macro_method": hmm._macro_method})
+    return rec
+
+
+def phase_pipeline_grad_elasticity(device, macro_n=(20, 6, 6)):
+    """dJ/dθ through the rotated-fibre beam's pipeline (20x6x6: 4320 cells,
+    3087 dofs, the float64 direct macro solve; θ scales the fibre modulus)
+    in float32 through K3, forward and adjoint launches counted, against
+    the CPU's float64 gradient of the same pipeline."""
+    import torch
+
+    from hommx_tpu_torch.ops import chol_kernel
+
+    chol_kernel.KERNEL.reset_counts()
+    card = _beam_grad(device, torch.float32, macro_n)
+    cpu = _beam_grad("cpu", torch.float64, macro_n)
+    rec = {"phase": "pipeline_grad_elasticity", "macro_n": list(macro_n), "card": card,
+           "cpu_f64": cpu, "rel_err": _rel(card["derivative"], cpu["derivative"]),
+           "bar": BEAM_GRAD_RTOL}
+    emit(rec)
+    if not (math.isfinite(card["derivative"]) and rec["rel_err"] <= BEAM_GRAD_RTOL
+            and card["backward_launches"]["chol_solve"] >= 1):
+        raise AssertionError(f"beam gradient failed its checks: {rec}")
+    return {"chol_solve": chol_kernel.KERNEL.launches}
+
+
+def _fem_grad(device, dtype, n):
+    """dJ/dθ of J = Σu² through fem_solve_fn on examples/hmm.py's reference
+    (5x5 rectangle, n², A = 1.1 + θx₀ + sin(2πx₀/ε), f = 0, Darcy BCs,
+    default options), at θ = 1; (record, loss)."""
+    import torch
+
+    from hommx_tpu_torch import create_rectangle, fem_solve_fn
+    from hommx_tpu_torch.ops.function_space import FunctionSpace
+
+    eps = 2**-5
+
+    def coeff(th, x):
+        return 1.1 + th * x[0] + torch.sin(2 * torch.pi * x[0] / eps)
+
+    t0 = time.perf_counter()
+    V = FunctionSpace(create_rectangle([[0, 0], [5, 5]], [n, n]), 1)
+    solve = fem_solve_fn(V, coeff, 0.0, darcy_bcs(V), dtype=dtype, device=device)
+    t_setup = time.perf_counter() - t0
+
+    def loss(th):
+        return (solve(th).double() ** 2).sum()
+
+    theta = torch.tensor(1.0, dtype=dtype, device=device, requires_grad=True)
+    rec = {"n": n, "dofs": V.num_dofs, "setup_seconds": t_setup, **_grad_pass(loss, theta),
+           "macro_iterations": list(solve.macro_solve.iterations)}
+    return rec, loss
+
+
+def phase_fem_grad(device, n: int = 1024, check_n: int = 64):
+    """dJ/dθ through fem_solve_fn at fem_flagship's n² (1,050,625 dofs at
+    1024², float32 multigrid CG through K2 forward and adjoint) against a
+    central difference of the float32 forward; at check_n² against the
+    CPU's float64 gradient."""
+    import torch
+
+    from hommx_tpu_torch.ops import dia
+
+    dia.KERNEL.reset_counts()
+    main, loss = _fem_grad(device, torch.float32, n)
+    fd = _central_difference(loss, 1.0, GRAD_FD_H, device, torch.float32)
+    del loss
+    card, _ = _fem_grad(device, torch.float32, check_n)
+    cpu, _ = _fem_grad("cpu", torch.float64, check_n)
+    rec = {"phase": "fem_grad", **main, "fd_h": GRAD_FD_H, "fd": fd,
+           "rel_err_fd": _rel(main["derivative"], fd),
+           "check": {"n": check_n, "card": card, "cpu_f64": cpu,
+                     "rel_err": _rel(card["derivative"], cpu["derivative"])}}
+    emit(rec)
+    if not (math.isfinite(main["derivative"]) and rec["rel_err_fd"] <= GRAD_FD_RTOL
+            and rec["check"]["rel_err"] <= GRAD_F64_RTOL
+            and main["backward_launches"]["dia_spmv"] >= 1
+            and len(main["macro_iterations"]) == 2):
+        raise AssertionError(f"FEM gradient failed its checks: {rec}")
+    return {"dia_spmv": dia.KERNEL.launches}
+
+
+#: the phases of the periodic, FEM and per-cell slice and of
+#: differentiation, in their order
 NEW_PHASES = (phase_fem_flagship, phase_golden_periodic_fem, phase_periodic_identity,
-              phase_elasticity_periodic, phase_chol_batched, phase_kc_gather)
+              phase_elasticity_periodic, phase_chol_batched, phase_kc_gather,
+              phase_pipeline_grad, phase_pipeline_grad_elasticity, phase_fem_grad)
 
 
 def main(argv) -> int:

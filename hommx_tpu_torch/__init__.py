@@ -14,6 +14,9 @@ single-scale P1 FEM (``fem_solve``, ``PoissonFEM``,
 ``helpers``.  Every model takes the reference's constructor arguments and
 defaults: cell dedup on (``dedup_cells``, ``dedup_verify``),
 ``SolverOptions`` or PETSc-style dicts for both solve levels.
+The solve is differentiable end to end: ``BaseHMM.build_pipeline``,
+``fem_solve_fn`` and ``entry`` (the flagship's pipeline) carry the
+implicit-function rule through every cell solve and the macro solve.
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``.
 The JAX package ``hommx_tpu`` is the reference it is tested against; this
@@ -33,7 +36,7 @@ from hommx_tpu_torch.meshes import (
     rescale_mesh_in_place,
 )
 from hommx_tpu_torch.micro.engine import MicroEngine
-from hommx_tpu_torch.models.fem import LinearElasticityFEM, PoissonFEM, fem_solve
+from hommx_tpu_torch.models.fem import LinearElasticityFEM, PoissonFEM, fem_solve, fem_solve_fn
 from hommx_tpu_torch.models.hmm import (
     BaseHMM,
     LinearElasticityHMM,
@@ -54,6 +57,7 @@ from hommx_tpu_torch.ops.function_space import (
     locate_dofs_geometrical,
 )
 from hommx_tpu_torch.utils.options import SolverOptions
+from hommx_tpu_torch.entry import entry
 
 __all__ = [
     "SimplexMesh",
@@ -77,6 +81,8 @@ __all__ = [
     "PoissonFEM",
     "LinearElasticityFEM",
     "fem_solve",
+    "fem_solve_fn",
+    "entry",
     "DirichletBC",
     "Function",
     "FunctionSpace",

@@ -47,6 +47,7 @@ import torch
 from hommx_tpu_torch.micro.krylov import _solve_linear, shared_prec
 from hommx_tpu_torch.micro.stencil import (
     MicroStencil,
+    torus_matvec,
     build_stencil,
     scale_weights,
     stencil_astar,
@@ -57,6 +58,7 @@ from hommx_tpu_torch.micro.stencil import (
 from hommx_tpu_torch.micro.stencil_pcg import stencil_pcg, stencil_pcg_plain
 from hommx_tpu_torch.ops.assembly import GatherPlan, gather_sum, invert_scatter
 from hommx_tpu_torch.ops.chol_kernel import fused_chol_solve, fused_chol_solve_plain
+from hommx_tpu_torch.ops.solvers import implicit_linear_solve
 
 __all__ = [
     "tensors_chunk_pcg",
@@ -96,30 +98,49 @@ class ChunkSystem:
         return scale_weights(self.st, self.ws, self.sc[:, 0, :]), self.sc * self.F
 
     def corrected(self, eng, Y, iters):
-        """(A* (C, s, s), X (n, s, C)) from an unclamped solve Y (n, s, C)
-        of the scaled system: the zero-corrector energy clamp, the
-        unscaling X = S Y and the bilinear contraction, divided by |Y|."""
-        sc = self.sc
-        Yc, _ = _solve_linear(
-            lambda P: sc * self.matvec(sc * P), self.prec, sc * self.F,
-            eng.pcg_tol, eng.pcg_maxiter, raw=lambda B: (Y, iters),
-        )
-        X = sc * Yc
-        return stencil_astar(self.st, self.ws, self.a, eng.E, self.F, X) / eng.volume_Y, X
+        """(A* (C, s, s), X (n, s, C)) from a given unclamped solve Y
+        (n, s, C) of the scaled system: the zero-corrector energy clamp, the
+        unscaling X = S Y and the bilinear contraction, divided by |Y|.  Y
+        is taken as it is: no implicit rule (see :meth:`solve`)."""
+        Fs = self.sc * self.F
+        return self._contract(eng, self._clamped(eng, lambda B: (Y, iters), Fs, False)[0])
 
     def astar(self, eng, Y, iters):
         """A* (C, s, s) from an unclamped solve Y of the scaled system."""
         return self.corrected(eng, Y, iters)[0]
 
-    def solve(self, eng, pcg, with_correctors=False):
+    def _clamped(self, eng, raw, Fs, implicit_diff, params=None):
+        """The clamped solve Yc of the scaled system S K S Y = Fs (= S F) by
+        ``raw``, through :func:`_solve_linear` (the implicit rule with the
+        scaled weights ``params`` as the operator's tensors)."""
+        sc, st = self.sc, self.st
+        operator = None
+        if params is not None:
+            operator = (lambda ws, P: torus_matvec(st.shape, st.offsets, ws, P), tuple(params))
+        return _solve_linear(
+            lambda P: sc * self.matvec(sc * P), self.prec, Fs,
+            eng.pcg_tol, eng.pcg_maxiter, False, implicit_diff, raw=raw, operator=operator,
+        )
+
+    def _contract(self, eng, Yc):
+        X = self.sc * Yc
+        return stencil_astar(self.st, self.ws, self.a, eng.E, self.F, X) / eng.volume_Y, X
+
+    def solve(self, eng, pcg, with_correctors=False, implicit_diff=True):
         """A* of the chunk with ``pcg`` as the Krylov solve of the scaled
         system (the signature of ``stencil_pcg``); with ``with_correctors``
-        also the correctors X (n, s, C)."""
+        also the correctors X (n, s, C).  The solve runs inside the
+        implicit-function rule: the scaled weights ``ws_s`` and loads ``Fs``
+        are its inputs and its adjoint is one more ``pcg`` solve (a second
+        K1 launch on the card).  With ``implicit_diff=False`` the solve
+        carries no gradient."""
         ws_s, Fs = self.scaled()
-        Y, iters = pcg(
-            ws_s, Fs, self.Minv, self.st.shape, self.st.offsets, eng.pcg_tol, eng.pcg_maxiter
+        st = self.st
+        raw = lambda B: pcg(  # noqa: E731
+            ws_s, B, self.Minv, st.shape, st.offsets, eng.pcg_tol, eng.pcg_maxiter
         )
-        out = self.corrected(eng, Y, iters)
+        Yc, _ = self._clamped(eng, raw, Fs, implicit_diff, params=ws_s)
+        out = self._contract(eng, Yc)
         return out if with_correctors else out[0]
 
 
@@ -175,17 +196,22 @@ def _map_G(eng, G_fn, centers):
     )(centers)
 
 
-def tensors_chunk_pcg(eng, coeff, centers, G_fn=None, with_correctors=False):
+def tensors_chunk_pcg(eng, coeff, centers, G_fn=None, with_correctors=False,
+                      implicit_diff=True):
     """A*(c_T) (C, s, s) for one chunk of centers, and with
     ``with_correctors`` the correctors (n, s, C): the fused PCG kernel on
-    CUDA tensors, its plain version on CPU tensors."""
-    return chunk_system(eng, coeff, centers, G_fn).solve(eng, stencil_pcg, with_correctors)
+    CUDA tensors, its plain version on CPU tensors, under the implicit
+    rule unless ``implicit_diff=False``."""
+    return chunk_system(eng, coeff, centers, G_fn).solve(
+        eng, stencil_pcg, with_correctors, implicit_diff
+    )
 
 
 def tensors_chunk_plain(eng, coeff, centers, G_fn=None):
-    """The same A* through the plain PCG loop on any device and dtype.  No
-    entry point calls it: it is the float64 check a card run holds the
-    float32 main path against."""
+    """The same A* through the plain PCG loop on any device and dtype,
+    under the same implicit rule.  No entry point calls it: it is the
+    float64 check a card run holds the float32 main path (and its
+    gradient) against."""
     return chunk_system(eng, coeff, centers, G_fn).solve(eng, stencil_pcg_plain)
 
 
@@ -227,14 +253,33 @@ class CholSystem:
         term1 = torch.einsum("rs,crt,tm->csm", E, self.Abar, E)
         return eng._expand_astar((term1 - XtF - XtF.transpose(1, 2) + XtKX) / eng.volume_Y)
 
-    def solve(self, eng, solver, with_correctors=False):
+    def solve(self, eng, solver, with_correctors=False, implicit_diff=True):
         """A* of the chunk with ``solver`` (the signature of
         ``fused_chol_solve``) as the direct solve of the equilibrated
-        system; with ``with_correctors`` also the solve X (n, s, C)."""
+        system; with ``with_correctors`` also the solve X (n, s, C).  The
+        solve runs inside the implicit-function rule with the operator
+        v ↦ Ks·v, as the reference's ``lax.custom_linear_solve`` around its
+        kernel: the adjoint is one more ``solver`` call (a second K3 launch
+        on the card).  The scaling stays differentiable through diag(Kc).
+        With ``implicit_diff=False`` the solve carries no gradient."""
         Ks, Fs, sc = self.equilibrated(eng)
-        X = solver(Ks, Fs) * sc[:, None, :]
+        X = _chol_solve(solver, Ks, Fs, implicit_diff) * sc[:, None, :]
         A = self.astar(eng, X)
         return (A, X) if with_correctors else A
+
+
+def _chol_matvec(p, v):
+    """Ks·v per cell: Ks (C, n, n), v (n, s, C) -> (n, s, C)."""
+    return torch.einsum("cnm,msc->nsc", p[0], v)
+
+
+def _chol_solve(solver, Ks, Fs, implicit_diff=True):
+    """``solver(Ks, Fs)`` under the implicit-function rule (or, with
+    ``implicit_diff=False``, with no gradient)."""
+    if not implicit_diff:
+        with torch.no_grad():
+            return solver(Ks, Fs)
+    return implicit_linear_solve(_chol_matvec, (Ks,), Fs, lambda p, B: solver(p[0], B))
 
 
 def chol_system(eng, coeff, centers: torch.Tensor, G_fn=None) -> CholSystem:
@@ -292,11 +337,15 @@ def chol_system(eng, coeff, centers: torch.Tensor, G_fn=None) -> CholSystem:
     return CholSystem(Kc, F * keep[:, None, None], Ae.sum(dim=1))
 
 
-def tensors_chunk_chol(eng, coeff, centers, G_fn=None, with_correctors=False):
+def tensors_chunk_chol(eng, coeff, centers, G_fn=None, with_correctors=False,
+                       implicit_diff=True):
     """A*(c_T) (C, s_full, s_full) for one chunk of centers, and with
     ``with_correctors`` the solve X (n, s, C): the K3 CUDA kernel on CUDA
-    tensors, its plain version on CPU tensors."""
-    return chol_system(eng, coeff, centers, G_fn).solve(eng, fused_chol_solve, with_correctors)
+    tensors, its plain version on CPU tensors, under the implicit rule
+    unless ``implicit_diff=False``."""
+    return chol_system(eng, coeff, centers, G_fn).solve(
+        eng, fused_chol_solve, with_correctors, implicit_diff
+    )
 
 
 def tensors_chunk_chol_plain(eng, coeff, centers, G_fn=None):
@@ -407,7 +456,8 @@ def chol_batched_system(eng, coeff, centers, G_fn=None, chunk: int = 0):
     return Ks, Fs, Abar, chunk
 
 
-def tensors_chol_batched(eng, coeff, centers, G_fn=None, chunk: int = 0):
+def tensors_chol_batched(eng, coeff, centers, G_fn=None, chunk: int = 0,
+                         implicit_diff=True):
     """A*(c_T) (nc, s_full, s_full) with one direct solve over the whole
     batch (torch port of ``hommx_tpu/micro/chunk.py::
     tensors_chol_batched``, the ``HOMMX_CHOL_SOLVE_BATCH=1`` route).
@@ -423,10 +473,12 @@ def tensors_chol_batched(eng, coeff, centers, G_fn=None, chunk: int = 0):
 
     Holds the whole batch's equilibrated operators (nc·n² values, 1.27 GB
     at 8640 beam cells in float32) where the in-chunk route holds one
-    chunk's.  Tensors only: no correctors."""
+    chunk's.  Tensors only: no correctors.  The solve runs under the
+    implicit rule (its adjoint: one more whole-batch launch) unless
+    ``implicit_diff=False``."""
     nc = centers.shape[0]
     Ks, Fs, Abar, chunk = chol_batched_system(eng, coeff, centers, G_fn, chunk)
-    Xs = fused_chol_solve(Ks, Fs)  # (n, s, N)
+    Xs = _chol_solve(fused_chol_solve, Ks, Fs, implicit_diff)  # (n, s, N)
     E = eng.E
     out = []
     for i in range(0, Ks.shape[0], chunk):

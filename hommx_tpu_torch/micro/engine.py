@@ -392,14 +392,27 @@ class MicroEngine:
 
     # -- batched over macro quadrature points --------------------------------
     def tensors_for_centers(
-        self, coeff: Callable, centers, G_fn=None, chunk: int = 0, with_correctors: bool = False
+        self,
+        coeff: Callable,
+        centers,
+        G_fn=None,
+        chunk: int = 0,
+        with_correctors: bool = False,
+        implicit_diff: bool = True,
     ):
         """A*(c_T) (nc, s_full, s_full) for a batch of macro cell centers
         (nc, d); ``G_fn`` is the optional Dθᵀ(x) map of the stratified
         variants.  With ``with_correctors`` also the correctors (nc, n,
         s_full): the unscaled solves of the cell systems (S·Y on the PCG
         route, the direct solve's X on the Cholesky route), in the full
-        generator layout."""
+        generator layout.
+
+        The result is differentiable in every tensor the coefficient (or
+        ``G_fn``) closes over, and in ``centers``: each cell solve runs
+        under the implicit-function rule, whose adjoint is one more solve
+        by the same route (K1 or K3 on the card).  With
+        ``implicit_diff=False`` the solves carry no gradient (the
+        reference's shard_map micro stage)."""
         from hommx_tpu_torch.micro.chunk import (
             tensors_chol_batched,
             tensors_chunk_chol,
@@ -418,13 +431,15 @@ class MicroEngine:
             # values: past 6 GB the in-chunk route takes the batch
             and 2 * nc * self.n_reduced**2 * itemsize <= (6 << 30)
         ):
-            return tensors_chol_batched(self, coeff, centers, G_fn, chunk)
+            return tensors_chol_batched(self, coeff, centers, G_fn, chunk, implicit_diff)
         route = tensors_chunk_chol if self.solver == "cholesky" else tensors_chunk_pcg
         if not with_correctors:
-            return _map_chunked(lambda cs: route(self, coeff, cs, G_fn), centers, chunk)
+            return _map_chunked(
+                lambda cs: route(self, coeff, cs, G_fn, implicit_diff=implicit_diff), centers, chunk
+            )
 
         def fn(cs):
-            A, X = route(self, coeff, cs, G_fn, with_correctors=True)
+            A, X = route(self, coeff, cs, G_fn, with_correctors=True, implicit_diff=implicit_diff)
             return A, self._expand_cols(X.permute(2, 0, 1))
 
         return _map_chunked(fn, centers, chunk)

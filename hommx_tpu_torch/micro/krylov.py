@@ -6,12 +6,15 @@ The block-PCG runs as a Python loop whose stop test reads one scalar back
 from the device per iteration.  On CUDA the main path does not run this
 loop: the fused kernel (micro/stencil_pcg.py) keeps the whole iteration on
 the card.  This loop is that kernel's plain version, the one CPU tensors
-take.
+take.  :func:`_solve_linear` wraps either in the implicit-function rule
+(ops/solvers.py::implicit_linear_solve).
 """
 
 from __future__ import annotations
 
 import torch
+
+from hommx_tpu_torch.ops.solvers import implicit_linear_solve
 
 __all__ = [
     "_amp_cap",
@@ -41,24 +44,55 @@ def _block_pcg_matfree(matvec, F, Minv, tol, maxiter):
     a matvec, preconditioned by the explicit shared inverse Minv = K0⁻¹
     (the reference's ``_block_pcg_matfree``, the per-cell route's PCG):
     the chunk loop's lockstep, freeze and stall rules on one cell, then the
-    zero-corrector energy clamp.  Returns X (n, s)."""
-    return _solve_linear(matvec, lambda R: Minv @ R, F, tol, maxiter)[0]
+    zero-corrector energy clamp.  Returns X (n, s).  Autograd records the
+    loop: the per-cell route is differentiable by unrolling, which the
+    reference's ``while_loop`` is not."""
+    prec = lambda R: Minv @ R  # noqa: E731
+    bX, _ = _chunk_pcg_raw(matvec, prec, F, tol, maxiter)
+    good = _clamp_good(matvec, prec, F, bX)
+    return torch.where(good[None], bX, torch.zeros((), dtype=bX.dtype, device=bX.device))
 
 
-def _solve_linear(matvec, prec, F, tol, maxiter, raw=None):
-    """Chunk PCG followed by the zero-corrector energy clamp.
+def _solve_linear(matvec, prec, F, tol, maxiter, with_iters=False, implicit_diff=True,
+                  raw=None, operator=None):
+    """Chunk PCG followed by the zero-corrector energy clamp, with the
+    implicit-function rule (the reference's ``_solve_linear``).
 
     ``raw`` optionally replaces the Krylov loop with an equivalent solver
     ``raw(B) -> (bX_unclamped, iters)`` for the SAME operator (the fused
-    stencil kernel); the clamp is applied identically around it.  The
-    reference wraps the solve in ``lax.custom_linear_solve`` for implicit
-    differentiation; the port serves and does not differentiate yet
-    (ROADMAP A11).  Returns (X, iters)."""
-    if raw is None:
-        bX, iters = _chunk_pcg_raw(matvec, prec, F, tol, maxiter)
+    stencil kernel K1, or its plain version).  The raw solve runs inside
+    :func:`~hommx_tpu_torch.ops.solvers.implicit_linear_solve`, whose
+    adjoint is the same raw solve: neither the loop nor a kernel launch is
+    ever differentiated.  ``operator = (op, params)`` gives the operator as
+    a function of the tensors it is differentiable in, ``op(params, P) ==
+    matvec(P)``; without it the operator is a constant of the rule and
+    only F gets a gradient.
+
+    The energy clamp is applied outside the implicit solve, as
+    ``where(good, X, 0)`` with ``good`` computed from the detached iterate:
+    a clamped column has primal 0 and gradient 0.  With ``with_iters`` or
+    ``implicit_diff=False`` (the reference's shard_map micro stage) the raw
+    solve runs without the rule and its output carries no gradient.
+    Returns (X, iters), the iteration count of the forward solve."""
+    raw_solve = raw if raw is not None else (
+        lambda B: _chunk_pcg_raw(matvec, prec, B, tol, maxiter)
+    )
+    if with_iters or not implicit_diff:
+        with torch.no_grad():
+            bX, iters = raw_solve(F)
     else:
-        bX, iters = raw(F)
-    good = _clamp_good(matvec, prec, F, bX)
+        op, params = operator if operator is not None else (lambda p, P: matvec(P), ())
+        its = []
+
+        def solve(p, B):
+            X, k = raw_solve(B)
+            its.append(k)
+            return X
+
+        bX = implicit_linear_solve(op, tuple(params), F, solve)
+        iters = its[0]
+    with torch.no_grad():
+        good = _clamp_good(matvec, prec, F, bX)
     return torch.where(good[None], bX, torch.zeros((), dtype=bX.dtype, device=bX.device)), iters
 
 

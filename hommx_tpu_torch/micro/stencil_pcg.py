@@ -15,7 +15,9 @@ version with ``block=`` that size computes what the kernel computes.
 Dispatch is by device alone: a CUDA tensor goes to the kernel, a CPU
 tensor to :func:`stencil_pcg_plain`.  The kernel is float32 only, as on the
 TPU; a float64 CUDA tensor raises (no float64 kernel yet, ROADMAP C), and
-so does a shape above the kernel's limits.
+so does a shape above the kernel's limits.  The kernel has no backward of
+its own: the chunk route runs it inside the implicit-function rule
+(micro/krylov.py::_solve_linear), whose adjoint is one more launch.
 """
 
 from __future__ import annotations

@@ -10,8 +10,11 @@ solve and every vector system stay float64, a float32 scalar CG system is
 rounded to float32 once.  On a structured mesh the CG runs the geometric
 multigrid V-cycle and K2's DIA product, on the card by default.
 
-Not ported: P2 spaces (``degree=2``, ROADMAP A9) and ``fem_solve_fn``, the
-differentiable solve (ROADMAP A11); both raise ``NotImplementedError``.
+``fem_solve_fn`` is the differentiable solve ``solve(theta) -> x``: its
+macro solve carries the implicit-function rule (ops/solvers.py::
+make_implicit_solver), whose adjoint is one more solve with the same
+options and kernels.  Not ported: P2 spaces (``degree=2``, ROADMAP A9),
+which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from hommx_tpu_torch.ops.function_space import (
     dirichletbc,
     eval_at_points,
 )
-from hommx_tpu_torch.ops.solvers import STOP_TEST, solve_ell
+from hommx_tpu_torch.ops.solvers import STOP_TEST, make_implicit_solver, solve_ell
 from hommx_tpu_torch.utils.options import SolverOptions
 
 __all__ = [
@@ -162,14 +165,58 @@ def fem_system(sys: MacroSystem, coeff, kind: str, f, mask, bvals, quad_degree: 
     return apply_dirichlet(vals, sys.cols, sys.diag_slots, b, mask, bvals, dia=sys.dia)
 
 
-def fem_solve_fn(*args, **kwargs):
-    """The differentiable single-scale solve ``solve(theta) -> x`` of the
-    reference needs the implicit-function VJP of the macro solve
-    (``make_implicit_solver``), which the port does not have yet."""
-    raise NotImplementedError(
-        "fem_solve_fn needs make_implicit_solver, the implicit-function VJP of the "
-        "macro solve: ROADMAP A11"
-    )
+def fem_solve_fn(
+    V: FunctionSpace,
+    coeff: Callable,
+    f,
+    bcs: Sequence[DirichletBC],
+    options: Optional[SolverOptions] = None,
+    quad_degree: int = 2,
+    rhs_degree: int = 2,
+    dtype: Optional[torch.dtype] = None,
+    device="cuda",
+):
+    """The single-scale FEM solve as a differentiable function of a
+    coefficient parameter: returns ``solve(theta) -> x``, where
+    ``coeff(theta, x_pt)`` and a callable ``f(theta, x_pt)`` receive the
+    parameter (a constant ``f`` is taken as it is).
+
+    The system is assembled in float64 and, on a scalar CG path, rounded
+    once to ``dtype``, as :func:`fem_solve` does; the macro solve carries
+    the implicit-function rule, so ``torch.autograd.grad`` through
+    ``solve`` is exact at convergence on every solver path (the adjoint
+    CG runs the same multigrid and K2).  ``solve.macro_solve.iterations``
+    lists the solves' iteration counts, forward and adjoint."""
+    _p1_only(V.degree)
+    device = as_device(device)
+    dtype = dtype or default_dtype(device)
+    options = SolverOptions.from_any(options)
+    sys = MacroSystem(V, dtype, device)
+    mask, bvals = merge_bcs(bcs, V.num_dofs, torch.float64, device)
+    method = options.method
+    if method == "auto":
+        method = "direct" if V.num_dofs <= options.direct_threshold else "cg"
+    mg, _ = macro_precs(sys, options)
+    macro_solve = make_implicit_solver(sys.cols, options, dia=sys.dia, mg=mg)
+
+    def solve(theta):
+        c = lambda x: coeff(theta, x)  # noqa: E731
+        kind = probe_coeff_kind(lambda x: c(x.to(device)), V.mesh.dim, nargs=1)
+        vals_bc, b_bc = fem_system(sys, c, kind, _as_source_theta(f, theta, V.bs), mask,
+                                   bvals, quad_degree, rhs_degree)
+        if method != "direct" and V.bs == 1:
+            vals_bc, b_bc = vals_bc.to(dtype), b_bc.to(dtype)
+        return macro_solve(vals_bc, b_bc).to(dtype)
+
+    solve.macro_solve = macro_solve
+    return solve
+
+
+def _as_source_theta(f, theta, bs: int):
+    """The rhs with the parameter bound: ``f(theta, x)`` for a callable."""
+    if callable(f):
+        return lambda x: f(theta, x)
+    return _as_source(f, bs)
 
 
 class PoissonFEM:

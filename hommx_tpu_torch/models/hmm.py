@@ -24,7 +24,13 @@ reference, which accumulates it in float32; ROADMAP C).  Both option levels take
 ``SolverOptions`` or PETSc-style dicts.  Divergences from the reference
 (ROADMAP C): a CG macro solve with ``pc`` 'auto'/'mg' on a mesh without a
 geometric hierarchy raises (aggregation AMG, ROADMAP A10); ``shard_mesh``
-raises (ROADMAP A12); ``build_pipeline`` waits for A11.
+raises (ROADMAP A12).
+
+``build_pipeline()`` returns the whole solve as a function of the cell
+centers, differentiable end to end: every cell solve and the macro solve
+run under the implicit-function rule (ops/solvers.py::
+implicit_linear_solve), so ``torch.autograd.grad`` through it launches K1
+or K3 and K2 again for the adjoint solves, and never unrolls a loop.
 """
 
 from __future__ import annotations
@@ -56,7 +62,7 @@ from hommx_tpu_torch.ops.function_space import (
     dirichletbc,
     locate_dofs_geometrical,
 )
-from hommx_tpu_torch.ops.solvers import STOP_TEST, solve_ell
+from hommx_tpu_torch.ops.solvers import STOP_TEST, make_implicit_solver, solve_ell
 from hommx_tpu_torch.ops.sparse import ell_to_dense
 from hommx_tpu_torch.utils.options import SolverOptions, cell_problem_engine_kwargs
 
@@ -373,6 +379,51 @@ class BaseHMM:
         if self._V_macro.bs == 1:
             return torch.einsum("c,cad,cde,cbe->cab", sys.vols, sys.grads, A_T, sys.grads)
         return torch.einsum("c,cmr,crt,cnt->cmn", sys.vols, sys.strain_P, A_T, sys.strain_P)
+
+    def build_pipeline(self, shard_mesh=None, shard_mode: str = "auto"):
+        """The whole HMM solve as a function of tensors, ``step(centers) ->
+        u``: the micro stage over every cell, the load vector, the float64
+        macro assembly with its Dirichlet lifting (rounded once to the
+        pipeline dtype on a float32 CG path), the macro solve and u in the
+        model's dtype.
+
+        ``step`` is differentiable in ``centers`` and in every tensor the
+        coefficient, the map Dθᵀ or the rhs close over: the cell solves and
+        the macro solve carry the implicit-function rule, whose adjoints are
+        solves by the same routes (K1 or K3, and the macro CG through K2 or
+        the direct solve); ``torch.autograd.grad(..., create_graph=True)``
+        gives second derivatives.  ``step.macro_solve.iterations`` lists the
+        macro solves' iteration counts, forward and adjoint, in order.
+
+        The pipeline does not deduplicate cell problems, as in the
+        reference: every cell is solved on every call.  A ``shard_mesh``
+        (the reference's sharded pipeline, ``shard_mode`` 'auto' or
+        'shard_map') is not ported and raises naming ROADMAP A12.
+
+        Returns: (step, centers), the centers of the macro cells (nc, d).
+        """
+        if shard_mode not in ("auto", "shard_map"):
+            raise ValueError("shard_mode must be 'auto' or 'shard_map'")
+        if shard_mesh is not None:
+            raise NotImplementedError("the sharded pipeline is not ported yet (ROADMAP A12)")
+        engine, sys, coeff, G_fn = self._engine, self._sys, self._coeff, self._G_fn()
+        f_fn, bs, chunk, dtype = self._f_fn, self._V_macro.bs, self._chunk, self._dtype
+        rhs_degree, macro_f64 = self._quad_degree_rhs, self._macro_f64
+        mask, bvals = merge_bcs(self._bcs, self._V_macro.num_dofs, torch.float64, self._device)
+        options = self._options_global
+        mg, _ = macro_precs(sys, options)
+        macro_solve = make_implicit_solver(sys.cols, options, dia=sys.dia, mg=mg)
+
+        def step(centers):
+            A_star = engine.tensors_for_centers(coeff, centers, G_fn=G_fn, chunk=chunk)
+            b = assemble_load_vector(sys.verts64, sys.cells, f_fn, bs=bs, degree=rhs_degree,
+                                     gather=sys.load_gather)
+            vals_bc, b_bc = assemble_macro_system(sys, A_star, b, mask, bvals,
+                                                  macro_f64=macro_f64)
+            return macro_solve(vals_bc, b_bc).to(dtype)
+
+        step.macro_solve = macro_solve
+        return step, sys.centers
 
     def matrix_dense(self) -> np.ndarray:
         """The BC-applied macro matrix of the last solve as dense numpy

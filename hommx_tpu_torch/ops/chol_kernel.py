@@ -13,8 +13,10 @@ Dispatch is by device alone: a CUDA float32 tensor goes to the kernel, a
 CPU tensor to :func:`fused_chol_solve_plain`; anything else raises.  The
 kernel keeps a cell's lower 32 × 32 tiles in shared memory; its launch
 configuration comes from :func:`chol_launch_config`, which bounds n
-(:func:`max_kernel_n`; 288 at s ≤ 8).  There is no autograd rule yet: the
-reference differentiates through ``lax.custom_linear_solve`` (ROADMAP A11).
+(:func:`max_kernel_n`; 288 at s ≤ 8).  The kernel has no backward of its
+own: the Cholesky route (micro/chunk.py) wraps it in the implicit-function
+rule, as the reference wraps it in ``lax.custom_linear_solve``, so the
+adjoint is one more launch on the adjoint right-hand sides.
 The TPU-only parts of the reference module (``probe_compile``,
 ``fused_chol_available`` and the VMEM budget) are not ported.
 """

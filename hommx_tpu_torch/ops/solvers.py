@@ -14,6 +14,13 @@ version on the CPU.  With a multigrid hierarchy (``mg``) and ``pc``
 (ops/multigrid.py) in the system's own dtype; ``pc='jacobi'`` takes the
 diagonal.  Aggregation AMG, the reference's preconditioner where no
 geometric hierarchy exists, is not ported (ROADMAP A10): that case raises.
+
+Differentiation: :func:`implicit_linear_solve` is the port's counterpart of
+``lax.custom_linear_solve`` — a solve whose backward pass is the adjoint
+solve by the same solver (the implicit-function rule), written in
+differentiable operations so that it has second derivatives too.  The
+micro routes (micro/krylov.py, micro/chunk.py) and the macro solve
+(:func:`make_implicit_solver`) are its uses.
 """
 
 from __future__ import annotations
@@ -23,6 +30,9 @@ import torch
 from hommx_tpu_torch.ops.sparse import ell_to_dense, spmv
 
 __all__ = [
+    "implicit_linear_solve",
+    "make_implicit_solver",
+    "implicit_wrap",
     "cg_ell",
     "cg_matfree",
     "pcg_prec",
@@ -169,3 +179,82 @@ def solve_ell(vals, cols, b, options, dia=None, mg=None):
         state = mg_setup(mg, dvals)
         return pcg_prec(matvec, lambda r: mg_vcycle(mg, state, r), b, **stop)
     return cg_matfree(matvec, _ell_diag(vals, cols), b, **stop)
+
+
+class _ImplicitSolve(torch.autograd.Function):
+    """X = A(params)⁻¹ F for a symmetric A, with the implicit-function VJP.
+
+    The forward runs ``raw`` with grad mode off: the solver's own loop (or
+    a kernel launch, whose output has no history) is never recorded.  The
+    backward solves A λ = X̄ by a call of this same Function, so λ carries
+    its own rule, and returns F̄ = λ and params̄ = the VJP of
+    ``matvec(params, X)`` with cotangent −λ.  X is the saved output, so a
+    second backward differentiates through it as well."""
+
+    @staticmethod
+    def forward(ctx, matvec, raw, F, *params):
+        with torch.no_grad():
+            X = raw(params, F)
+        ctx.matvec, ctx.raw = matvec, raw
+        ctx.save_for_backward(X, *params)
+        return X
+
+    @staticmethod
+    def backward(ctx, Xbar):
+        X, *params = ctx.saved_tensors
+        lam = _ImplicitSolve.apply(ctx.matvec, ctx.raw, Xbar, *params)
+        if not any(ctx.needs_input_grad[3:]):
+            return (None, None, lam, *(None for _ in params))
+        # torch.func.vjp differentiates in params alone: X's own history
+        # (this Function) is not walked, yet with grad mode on (a backward
+        # that creates a graph) the result stays a function of X and λ
+        _, vjp = torch.func.vjp(lambda *p: ctx.matvec(p, X), *params)
+        pbar = vjp(-lam)
+        return (None, None, lam, *pbar)
+
+
+def implicit_linear_solve(matvec, params, F, raw):
+    """Solve A X = F for the symmetric operator ``matvec(params, X) = A X``
+    with ``raw(params, F) -> X`` (a Krylov loop, a direct solve or a kernel
+    launch), differentiable in F and in the tensors ``params`` by the
+    implicit-function rule: the adjoint is one more ``raw`` solve with the
+    same operator, and the operator's cotangent is the VJP of ``matvec``
+    with cotangent −λ (for an ELL matrix, −λ_i x_j at slot (i, j)).  The
+    rule is exact at convergence; it never unrolls ``raw``.  The forward
+    value is ``raw``'s output, bit for bit.  Tensors that ``matvec``
+    closes over, rather than takes in ``params``, are constants of the
+    rule."""
+    return _ImplicitSolve.apply(matvec, raw, F, *params)
+
+
+def make_implicit_solver(cols, options, dia=None, mg=None):
+    """The differentiable macro solve ``solve(vals, b) -> x``: :func:`solve_ell`
+    with the static assembly context (cols, options, DIA pattern, multigrid
+    structure) closed over, under the implicit-function rule.  The adjoint
+    is one more solve with the same options, pattern, preconditioner and
+    kernels.  ``solve.iterations`` lists the iteration count of every solve
+    it ran, forward and adjoint, in order."""
+    iterations = []
+
+    def solve_fn(vals, b):
+        x, k, _ = solve_ell(vals, cols, b, options, dia=dia, mg=mg)
+        iterations.append(int(k))
+        return x
+
+    solve = implicit_wrap(solve_fn, cols)
+    solve.iterations = iterations
+    return solve
+
+
+def implicit_wrap(solve_fn, cols):
+    """Attach the implicit-function rule to a symmetric ELL solve
+    ``solve_fn(vals, b) -> x``: ∂L/∂b = λ with A λ = ∂L/∂x (one more
+    ``solve_fn`` call) and ∂L/∂vals = −λ_i x_j at the slot of entry
+    (i, j)."""
+
+    def solve(vals, b):
+        return implicit_linear_solve(
+            lambda p, x: spmv(p[0], cols, x), (vals,), b, lambda p, B: solve_fn(p[0], B)
+        )
+
+    return solve

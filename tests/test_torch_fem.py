@@ -18,7 +18,7 @@ from hommx_tpu.ops.function_space import FunctionSpace as JaxFunctionSpace
 from hommx_tpu.ops.function_space import boundary_dofs as jax_boundary_dofs
 from hommx_tpu.utils import validation as jval
 from hommx_tpu_torch.models.common import MacroSystem
-from hommx_tpu_torch.models.fem import fem_solve, fem_solve_fn
+from hommx_tpu_torch.models.fem import fem_solve
 from hommx_tpu_torch.ops.function_space import boundary_dofs
 from hommx_tpu_torch.utils import validation as tval
 from tests._torch_parity import port_mesh
@@ -174,11 +174,9 @@ def test_golden_fem_f64():
 
 
 def test_fem_unported_parts_raise():
-    """P2 spaces name A9, the differentiable solve names A11, plotting A13."""
+    """P2 spaces name A9, plotting A13."""
     msh = ht.create_unit_square(4)
     with pytest.raises(NotImplementedError, match="A9"):
         ht.PoissonFEM(msh, lambda x: 1.0, 1.0, degree=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        fem_solve_fn(ht.FunctionSpace(msh), lambda th, x: 1.0, 1.0, [])
     with pytest.raises(NotImplementedError, match="A13"):
         ht.PoissonFEM(msh, lambda x: 1.0, 1.0, device="cpu").plot_solution()
