@@ -2283,11 +2283,270 @@ def phase_fem_grad(device, n: int = 1024, check_n: int = 64):
     return {"dia_spmv": dia.KERNEL.launches}
 
 
-#: the phases of the periodic, FEM and per-cell slice and of
-#: differentiation, in their order
+def _guard_counts(eng, coeff, centers, A, G_fn=None) -> tuple:
+    """(diverged, fallback) cell counts of A* against the zero-corrector
+    tensors, by the models' guard (BaseHMM._guard): diag(A*) above 1.05
+    times the zero corrector's diverged; at the zero corrector (ratio >
+    0.999) where the median ratio is below 0.95, the PCG's clamp (a
+    heuristic: a cell whose corrector is legitimately small in one
+    direction is flagged too)."""
+    import torch
+
+    A0, _ = eng.nocorrector_tensors(coeff, centers, G_fn=G_fn)
+    d_star = torch.diagonal(A, dim1=1, dim2=2).double()
+    d_zero = torch.diagonal(A0, dim1=1, dim2=2).double()
+    ratio = d_star / d_zero.clamp(min=1e-300)
+    med = torch.quantile(ratio, 0.5, dim=0)
+    fallback = ((ratio > 0.999) & (med[None, :] < 0.95)).any(dim=1)
+    diverged = (d_star > 1.05 * d_zero + 1e-9).any(dim=1)
+    return int(diverged.sum()), int(fallback.sum())
+
+
+def _reps_record(times) -> dict:
+    """Median, trimmed median (the fastest and slowest reps dropped) and
+    spread of per-rep seconds, as bench.py reports them."""
+    med = statistics.median(times)
+    trimmed = statistics.median(sorted(times)[1:-1]) if len(times) > 2 else med
+    return {"reps_seconds": times, "median_seconds": med, "trimmed_median_seconds": trimmed,
+            "spread_pct": 100.0 * (max(times) - min(times)) / med}
+
+
+def phase_micro_highres(device, reps: int = 5):
+    """16³ elasticity cells by the torus-multigrid route (bench.py's
+    micro_elasticity_16cubed_mg row): the rotated stiff fibre, float32,
+    solver='pcg', pcg_strategy='matfree', cell_prec='mg', default ν and
+    tolerance.  (a) 8 fresh cells at chunk 8, then 128 at the auto chunk,
+    ``reps`` reps each with fresh centres: seconds, cell solves/s (cells ×
+    6 / s), lockstep iterations, fallback cells, peak memory; (b) the same
+    8 cells in float64 on the card (pcg_tol 1e-9), the float32 A* within
+    2e-3 of it; (c) the reference's 16³ gate (ν = 10, tol 1e-7, float64, 2
+    cells): at most 100 iterations, diag(A*) physical; (d) the example's
+    micro-mesh sequence 4³, 8³, 16³ (one centre, float64, MG at all three,
+    ν = 8, tol 1e-7)."""
+    import numpy as np
+    import torch
+
+    from hommx_tpu_torch import MicroEngine, create_unit_cube
+
+    kw = dict(bs=3, coeff_kind="tensor4", solver="pcg", pcg_strategy="matfree",
+              cell_prec="mg", device=device)
+    coeff = beam_coeff(True)
+    t0 = time.perf_counter()
+    eng = MicroEngine(create_unit_cube(16), dtype=torch.float32, **kw)
+    setup = time.perf_counter() - t0
+    rng = np.random.default_rng(16)
+    rec = {"phase": "micro_highres", "n_reduced": eng.n_reduced, "s": eng.s,
+           "engine_setup_seconds": setup, "mg_nu": 4, "pcg_tol": eng.pcg_tol}
+
+    def run(cells, chunk):
+        times, sums, first = [], [], None
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(reps):
+            c = torch.as_tensor(rng.uniform(0, 1, (cells, 3)), dtype=torch.float32,
+                                device=device)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.no_grad():
+                A = eng.tensors_for_centers(coeff, c, G_fn=beam_rotation, chunk=chunk)
+            sums.append(float(A.double().sum()))
+            times.append(time.perf_counter() - t)
+            first = (c, A) if first is None else first
+        out = _reps_record(times)
+        out.update(cells=cells, chunk=chunk or eng._auto_chunk(cells),
+                   solves_per_second=cells * eng.s / out["median_seconds"],
+                   checksums_differ=len(set(sums)) == reps,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        # lockstep iterations per chunk and the cells whose energy clamp
+        # took the zero corrector (a column of X exactly 0), from one
+        # untimed pass through the same chunk route on the first rep's
+        # cells; the models' guard (a heuristic) beside them
+        c, A = first
+        ck = out["chunk"]
+        out["iterations"], fallback = [], 0
+        with torch.no_grad():
+            for i in range(0, cells, ck):
+                _, X, it = eng.tensors_chunk_pcg(coeff, c[i:i + ck], G_fn=beam_rotation,
+                                                 with_correctors=True, with_iters=True,
+                                                 implicit_diff=False)
+                out["iterations"].append(int(it))
+                fallback += int((X.abs().amax(dim=1) == 0).any(dim=1).sum())
+            out["fallback_cells"] = fallback
+            out["diverged_cells"], out["guard_fallback_flags"] = _guard_counts(
+                eng, coeff, c, A, G_fn=beam_rotation)
+        out["finite"] = bool(torch.isfinite(A).all())
+        return out, first
+
+    rec["c8"], (c8, A8) = run(8, 8)
+    rec["c128"], _ = run(128, 0)
+    emit(rec)
+    # (b) the same 8 cells in float64 on the card
+    eng64 = MicroEngine(create_unit_cube(16), dtype=torch.float64, pcg_tol=1e-9, **kw)
+    with torch.no_grad():
+        A64, it64 = eng64.tensors_chunk_pcg(coeff, c8.double(), G_fn=beam_rotation,
+                                            with_iters=True, implicit_diff=False)
+    rec_b = {"phase": "micro_highres_f64", "iterations": int(it64),
+             "f32_rel_diff_to_f64": rel_diff(A8, A64)}
+    emit(rec_b)
+    # (c) the reference's slow gate
+    fibre_only = beam_coeff(False)
+    eng_g = MicroEngine(create_unit_cube(16), dtype=torch.float64, mg_nu=10, pcg_tol=1e-7,
+                        pcg_maxiter=2000, **kw)
+    cg = torch.as_tensor(np.random.default_rng(0).uniform(0, 1, (2, 3)), dtype=torch.float64,
+                         device=device)
+    t = time.perf_counter()
+    with torch.no_grad():
+        Ag, itg = eng_g.tensors_chunk_pcg(fibre_only, cg, with_iters=True, implicit_diff=False)
+    dg = Ag[0].diagonal().cpu()
+    rec_c = {"phase": "micro_highres_gate", "iterations": int(itg),
+             "seconds": time.perf_counter() - t, "diag": dg.tolist(),
+             "finite": bool(torch.isfinite(Ag).all())}
+    emit(rec_c)
+    # (d) the example's micro-mesh sequence
+    seq, prev = [], None
+    centre = torch.full((1, 3), 0.5, dtype=torch.float64, device=device)
+    for n in (4, 8, 16):
+        t = time.perf_counter()
+        e = MicroEngine(create_unit_cube(n), dtype=torch.float64, mg_nu=8, pcg_tol=1e-7,
+                        pcg_maxiter=4000, **kw)
+        with torch.no_grad():
+            A = e.tensors_for_centers(fibre_only, centre)[0]
+        d = A.diagonal()
+        seq.append({"n": n, "A11": float(d[0]), "A22": float(d[4]),
+                    "seconds": time.perf_counter() - t,
+                    "rel_diff_to_previous": None if prev is None else rel_diff(A, prev)})
+        prev = A
+    emit({"phase": "micro_highres_sequence", "rows": seq})
+    ok = (rec["c8"]["finite"] and rec["c128"]["finite"] and rec["c8"]["checksums_differ"]
+          and rec["c128"]["checksums_differ"] and rec["c8"]["fallback_cells"] == 0
+          and rec["c8"]["diverged_cells"] == 0 and rec["c128"]["fallback_cells"] == 0
+          and rec_b["f32_rel_diff_to_f64"] <= GOLDEN_ELASTICITY_RTOL
+          and rec_c["finite"] and rec_c["iterations"] <= 100
+          and dg[0] > 1.0 and dg[1] < 1.0 and bool((dg > 0).all())
+          and all(math.isfinite(r["A11"]) for r in seq))
+    if not ok:
+        raise AssertionError(f"16³ multigrid route failed its checks: {rec} {rec_b} {rec_c}")
+    return {}
+
+
+def phase_micro_routes(device):
+    """Each micro route this slice added, float32 on the card against the
+    same engine in float64 on the card (bars: 1e-4 scalar, 2e-3
+    elasticity): matrix coefficients and scalar solver='cholesky' (the
+    per-cell route), the vector per-cell densek PCG at 4³, the matrix-free
+    gather (HOMMX_MICRO_MATVEC=matfree), the MG route at 4³ elasticity
+    (also against the K3 route at 4³), and the scalar MG route on a 64²
+    micro mesh (n = 4096, past K1's limit) over 256 fresh cells, timed, and
+    on a contrast-100 inclusion beside the plain K0⁻¹ route.  Then K1's
+    limit: a 40² k0inv float32 engine raises naming B7."""
+    import numpy as np
+    import torch
+
+    from hommx_tpu_torch import MicroEngine, create_unit_cube, create_unit_square
+    from hommx_tpu_torch.micro.chunk import tensors_chunk_plain
+    from hommx_tpu_torch.ops import chol_kernel
+    from hommx_tpu_torch.utils.validation import hooke_tensor
+
+    def scalar(x, y):
+        return 1.1 + x[0] + torch.sin(2 * torch.pi * y[0]) * torch.cos(2 * torch.pi * y[1])
+
+    def matrix(x, y):
+        a = 2.0 + torch.sin(2 * torch.pi * y[0])
+        b = 0.3 * x[0] * torch.ones_like(a)
+        return torch.stack([torch.stack([a, b]), torch.stack([b, 1.5 + 0.5 * torch.cos(
+            2 * torch.pi * y[1])])])
+
+    def inclusion(x, y):
+        inside = (torch.abs(y[0] - 0.5) < 0.25) & (torch.abs(y[1] - 0.5) < 0.25)
+        one = torch.ones((), dtype=y.dtype, device=y.device)
+        return torch.where(inside, 100.0 * (1.0 + x[0]) * one, one)
+
+    lame = hooke_tensor(3, lambda x, y: 1.0 + 0.5 * torch.sin(2 * torch.pi * y[0]),
+                        lambda x, y: 1.0)
+    rng = np.random.default_rng(7)
+    cases = [
+        ("matrix_percell", create_unit_square(8), matrix, dict(coeff_kind="matrix"), 256, 1e-4),
+        ("scalar_cholesky", create_unit_square(8), scalar, dict(solver="cholesky"), 256, 1e-4),
+        ("vector_densek_pcg", create_unit_cube(4), lame,
+         dict(bs=3, coeff_kind="tensor4", solver="pcg"), 64, 2e-3),
+        ("matfree_gather", create_unit_square(16), scalar, dict(solver="pcg"), 256, 1e-4),
+        ("mg_elasticity_4", create_unit_cube(4), beam_coeff(True),
+         dict(bs=3, coeff_kind="tensor4", solver="pcg", pcg_strategy="matfree",
+              cell_prec="mg"), 64, 2e-3),
+        ("mg_scalar_64", create_unit_square(64), scalar,
+         dict(solver="pcg", cell_prec="mg"), 256, 1e-4),
+    ]
+    out, k3 = [], 0
+    saved = os.environ.get("HOMMX_MICRO_MATVEC")
+    try:
+        for name, mesh, coeff, kw, cells, bar in cases:
+            if name == "matfree_gather":
+                os.environ["HOMMX_MICRO_MATVEC"] = "matfree"
+            e32 = MicroEngine(mesh, dtype=torch.float32, device=device, **kw)
+            e64 = MicroEngine(mesh, dtype=torch.float64, device=device, **kw)
+            c = torch.as_tensor(rng.uniform(0, 1, (cells, mesh.dim)), device=device)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.no_grad():
+                A32 = e32.tensors_for_centers(coeff, c.float())
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            with torch.no_grad():
+                A64 = e64.tensors_for_centers(coeff, c)
+            r = {"case": name, "cells": cells, "n_reduced": e32.n_reduced, "bar": bar,
+                 "f32_seconds": secs, "f32_rel_diff_to_f64": rel_diff(A32, A64),
+                 "k1_route": e32._k1_route(), "finite": bool(torch.isfinite(A32).all())}
+            if name == "mg_elasticity_4":
+                e_k3 = MicroEngine(mesh, bs=3, coeff_kind="tensor4", dtype=torch.float32,
+                                   device=device)
+                before = chol_kernel.KERNEL.launches
+                with torch.no_grad():
+                    A_k3 = e_k3.tensors_for_centers(coeff, c.float())
+                k3 += chol_kernel.KERNEL.launches - before
+                r["rel_diff_to_k3_route"] = rel_diff(A32, A_k3)
+            if name == "matfree_gather":
+                os.environ.pop("HOMMX_MICRO_MATVEC")
+                r["stencil"] = e32._get_stencil() is not None
+            if name == "mg_scalar_64":
+                # a contrast-100 inclusion: the float32 A* of the MG route
+                # against float64, beside the plain K0⁻¹ route's on the same
+                # 32 cells (the bilinear A*'s float32 cancellation, not the
+                # preconditioner, sets the distance there)
+                ci = c[:32]
+                with torch.no_grad():
+                    A64i = e64.tensors_for_centers(inclusion, ci)
+                    r["contrast100_mg_rel_diff"] = rel_diff(
+                        e32.tensors_for_centers(inclusion, ci.float()), A64i)
+                    r["contrast100_k0inv_rel_diff"] = rel_diff(
+                        tensors_chunk_plain(e32, inclusion, ci.float()), A64i)
+            out.append(r)
+    finally:
+        if saved is None:
+            os.environ.pop("HOMMX_MICRO_MATVEC", None)
+        else:
+            os.environ["HOMMX_MICRO_MATVEC"] = saved
+    try:
+        MicroEngine(create_unit_square(40), dtype=torch.float32, device=device)
+        b7 = "did not raise"
+    except NotImplementedError as err:
+        b7 = str(err)
+    emit({"phase": "micro_routes", "cases": out, "k1_limit_40x40": b7[:160]})
+    ok = all(r["finite"] and r["f32_rel_diff_to_f64"] <= r["bar"] and not r["k1_route"]
+             for r in out)
+    ok = ok and out[4]["rel_diff_to_k3_route"] <= GOLDEN_ELASTICITY_RTOL
+    ok = ok and not out[3]["stencil"] and "B7" in b7 and k3 >= 1
+    ok = ok and (out[5]["contrast100_mg_rel_diff"]
+                 <= 2.0 * out[5]["contrast100_k0inv_rel_diff"] + 1e-6)
+    if not ok:
+        raise AssertionError(f"micro routes failed their checks: {out} {b7}")
+    return {"chol_solve": k3}
+
+
+#: the phases of the periodic, FEM and per-cell slice, of differentiation
+#: and of the micro engine's other routes, in their order
 NEW_PHASES = (phase_fem_flagship, phase_golden_periodic_fem, phase_periodic_identity,
               phase_elasticity_periodic, phase_chol_batched, phase_kc_gather,
-              phase_pipeline_grad, phase_pipeline_grad_elasticity, phase_fem_grad)
+              phase_pipeline_grad, phase_pipeline_grad_elasticity, phase_fem_grad,
+              phase_micro_highres, phase_micro_routes)
 
 
 def main(argv) -> int:

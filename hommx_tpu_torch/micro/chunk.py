@@ -1,54 +1,83 @@
-"""Chunk-level micro routes (torch port of ``hommx_tpu/micro/chunk.py::
-tensors_chunk_pcg``: the scalar periodic-stencil branch and the non-scalar
-Cholesky branch).
+"""Chunk-level micro routes (torch port of ``hommx_tpu/micro/chunk.py``).
 
-Scalar route: for one chunk of macro cell centers, reduce the coefficient
-per micro element (and map it by B_K = GᵀG and GᵀE when the stratified
-variant supplies a gradient map G = Dθᵀ), assemble the stencil weights and
-the generator loads,
-scale the system symmetrically by its diagonal, run the lockstep block-PCG
-on the scaled system, and contract A* by the exact bilinear expansion.  The
-PCG is :func:`~hommx_tpu_torch.micro.stencil_pcg.stencil_pcg`, dispatched
-by device alone: the fused CUDA kernel K1 on the card (float32 only), its
-plain version on the CPU.  The cell axis C is minor: Krylov state (n, s, C),
-reduced coefficient (C, nE).
+Scalar stencil route (K1's): for one chunk of macro cell centers, reduce
+the coefficient per micro element (and map it by B_K = GᵀG and GᵀE when the
+stratified variant supplies a gradient map G = Dθᵀ), assemble the stencil
+weights and the generator loads, scale the system symmetrically by its
+diagonal, run the lockstep block-PCG with the shared K0⁻¹ on the scaled
+system, and contract A* by the exact bilinear expansion.  The PCG is
+:func:`~hommx_tpu_torch.micro.stencil_pcg.stencil_pcg`, dispatched by
+device alone: the fused CUDA kernel K1 on the card (float32 only), its
+plain version on the CPU.
 
-Cholesky route (elasticity): map the coefficient
-blocks by the per-cell strain map T, assemble the per-cell reduced
-operators Kc (C, n, n) by the Kron fast path and a scatter, build the loads
-F = −Σ_e D_eᵀ(TᵀĀ_e)E, equilibrate with S = √(d₀/d), solve with
+The other PCG configurations (:func:`_tensors_chunk_general`, plain torch
+as in the reference): the dense per-cell Kc (``pcg_strategy='densek'``),
+the periodic stencil with the torus multigrid (``cell_prec='mg'``), the
+block stencil of vector and matrix-coefficient problems
+(micro/block_stencil.py), the low-rank shared Grams (``coeff_rank``), and
+the matrix-free gather matvec; preconditioned by K0⁻¹ or the V-cycle
+(micro/mg_prec.py).  The cell axis C is minor: Krylov state (n, s, C).
+
+Cholesky route (elasticity): map the coefficient blocks by the per-cell
+strain map T, assemble the per-cell reduced operators Kc (C, n, n) by the
+Kron fast path and a scatter, build the loads F = −Σ_e D_eᵀ(TᵀĀ_e)E,
+equilibrate with S = √(d₀/d), solve with
 :func:`~hommx_tpu_torch.ops.chol_kernel.fused_chol_solve` (the CUDA kernel
 K3 on the card, its plain version on the CPU) and contract A* bilinearly.
 
-The Kc assembly honours the reference's ``HOMMX_KC_ASSEMBLY`` switch
-(``scatter`` | ``gather``) with another default: gather on CUDA, scatter
-on the CPU (the reference's default everywhere).  The gather form inverts
-the scatter map on the host once (:func:`_get_kc_gather`), so every Kc and
-Fc entry is added in one fixed order; ``index_add_`` on CUDA adds in the
-order its atomics land, and two identical float32 runs then differ.
-``HOMMX_CHOL_SOLVE_BATCH=1`` takes :func:`tensors_chol_batched`: the
-chunks are assembled and equilibrated, one K3 launch solves the whole
-batch, and A* is contracted per chunk.  The other opt-in switches
-(``HOMMX_ASTAR``, ``HOMMX_CHOL_REFINE``, ``HOMMX_CHOL_KERNEL``,
-``HOMMX_CHOL_BODY``) are not ported: the port takes their defaults
-(bilinear, refinement on, the kernel).  Other routes (dense-K PCG, FFT and
-multigrid cell preconditioners, low-rank, matrix-free gather) wait for
-later slices.
+The Kc assembly (and the block stencil's weights) honour the reference's
+``HOMMX_KC_ASSEMBLY`` switch (``scatter`` | ``gather``) with another
+default: gather on CUDA, scatter on the CPU (the reference's default
+everywhere).  The gather form inverts the scatter map on the host once
+(:func:`_get_kc_gather`), so every sum is added in one fixed order;
+``index_add_`` on CUDA adds in the order its atomics land, and two
+identical float32 runs then differ.  ``HOMMX_MICRO_MATVEC=matfree`` (the
+reference's switch) drops the periodic stencils for the matrix-free gather
+matvec, except under ``cell_prec='mg'``.  ``HOMMX_CHOL_SOLVE_BATCH=1``
+takes :func:`tensors_chol_batched`: the chunks are assembled and
+equilibrated, one K3 launch solves the whole batch, and A* is contracted
+per chunk.  The other opt-in switches (``HOMMX_ASTAR``,
+``HOMMX_CHOL_REFINE``, ``HOMMX_CHOL_KERNEL``, ``HOMMX_CHOL_BODY``,
+``HOMMX_STENCIL_PCG``) are not ported: the port takes their defaults
+(bilinear, refinement on, the kernels).  The FFT cell preconditioner is
+ROADMAP A9c.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
+from hommx_tpu_torch.micro.block_stencil import (
+    block_stencil_weights,
+    build_block_stencil,
+    mm_weights,
+    torus_apply,
+)
 from hommx_tpu_torch.micro.krylov import _solve_linear, shared_prec
+from hommx_tpu_torch.micro.mg_prec import (
+    _signed_offsets,
+    build_mg_levels,
+    check_coarsest,
+    mg_prec,
+    mg_setup,
+)
+from hommx_tpu_torch.micro.percell import (
+    _exact_diag,
+    _expand,
+    _gather_matvec,
+    _reduce,
+    _to_reduced,
+)
 from hommx_tpu_torch.micro.stencil import (
     MicroStencil,
     torus_matvec,
     build_stencil,
+    micro_matvec_mode,
     scale_weights,
     stencil_astar,
     stencil_matvec,
@@ -109,39 +138,42 @@ class ChunkSystem:
         """A* (C, s, s) from an unclamped solve Y of the scaled system."""
         return self.corrected(eng, Y, iters)[0]
 
-    def _clamped(self, eng, raw, Fs, implicit_diff, params=None):
+    def _clamped(self, eng, raw, Fs, implicit_diff, params=None, with_iters=False):
         """The clamped solve Yc of the scaled system S K S Y = Fs (= S F) by
         ``raw``, through :func:`_solve_linear` (the implicit rule with the
-        scaled weights ``params`` as the operator's tensors)."""
+        scaled weights ``params`` as the operator's tensors), and the
+        iteration count."""
         sc, st = self.sc, self.st
         operator = None
         if params is not None:
             operator = (lambda ws, P: torus_matvec(st.shape, st.offsets, ws, P), tuple(params))
         return _solve_linear(
             lambda P: sc * self.matvec(sc * P), self.prec, Fs,
-            eng.pcg_tol, eng.pcg_maxiter, False, implicit_diff, raw=raw, operator=operator,
+            eng.pcg_tol, eng.pcg_maxiter, with_iters, implicit_diff, raw=raw, operator=operator,
         )
 
     def _contract(self, eng, Yc):
         X = self.sc * Yc
         return stencil_astar(self.st, self.ws, self.a, eng.E, self.F, X) / eng.volume_Y, X
 
-    def solve(self, eng, pcg, with_correctors=False, implicit_diff=True):
+    def solve(self, eng, pcg, with_correctors=False, implicit_diff=True, with_iters=False):
         """A* of the chunk with ``pcg`` as the Krylov solve of the scaled
         system (the signature of ``stencil_pcg``); with ``with_correctors``
-        also the correctors X (n, s, C).  The solve runs inside the
-        implicit-function rule: the scaled weights ``ws_s`` and loads ``Fs``
-        are its inputs and its adjoint is one more ``pcg`` solve (a second
-        K1 launch on the card).  With ``implicit_diff=False`` the solve
-        carries no gradient."""
+        also the correctors X (n, s, C), with ``with_iters`` the iteration
+        count.  The solve runs inside the implicit-function rule: the
+        scaled weights ``ws_s`` and loads ``Fs`` are its inputs and its
+        adjoint is one more ``pcg`` solve (a second K1 launch on the card).
+        With ``implicit_diff=False`` (or ``with_iters``) the solve carries
+        no gradient."""
         ws_s, Fs = self.scaled()
         st = self.st
         raw = lambda B: pcg(  # noqa: E731
             ws_s, B, self.Minv, st.shape, st.offsets, eng.pcg_tol, eng.pcg_maxiter
         )
-        Yc, _ = self._clamped(eng, raw, Fs, implicit_diff, params=ws_s)
-        out = self._contract(eng, Yc)
-        return out if with_correctors else out[0]
+        Yc, iters = self._clamped(eng, raw, Fs, implicit_diff, params=ws_s,
+                                  with_iters=with_iters)
+        A, X = self._contract(eng, Yc)
+        return _outputs(A, X, iters, with_correctors, with_iters)
 
 
 def chunk_system(eng, coeff, centers: torch.Tensor, G_fn=None) -> ChunkSystem:
@@ -159,34 +191,39 @@ def chunk_system(eng, coeff, centers: torch.Tensor, G_fn=None) -> ChunkSystem:
         GE = torch.einsum("ctr,ts->crs", G, eng.E)  # Gᵀ E
     ws = stencil_weights(st, a, B_K)
     F = stencil_rhs(st, a, eng.E, TE=GE)
+    return ChunkSystem(st, a, ws, F, _proxy_scale(eng, a, B_K), eng._get_K0inv())
+
+
+def _proxy_scale(eng, a, B_K) -> torch.Tensor:
+    """The symmetric diagonal scaling S = √(d₀/d) (n, 1, C) of scalar-
+    coefficient cell systems (ones when ``diag_scale`` is off), from the
+    per-dof proxy d[n, c] = Σ_e t[c, e]·Σ_r D[e, r, n]² with t =
+    a·tr(B_K)/r (exact for unmapped scalar coefficients); the reference
+    scale d₀ takes the unit coefficient through the same formula."""
     n, C = eng.n_reduced, a.shape[0]
-    if eng.diag_scale:
-        # per-dof diagonal proxy d[n, c] = Σ_e t[c, e]·Σ_r D[e, r, n]² with
-        # t = a·tr(B_K)/r (exact for unmapped scalar coefficients); the
-        # reference scale d0 uses the unit coefficient through the same
-        # formula
-        t = a if B_K is None else a * (torch.einsum("crr->c", B_K) / eng.r)[:, None]
-        wsum = eng.wq_dev.sum(dim=1)
-        if eng.D is not None:
-            dD = torch.einsum("ern,ern->en", eng.D, eng.D)
-            dp = torch.einsum("ce,en->nc", t, dD)
-            d0p = torch.einsum("e,en->n", wsum, dD)
-        else:
-            dDl = torch.einsum("erl,erl->el", eng.Draw, eng.Draw)  # (nE, nbl)
-            tl = torch.einsum("ce,el->elc", t, dDl)
-            idx = eng.loc2red.reshape(-1)
-            dp = torch.zeros((n, C), dtype=eng.dtype, device=eng.device)
-            dp.index_add_(0, idx, tl.reshape(-1, C))
-            d0p = torch.zeros(n, dtype=eng.dtype, device=eng.device)
-            d0p.index_add_(0, idx, (wsum[:, None] * dDl).reshape(-1))
-        bad = eng.pin_mask[:, None] | (dp <= 0) | ~torch.isfinite(dp)
-        one = torch.ones((), dtype=eng.dtype, device=eng.device)
-        sc = torch.where(
-            bad, one, torch.sqrt(d0p[:, None] / torch.where(bad, one, dp))
-        ).to(eng.dtype)[:, None, :]
+    if not eng.diag_scale:
+        return torch.ones((n, 1, C), dtype=eng.dtype, device=eng.device)
+    t = a if B_K is None else a * (torch.einsum("crr->c", B_K) / eng.r)[:, None]
+    wsum = eng.wq_dev.sum(dim=1)
+    if eng.D is not None:
+        dD = torch.einsum("ern,ern->en", eng.D, eng.D)
+        dp = torch.einsum("ce,en->nc", t, dD)
+        d0p = torch.einsum("e,en->n", wsum, dD)
     else:
-        sc = torch.ones((n, 1, C), dtype=eng.dtype, device=eng.device)
-    return ChunkSystem(st, a, ws, F, sc, eng._get_K0inv())
+        dDl = torch.einsum("erl,erl->el", eng.Draw, eng.Draw)  # (nE, nbl)
+        dp = _to_reduced(eng, torch.einsum("ce,el->elc", t, dDl).reshape(-1, C))
+        d0p = _to_reduced(eng, (wsum[:, None] * dDl).reshape(-1, 1))[:, 0]
+    return _scale(eng, dp, d0p)
+
+
+def _scale(eng, dp, d0p) -> torch.Tensor:
+    """S = √(d₀/d) (n, 1, C) from the diagonal dp (n, C) and the reference
+    scale d0p (n,); pinned dofs and non-positive or non-finite entries are
+    left unscaled."""
+    bad = eng.pin_mask[:, None] | (dp <= 0) | ~torch.isfinite(dp)
+    one = torch.ones((), dtype=eng.dtype, device=eng.device)
+    return torch.where(bad, one, torch.sqrt(d0p[:, None] / torch.where(bad, one, dp))).to(
+        eng.dtype)[:, None, :]
 
 
 def _map_G(eng, G_fn, centers):
@@ -196,15 +233,203 @@ def _map_G(eng, G_fn, centers):
     )(centers)
 
 
+def _outputs(A, X, iters, with_correctors, with_iters):
+    out = (A,) + ((X,) if with_correctors else ()) + ((iters,) if with_iters else ())
+    return out[0] if len(out) == 1 else out
+
+
 def tensors_chunk_pcg(eng, coeff, centers, G_fn=None, with_correctors=False,
-                      implicit_diff=True):
-    """A*(c_T) (C, s, s) for one chunk of centers, and with
-    ``with_correctors`` the correctors (n, s, C): the fused PCG kernel on
-    CUDA tensors, its plain version on CPU tensors, under the implicit
-    rule unless ``implicit_diff=False``."""
-    return chunk_system(eng, coeff, centers, G_fn).solve(
-        eng, stencil_pcg, with_correctors, implicit_diff
-    )
+                      implicit_diff=True, with_iters=False):
+    """A*(c_T) (C, s_full, s_full) for one chunk of centers by the chunk
+    PCG, and with ``with_correctors`` the correctors X (n, s, C), with
+    ``with_iters`` the lockstep iteration count; the solve runs under the
+    implicit rule unless ``implicit_diff=False`` (or ``with_iters``).
+
+    A scalar coefficient on a scalar problem with the shared K0⁻¹ on the
+    periodic stencil is K1's route: the fused kernel on CUDA tensors, its
+    plain version on CPU tensors.  Every other configuration takes
+    :func:`_tensors_chunk_general`."""
+    if eng._k1_route():
+        return chunk_system(eng, coeff, centers, G_fn).solve(
+            eng, stencil_pcg, with_correctors, implicit_diff, with_iters
+        )
+    return _tensors_chunk_general(eng, coeff, centers, G_fn, with_correctors, implicit_diff,
+                                  with_iters)
+
+
+def _tensors_chunk_general(eng, coeff, centers, G_fn, with_correctors, implicit_diff,
+                           with_iters):
+    """The chunk PCG in plain torch (``hommx_tpu/micro/chunk.py::
+    tensors_chunk_pcg`` but K1's branch and the FFT symbol), the Krylov
+    state (n, s, C) with the cell axis minor.  The matvec is, in the
+    reference's order of precedence:
+
+    - the dense per-cell Kc (``pcg_strategy='densek'``, non-scalar
+      coefficients; A* by the bilinear expansion);
+    - the periodic stencil (scalar coefficients, structured meshes; A* by
+      the stencil's bilinear expansion);
+    - the block stencil (non-scalar coefficients, structured meshes);
+    - the low-rank shared Grams (a declared ``coeff_rank``, a scalar
+      unmapped coefficient and no stencil);
+    - the matrix-free gather D̃ᵀ(A_K ∘ D̃·) (``HOMMX_MICRO_MATVEC=matfree``
+      or an unstructured mesh).
+
+    The preconditioner is the shared K0⁻¹, or the torus multigrid V-cycle
+    built on the unscaled stencil weights and applied to the scaled system
+    by the congruence S⁻¹V(S⁻¹·).  The operator is given to the implicit
+    rule as a function of its tensors, so the gradient reaches the
+    coefficient through it."""
+    C = centers.shape[0]
+    nE, r, s, n = eng.nE, eng.r, eng.s, eng.n_reduced
+    raw = torch.func.vmap(lambda x: eng._raw_coeff(coeff, x))(centers)
+    G = None if G_fn is None else _map_G(eng, G_fn, centers)
+    scalar_sep = eng.coeff_kind == "scalar"
+    densek = eng.pcg_strategy == "densek" and not scalar_sep
+    mg = eng.cell_prec == "mg"
+    keep = (~eng.pin_mask).to(eng.dtype)[:, None, None]
+    pinf = eng.pin_mask.to(eng.dtype)[:, None, None]
+    E = eng.E
+    Ae = A_K = B_K = B_Phi = None
+    if scalar_sep:
+        a = raw  # (C, nE): canonical Ā_e = a[c, e]·I, kept separable
+        a_w = a.T[:, None, None, :]  # (nE, 1, 1, C)
+        if G is not None:
+            B_K = torch.einsum("cmr,cmt->crt", G, G)  # GᵀG
+            B_Phi = G
+    else:
+        Ae = raw  # (C, nE, r, r)
+        T = eng._grad_map(G)
+        if T is not None and T.ndim == 2:
+            T = T.expand(C, r, r)
+        B_Phi = T
+        if not densek or mg:
+            A_K = Ae if T is None else torch.einsum("cmr,cemt,ctn->cern", T, Ae, T)
+
+    stencil = eng._get_stencil() if scalar_sep else None
+    bst = eng._get_block_stencil() if not scalar_sep and (not densek or mg) else None
+    lowrank = (eng.coeff_rank > 0 and scalar_sep and B_K is None and eng.D is not None
+               and stencil is None)
+    W_mg = None  # the unscaled fine weights the V-cycle coarsens
+    dp = None  # the exact diag(K) (n, C) where the route has it
+    if densek:
+        chol = _chol_system_of(eng, Ae, T)
+        op = lambda p, P: torch.einsum("cnm,msc->nsc", p[0], P)  # noqa: E731
+        params, F = (chol.Kc,), chol.F
+        dp = torch.diagonal(chol.Kc, dim1=1, dim2=2).T
+        if mg:
+            W_mg = block_stencil_weights(bst, eng, A_K) if bst is not None else None
+    elif stencil is not None:
+        ws = stencil_weights(stencil, a, B_K)
+        shape, offsets = stencil.shape, stencil.offsets
+        op = lambda p, P: torus_matvec(shape, offsets, p, P)  # noqa: E731
+        params = tuple(ws)
+        if mg:
+            W_mg = torch.stack(ws)[:, :, None, None, :]
+    elif bst is not None:
+        Wb = block_stencil_weights(bst, eng, A_K)
+        nbr, bsz = bst.neighbours(eng.device), bst.bs
+
+        def op(p, P):
+            X = P.reshape(-1, bsz, s, C).permute(3, 0, 1, 2)
+            return torus_apply(nbr, p[0], X).permute(1, 2, 3, 0).reshape(n, s, C)
+
+        params, W_mg = (mm_weights(Wb),), Wb
+        dp = torch.einsum("niic->nic", Wb[bst.self_k]).reshape(n, C)
+    elif lowrank:
+        # a ≈ U V through R anchor cells (float64, interpolative: exact when
+        # the declared rank covers the coefficient), K p = Σ_k u_k (K_k p)
+        R = min(eng.coeff_rank, C)
+        anchors = torch.as_tensor(np.linspace(0, C - 1, R).astype(np.int64), device=eng.device)
+        a64 = a.to(torch.float64)
+        V = a64[anchors]  # (R, nE)
+        U = torch.linalg.pinv(V @ V.T, rtol=1e-12) @ (V @ a64.T)  # (R, C)
+        keepn = keep[:, 0, 0].to(torch.float64)
+        D2 = eng.D.reshape(nE * r, n).to(torch.float64)
+        w = torch.repeat_interleave(V, r, dim=1)  # (R, nE·r)
+        Kb = torch.einsum("kz,zn,zm->knm", w, D2, D2) * keepn[None, :, None] * keepn[None, None, :]
+
+        def op(p, P):
+            KP = torch.einsum("knm,msc->knsc", p[0], P * keep)
+            return torch.einsum("kc,knsc->nsc", p[1], KP) * keep + pinf * P
+
+        params = (Kb.to(eng.dtype), U.to(eng.dtype))
+    elif scalar_sep:
+        def op(p, P):
+            Dp = _expand(eng, P * keep)
+            if len(p) > 1:
+                Dp = torch.einsum("crt,etsc->ersc", p[1], Dp)
+            return _reduce(eng, Dp * p[0].T[:, None, None, :]) * keep + pinf * P
+
+        params = (a,) if B_K is None else (a, B_K)
+    else:
+        op = lambda p, P: _gather_matvec(eng, p[0], P)  # noqa: E731
+        params = (A_K,)
+
+    # loads F = −Σ_e D_eᵀ (TᵀĀ_e) E, keep-masked (densek: from its system)
+    if stencil is not None:
+        GE = None if G is None else torch.einsum("ctr,ts->crs", G, E)
+        F = stencil_rhs(stencil, a, E, TE=GE)
+    elif scalar_sep:
+        GE = E[None] if G is None else torch.einsum("ctr,ts->crs", G, E)
+        F = -_reduce(eng, a_w * GE.expand(C, r, s).permute(1, 2, 0)[None]) * keep
+    elif not densek:
+        F = _loads(eng, Ae if T is None else torch.einsum("cmr,cemt->cert", T, Ae)) * keep
+
+    if not eng.diag_scale:
+        sc = None
+    elif scalar_sep:
+        sc = _proxy_scale(eng, a, B_K)
+    else:
+        sc = _scale(eng, dp if dp is not None else _exact_diag(eng, A_K), eng._get_K0diag())
+
+    if mg:
+        src = stencil if scalar_sep else bst
+        levels = eng._get_mg_levels(src.offsets, src.shape) if src is not None else None
+        if levels is None:
+            raise ValueError(
+                "cell_prec='mg' requires a structured box micro mesh whose reduced dofs form "
+                "the torus grid (P1 micro elements) and a nearest-neighbour stencil; use "
+                "cell_prec='k0inv' on this configuration"
+            )
+        check_coarsest(levels, 1 if scalar_sep else eng.bs)
+        vcycle = mg_prec(levels, mg_setup(levels, W_mg.detach()), nu=_mg_nu(eng))
+        if sc is None:
+            prec = vcycle
+        else:
+            # the V-cycle is built on the unscaled operator and applied to
+            # the scaled system by congruence (the scaling distorts the
+            # smooth modes that the interpolation must capture)
+            inv_sc = 1.0 / sc.detach()
+            prec = lambda R: inv_sc * vcycle(inv_sc * R)  # noqa: E731
+    else:
+        Minv = eng._get_K0inv()
+        prec = lambda R: shared_prec(Minv, R)  # noqa: E731
+
+    if sc is None:
+        op_s, params_s, Fs = op, params, F
+    else:
+        k = len(params)
+        op_s = lambda p, P: p[k] * op(p[:k], p[k] * P)  # noqa: E731
+        params_s, Fs = (*params, sc), sc * F
+    Y, iters = _solve_linear(lambda P: op_s(params_s, P), prec, Fs, eng.pcg_tol,
+                             eng.pcg_maxiter, with_iters, implicit_diff,
+                             operator=(op_s, params_s))
+    X = Y if sc is None else sc * Y
+
+    # A* = (1/|Y|) Φᵀ Ā Φ with Φ = E + T·(D X): by the bilinear expansion on
+    # the stencil and dense-K routes, as the quadratic form otherwise
+    if densek:
+        A = chol.astar(eng, X)
+    elif stencil is not None:
+        A = stencil_astar(stencil, params, a, E, F, X) / eng.volume_Y
+    else:
+        Phi = _expand(eng, X)
+        if B_Phi is not None:
+            Phi = torch.einsum("crt,etsc->ersc", B_Phi, Phi)
+        Phi = E[None, :, :, None] + Phi
+        APhi = Phi * a_w if scalar_sep else torch.einsum("cert,etsc->ersc", Ae, Phi)
+        A = eng._expand_astar(torch.einsum("ernc,ermc->cnm", Phi, APhi) / eng.volume_Y)
+    return _outputs(A, X, iters, with_correctors, with_iters)
 
 
 def tensors_chunk_plain(eng, coeff, centers, G_fn=None):
@@ -216,11 +441,51 @@ def tensors_chunk_plain(eng, coeff, centers, G_fn=None):
 
 
 def _get_stencil(eng):
-    """Cached periodic grid stencil (micro/stencil.py); the engine checks at
-    construction that it exists."""
-    if getattr(eng, "_stencil", None) is None:
-        eng._stencil = build_stencil(eng)
+    """Cached periodic grid stencil of a scalar problem (micro/stencil.py),
+    or None: the mesh is not a raster-ordered structured box, or
+    ``HOMMX_MICRO_MATVEC=matfree`` (read at the engine's first call) —
+    except under ``cell_prec='mg'``, whose V-cycle is built from the
+    stencil.  (The reference drops the stencil under 'matfree' and 'mg'
+    too, and then says the mesh is not structured.)"""
+    if getattr(eng, "_stencil", False) is False:
+        eng._stencil = None
+        if eng.bs == 1 and (micro_matvec_mode() == "auto" or eng.cell_prec == "mg"):
+            eng._stencil = build_stencil(eng)
     return eng._stencil
+
+
+def _get_block_stencil(eng):
+    """Cached block stencil (micro/block_stencil.py), or None: the mesh is
+    not a raster-ordered structured box, or ``HOMMX_MICRO_MATVEC=matfree``
+    — except under ``cell_prec='mg'``."""
+    if getattr(eng, "_bstencil", False) is False:
+        eng._bstencil = None
+        if micro_matvec_mode() == "auto" or eng.cell_prec == "mg":
+            eng._bstencil = build_block_stencil(eng)
+    return eng._bstencil
+
+
+def _get_mg_levels(eng, offsets, shape):
+    """Cached host-side torus-multigrid plan (micro/mg_prec.py), or None
+    when the stencil is not nearest-neighbour."""
+    if offsets is None or shape is None:
+        return None
+    key = (tuple(shape), tuple(map(tuple, np.asarray(offsets).tolist())))
+    cache = eng.__dict__.setdefault("_mg_levels_cache", {})
+    if key not in cache:
+        signed = _signed_offsets(np.asarray(offsets), shape)
+        cache[key] = None if signed is None else build_mg_levels(signed, shape)
+    return cache[key]
+
+
+def _mg_nu(eng) -> int:
+    """Chebyshev smoothing degree of the torus-multigrid V-cycle: ``mg_nu``
+    if set, else 2 for scalar problems and 4 for vector ones (the
+    reference's measured time optimum on the 16³ contrast-1e5 fibre
+    cell)."""
+    if eng.mg_nu:
+        return int(eng.mg_nu)
+    return 2 if eng.coeff_kind == "scalar" and eng.bs == 1 else 4
 
 
 @dataclass
@@ -285,13 +550,19 @@ def _chol_solve(solver, Ks, Fs, implicit_diff=True):
 def chol_system(eng, coeff, centers: torch.Tensor, G_fn=None) -> CholSystem:
     """Coefficient mapping, Kc assembly and loads for one chunk of centers
     (C, d) on the Cholesky route."""
-    C = centers.shape[0]
-    nE, r, s, n = eng.nE, eng.r, eng.s, eng.n_reduced
     Ae = torch.func.vmap(lambda x: eng._raw_coeff(coeff, x))(centers)  # (C, nE, r, r)
-    G = None if G_fn is None else _map_G(eng, G_fn, centers)
-    T = eng._grad_map(G)
+    T = eng._grad_map(None if G_fn is None else _map_G(eng, G_fn, centers))
     if T is not None and T.ndim == 2:
-        T = T.expand(C, r, r)
+        T = T.expand(Ae.shape[0], eng.r, eng.r)
+    return _chol_system_of(eng, Ae, T)
+
+
+def _chol_system_of(eng, Ae: torch.Tensor, T) -> CholSystem:
+    """The assembled per-cell operators Kc (C, n, n), the keep-masked loads
+    and Σ_e Ā_e of the element coefficients Ae (C, nE, r, r) under the
+    per-cell maps T (C, r, r) or None."""
+    C = Ae.shape[0]
+    nE, r, n = eng.nE, eng.r, eng.n_reduced
     if T is None:
         A_F = Ae
         blocks = torch.einsum("erl,cert,etm->celm", eng.Draw, Ae, eng.Draw)
@@ -321,20 +592,24 @@ def chol_system(eng, coeff, centers: torch.Tensor, G_fn=None) -> CholSystem:
         Kc = Kc.reshape(C, n, n) * keep[None, :, None] * keep[None, None, :] + torch.diag(
             eng.pin_mask.to(eng.dtype)
         )[None]
-    # loads F = −Σ_e D_eᵀ (TᵀĀ_e) E, the cell axis minor
+    return CholSystem(Kc, _loads(eng, A_F) * keep[:, None, None], Ae.sum(dim=1))
+
+
+def _loads(eng, A_F: torch.Tensor) -> torch.Tensor:
+    """Generator loads F = −Σ_e D_eᵀ (TᵀĀ_e) E (n, s, C), the cell axis
+    minor, of the F-side element blocks A_F (C, nE, r, r); not keep-masked."""
+    C, nE, r, _ = A_F.shape
+    n, s = eng.n_reduced, eng.s
     AE = torch.einsum("cert,ts->cers", A_F, eng.E)  # (C, nE, r, s)
     if eng.D is not None:
-        F = -torch.einsum("zn,czs->nsc", eng.D.reshape(nE * r, n), AE.reshape(C, nE * r, s))
-    else:
-        wl = torch.einsum("erl,cers->cels", eng.Draw, AE).reshape(C, -1, s)
-        if kcg is not None:
-            Fc = gather_sum(wl.transpose(1, 2), kcg.fc_plan)  # (C, s, n)
-            F = -Fc.permute(2, 1, 0)
-        else:
-            Fc = torch.zeros((C, n, s), dtype=eng.dtype, device=eng.device)
-            Fc.index_add_(1, eng.loc2red.reshape(-1), wl)
-            F = -Fc.permute(1, 2, 0)
-    return CholSystem(Kc, F * keep[:, None, None], Ae.sum(dim=1))
+        return -torch.einsum("zn,czs->nsc", eng.D.reshape(nE * r, n), AE.reshape(C, nE * r, s))
+    wl = torch.einsum("erl,cers->cels", eng.Draw, AE).reshape(C, -1, s)
+    kcg = _get_kc_gather(eng)
+    if kcg is not None:
+        return -gather_sum(wl.transpose(1, 2), kcg.fc_plan).permute(2, 1, 0)  # (C, s, n)
+    Fc = torch.zeros((C, n, s), dtype=eng.dtype, device=eng.device)
+    Fc.index_add_(1, eng.loc2red.reshape(-1), wl)
+    return -Fc.permute(1, 2, 0)
 
 
 def tensors_chunk_chol(eng, coeff, centers, G_fn=None, with_correctors=False,
@@ -386,11 +661,24 @@ class KcGather:
     :func:`_get_kc_gather`)."""
 
     tab: torch.Tensor  # (nnz, m) contributors of each coupled dof pair, the reference's table
-    inv_map: torch.Tensor  # (n²,) position of each dense entry among the nnz (nnz: none)
+    nz: np.ndarray  # (nnz,) flat dense position row·n + col of each coupled pair
+    n: int
     keep_vec: torch.Tensor  # (nnz,) 1 where neither dof is pinned
     pin_vec: torch.Tensor  # (nnz,) 1 on the pinned diagonal
     plan: GatherPlan  # ``tab`` on the device
     fc_plan: GatherPlan  # the loads' scatter over the reduced dofs (no dense D)
+    _inv_map: Optional[torch.Tensor] = None
+
+    @property
+    def inv_map(self) -> torch.Tensor:
+        """(n²,) position of each dense entry among the nnz (nnz: none),
+        built at the first dense assembly (a 16³ elasticity cell, which
+        takes no dense route, would need 1.2 GB for it)."""
+        if self._inv_map is None:
+            inv = np.full(self.n * self.n, self.nz.size, dtype=np.int64)
+            inv[self.nz] = np.arange(self.nz.size)
+            self._inv_map = torch.as_tensor(inv, device=self.keep_vec.device)
+        return self._inv_map
 
 
 def _get_kc_gather(eng):
@@ -415,15 +703,12 @@ def _get_kc_gather(eng):
             nz, inv = np.unique(flat, return_inverse=True)
             tab = invert_scatter(inv, nz.size, max_mult=64)
             if tab is not None:
-                inv_map = np.full(n * n, nz.size, dtype=np.int64)
-                inv_map[nz] = np.arange(nz.size)
                 pin = eng.pin_np
                 keepn = ~pin
                 ti, tj = nz // n, nz % n
                 dev, dt = eng.device, eng.dtype
                 eng._kc_gather = KcGather(
-                    tab=tab,
-                    inv_map=torch.as_tensor(inv_map, device=dev),
+                    tab=tab, nz=nz, n=n,
                     keep_vec=torch.as_tensor(keepn[ti] & keepn[tj], dtype=dt, device=dev),
                     pin_vec=torch.as_tensor((ti == tj) & pin[ti], dtype=dt, device=dev),
                     plan=GatherPlan(tab, flat.size, dev),

@@ -9,26 +9,24 @@ For every macro cell center c_T:
 
 Periodicity is eliminated through the reduced vertex index
 (micro/periodic.py); the nullspace is removed by pinning the dofs of reduced
-vertex 0.  Two routes are ported (micro/chunk.py):
+vertex 0.  ``tensors_for_centers`` picks a route by the reference's rule:
 
-- scalar problems with a scalar coefficient: the periodic-stencil chunk
-  block-PCG, whose Krylov loop is the CUDA kernel K1 (a stratified gradient
-  map G = Dθᵀ enters its weights and loads, not the kernel);
-- vector problems (elasticity, s = d(d+1)/2 Voigt generators, T the
-  symmetrized or stratified strain map): the chunk Cholesky route, whose
-  batched direct solve is the CUDA kernel K3.  The reference takes it in float32 only (float64 runs the
-  per-cell route); the port takes it in every dtype.
+- the chunk PCG (micro/chunk.py::tensors_chunk_pcg) for ``solver='pcg'``
+  with ``pcg_strategy='matfree'``, ``cell_prec='mg'`` or a declared
+  ``coeff_rank``: the scalar periodic stencil with the shared K0⁻¹, whose
+  Krylov loop is the CUDA kernel K1; otherwise the stencil, the block
+  stencil (micro/block_stencil.py), the matrix-free gather, the low-rank or
+  the dense-K matvec, preconditioned by K0⁻¹ or the torus multigrid
+  (micro/mg_prec.py), in plain torch;
+- the chunk Cholesky (vector problems on ``solver='cholesky'``, s =
+  d(d+1)/2 Voigt generators), whose batched direct solve is the CUDA
+  kernel K3.  The reference takes it in float32 only (float64 runs the
+  per-cell route); the port takes it in every dtype;
+- the per-cell route (micro/percell.py) for the rest — the float64 scalar
+  default, matrix coefficients, ``pcg_strategy='densek'`` — dense K and
+  Cholesky or a block-PCG, batched over a chunk with ``torch.linalg``.
 
-``tensors_for_centers`` takes one of those two routes (with
-``HOMMX_CHOL_SOLVE_BATCH=1`` the Cholesky route solves the whole batch in
-one K3 launch, micro/chunk.py::tensors_chol_batched).  The per-cell route
-is public as :meth:`MicroEngine.cell_tensor` (one macro point, dense K,
-Cholesky or block-PCG with ``torch.linalg``) and
-:meth:`MicroEngine.solve_periodic` (a general periodic variational solve),
-micro/percell.py; ``tensors_for_centers`` does not dispatch to it.  Other
-routes — matrix coefficients, PCG on vector problems, P2 micro elements,
-FFT and multigrid cell preconditioners, low-rank coefficients — raise
-``NotImplementedError`` (ROADMAP A9).
+Not ported: ``cell_prec='fft'`` (ROADMAP A9c) and P2 micro elements (A9d).
 
 Coefficients are torch callables ``A(x, y)`` on 1-D points, evaluated with
 nested ``torch.func.vmap``; quadrature coordinates stay float64 whatever
@@ -47,6 +45,8 @@ from hommx_tpu_torch.config import as_device, default_dtype
 from hommx_tpu_torch.meshes.simplex import SimplexMesh
 from hommx_tpu_torch.micro.krylov import _map_chunked
 from hommx_tpu_torch.micro.periodic import build_periodic_map
+from hommx_tpu_torch.micro.stencil import micro_matvec_mode, torus_coords
+from hommx_tpu_torch.micro.stencil_pcg import check_k1_fits
 from hommx_tpu_torch.ops.assembly import gather_sum
 
 __all__ = ["MicroEngine"]
@@ -69,28 +69,50 @@ def _sym_map(M: torch.Tensor) -> torch.Tensor:
 
 
 class MicroEngine:
-    """Batched periodic cell-problem solver on one replicated micro mesh.
+    """Batched periodic cell-problem solver on one replicated micro mesh
+    (the reference's constructor arguments and defaults).
 
     Args:
-        micro_mesh: the unit-cell mesh Y (a structured box mesh).
+        micro_mesh: the unit-cell mesh Y.
         bs: block size — 1 for scalar diffusion, d for elasticity.
-        coeff_kind: 'scalar' (bs = 1) | 'tensor4' (bs = d, A(x, y) of shape
-            (d, d, d, d)); 'matrix' takes the per-cell route, not ported.
+        coeff_kind: 'scalar' | 'matrix' (bs = 1, A(x, y) of shape (d, d)) |
+            'tensor4' (bs = d, A(x, y) of shape (d, d, d, d)).
         quad_degree: micro quadrature degree.
         dtype: compute dtype (default: float64 on CPU, float32 on CUDA).
         device: torch device every tensor of the engine lives on.
-        assembly: 'auto' | 'dense' | 'scatter' — build of the unit-coefficient
-            operator K0 (the PCG's preconditioner, the Cholesky route's
-            equilibration scale).
-        solver: 'auto' | 'pcg' | 'cholesky'.  'auto' is the stencil PCG for
-            scalar problems (the reference picks a Cholesky route there in
-            float64) and the chunk Cholesky for vector ones, as in the
+        assembly: 'auto' | 'dense' | 'scatter' — build of the dense reduced
+            operators (K0, and the per-cell route's K).
+        solver: 'auto' | 'pcg' | 'cholesky'.  'auto' is the chunk PCG for
+            scalar float32 problems and Cholesky otherwise, as in the
             reference.
-        pcg_tol, pcg_maxiter: chunk-PCG stopping rule (tol defaults to 1e-5
-            in float32 and 1e-11 in float64).
+        pcg_strategy: 'densek' | 'matfree' (None: matfree for scalar
+            coefficients on scalar problems, densek otherwise).
+        pcg_tol, pcg_maxiter: PCG stopping rule (tol defaults to 1e-5 in
+            float32 and 1e-11 otherwise).
         diag_scale: symmetric per-dof diagonal scaling (PCG) or
             equilibration (Cholesky) of the cell systems.
-        cell_prec: only 'k0inv' (the shared K0^-1) is ported.
+        matmul_precision: accepted for the reference's signature; the port
+            computes float32 matmuls in full float32 whatever it says
+            (TF32 stays off).
+        micro_degree: 1 (P2 micro elements, 2, are ROADMAP A9d).
+        coeff_rank: declared rank of a low-rank scalar coefficient
+            Σ_k f_k(x) g_k(y) (0: off); see :meth:`check_coeff_rank`.
+        cell_prec: 'k0inv' (the shared K0⁻¹) | 'mg' (the torus multigrid
+            V-cycle, structured box meshes) | 'fft' (ROADMAP A9c).
+        chol_backend: 'auto' | 'xla' | 'blocked', accepted for the
+            reference's signature: on every backend the port's chunk
+            Cholesky is the kernel K3 on the card (float32) and the plain
+            blocked solve elsewhere, the per-cell Cholesky ``torch.linalg``.
+        mg_nu: Chebyshev smoothing degree of ``cell_prec='mg'`` (0: 2 for
+            scalar problems, 4 for vector ones).
+
+    Routes (``tensors_for_centers``): the chunk PCG (micro/chunk.py) for
+    ``solver='pcg'`` with a matrix-free strategy, an MG cell
+    preconditioner or a declared coefficient rank — the scalar stencil
+    PCG (kernel K1 on the card), the block stencil or matrix-free gather
+    matvec, the dense-K matvec; the chunk Cholesky (kernel K3 on the card)
+    for vector problems on ``solver='cholesky'``; the per-cell route
+    (micro/percell.py, ``torch.linalg``) for the rest.
     """
 
     def __init__(
@@ -103,48 +125,48 @@ class MicroEngine:
         device="cuda",
         assembly: str = "auto",
         solver: str = "auto",
+        pcg_strategy: Optional[str] = None,
         pcg_tol: Optional[float] = None,
         pcg_maxiter: int = 1500,
         diag_scale: bool = True,
+        matmul_precision: Optional[str] = None,
         micro_degree: int = 1,
+        coeff_rank: int = 0,
         cell_prec: str = "k0inv",
+        chol_backend: str = "auto",
+        mg_nu: int = 0,
     ):
         d = micro_mesh.dim
         bs = int(bs)
         if bs not in (1, d):
             raise ValueError("bs must be 1 (scalar) or dim (vector)")
-        if coeff_kind != ("tensor4" if bs > 1 else "scalar"):
+        if micro_degree not in (1, 2):
+            raise ValueError("micro_degree must be 1 or 2")
+        if micro_degree == 2:
+            raise NotImplementedError("P2 micro elements are not ported yet (ROADMAP A9d)")
+        if coeff_kind not in ("scalar", "matrix", "tensor4"):
+            raise ValueError("coeff_kind must be 'scalar', 'matrix' or 'tensor4'")
+        if coeff_kind not in (("scalar", "matrix") if bs == 1 else ("tensor4",)):
             raise NotImplementedError(
-                f"coeff_kind={coeff_kind!r} with bs={bs}: the port takes scalar "
-                "coefficients on scalar problems and tensor4 on vector ones (matrix "
-                "coefficients take the per-cell route, ROADMAP A9)"
+                f"coeff_kind={coeff_kind!r} with bs={bs}: the port takes scalar and (d, d) "
+                "coefficients on scalar problems and (d, d, d, d) ones on vector problems"
             )
-        if micro_degree != 1:
-            raise NotImplementedError("P2 micro elements: ROADMAP A9")
-        if cell_prec != "k0inv":
+        if cell_prec not in ("k0inv", "fft", "mg"):
+            raise ValueError("cell_prec must be 'k0inv', 'fft' or 'mg'")
+        if cell_prec == "fft":
             raise NotImplementedError(
-                f"cell_prec={cell_prec!r}: only 'k0inv' is ported (ROADMAP A9)"
+                "cell_prec='fft', the FFT-symbol cell preconditioner, is not ported yet "
+                "(ROADMAP A9c)"
             )
-        if solver == "auto":
-            solver = "pcg" if bs == 1 else "cholesky"
-        if solver == "pcg" and bs > 1:
-            raise NotImplementedError(
-                "PCG on vector problems is not ported (ROADMAP A9); "
-                "solver='cholesky' takes them"
-            )
-        if solver == "cholesky" and bs == 1:
-            raise NotImplementedError(
-                "tensors_for_centers does not send scalar problems to the "
-                "per-cell Cholesky route yet (ROADMAP A9); solver='pcg' takes them"
-            )
-        if solver not in ("pcg", "cholesky"):
-            raise ValueError("solver must be 'auto', 'pcg' or 'cholesky'")
+        if chol_backend not in ("auto", "xla", "blocked"):
+            raise ValueError("chol_backend must be 'auto'|'xla'|'blocked'")
         self.mesh = micro_mesh
         self.device = as_device(device)
         self.dtype = dtype or default_dtype(self.device)
         self.bs = bs
         self.coeff_kind = coeff_kind
         self.quad_degree = int(quad_degree)
+        self.micro_degree = 1
         self.d = d
         self.r = d if bs == 1 else d * d  # gradient components per element
         # generator problems SOLVED per cell: d for scalar, the Voigt set
@@ -160,8 +182,37 @@ class MicroEngine:
             else:
                 assembly = "dense" if self.n_reduced <= 512 else "scatter"
         self.assembly = assembly
+        if solver == "auto":
+            # scalar float32: the chunk PCG; everything else, float64
+            # included: Cholesky (the reference's rule)
+            scalar_f32 = self.dtype == torch.float32 and coeff_kind == "scalar" and bs == 1
+            solver = "pcg" if scalar_f32 else "cholesky"
+        if solver not in ("pcg", "cholesky"):
+            raise ValueError("solver must be 'auto', 'pcg' or 'cholesky'")
         self.solver = solver
-        if solver == "cholesky" and self.device.type == "cuda" and self.dtype == torch.float32:
+        if pcg_strategy is None:
+            pcg_strategy = "matfree" if coeff_kind == "scalar" and bs == 1 else "densek"
+        if pcg_strategy not in ("densek", "matfree"):
+            raise ValueError("pcg_strategy must be 'densek' or 'matfree'")
+        self.pcg_strategy = pcg_strategy
+        if pcg_tol is None:
+            pcg_tol = 1e-5 if self.dtype == torch.float32 else 1e-11
+        self.pcg_tol = float(pcg_tol)
+        self.pcg_maxiter = int(pcg_maxiter)
+        self.diag_scale = bool(diag_scale)
+        if matmul_precision is None and (bs > 1 or coeff_kind != "scalar"):
+            matmul_precision = "highest"
+        self.matmul_precision = matmul_precision
+        self.chol_backend = chol_backend
+        self.coeff_rank = int(coeff_rank)
+        self.cell_prec = cell_prec
+        self.mg_nu = int(mg_nu)
+        self._K0inv = None
+        self._K0diag = None
+        self._kron_M = None
+        # the kernels' size limits, checked before any device or coefficient work
+        on_card_f32 = self.device.type == "cuda" and self.dtype == torch.float32
+        if on_card_f32 and self._chol_route():
             from hommx_tpu_torch.ops.chol_kernel import max_kernel_n
 
             if self.n_reduced > max_kernel_n(self.s):
@@ -170,24 +221,43 @@ class MicroEngine:
                     f"{self.n_reduced} exceeds its limit n <= {max_kernel_n(self.s)} "
                     f"at s = {self.s} (ROADMAP B5)"
                 )
-        if pcg_tol is None:
-            pcg_tol = 1e-5 if self.dtype == torch.float32 else 1e-11
-        self.pcg_tol = float(pcg_tol)
-        self.pcg_maxiter = int(pcg_maxiter)
-        self.diag_scale = bool(diag_scale)
-        self.cell_prec = cell_prec
-        self._K0inv = None
-        self._K0diag = None
-        self._stencil = None
-        self._kron_M = None
+        if on_card_f32 and self._k1_route():
+            check_k1_fits(self.n_reduced, self.s)
         from hommx_tpu_torch.micro.percell import build_operators
 
         build_operators(self)
-        if solver == "pcg" and self._get_stencil() is None:
-            raise NotImplementedError(
-                "the micro mesh is not a raster-ordered structured box; the "
-                "matrix-free gather route is not ported yet (ROADMAP A9)"
-            )
+
+    # -- routes ----------------------------------------------------------------
+    def _use_chunk(self) -> bool:
+        """Whether ``solver='pcg'`` runs the chunk PCG (the per-cell route
+        takes the rest): a matrix-free strategy, an MG cell preconditioner,
+        or a declared rank of a scalar coefficient."""
+        return (
+            self.pcg_strategy == "matfree"
+            or self.cell_prec == "mg"
+            or (self.coeff_rank > 0 and self.coeff_kind == "scalar")
+        )
+
+    def _chol_route(self) -> bool:
+        """The chunk Cholesky route: vector problems on ``solver='cholesky'``
+        (in every dtype; the reference takes it in float32 only)."""
+        return self.solver == "cholesky" and self.bs > 1
+
+    def _k1_route(self) -> bool:
+        """Whether ``tensors_for_centers`` launches K1: the chunk PCG of a
+        scalar coefficient on a scalar problem with the shared K0⁻¹
+        preconditioner on the periodic stencil (a structured box mesh, and
+        ``HOMMX_MICRO_MATVEC`` not 'matfree').  Host data only: the engine
+        asks before it builds its operators."""
+        return (
+            self.solver == "pcg"
+            and self._use_chunk()
+            and self.coeff_kind == "scalar"
+            and self.bs == 1
+            and self.cell_prec == "k0inv"
+            and micro_matvec_mode() == "auto"
+            and torus_coords(self) is not None
+        )
 
     # -- static operators (host, once) ---------------------------------------
     def _grad_map(self, G: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -270,32 +340,35 @@ class MicroEngine:
         return torch.as_tensor(getattr(self, name + "_np"), dtype=like.dtype, device=like.device)
 
     def _assemble_dense(self, A_K: torch.Tensor) -> torch.Tensor:
-        """K = D_flatᵀ (A_K D)_flat over (nE·r, nred), on A_K's device."""
+        """K = D_flatᵀ (A_K D)_flat over (nE·r, nred) for element blocks
+        A_K (..., nE, r, r), on A_K's device: (..., n, n)."""
         D = self._static("D", A_K)
-        Z = torch.einsum("ert,etn->ern", A_K, D)
-        nE, r, nred = Z.shape
-        return D.reshape(nE * r, nred).T @ Z.reshape(nE * r, nred)
+        Z = torch.einsum("...ert,etn->...ern", A_K, D)
+        nE, r, nred = D.shape
+        return D.reshape(nE * r, nred).T @ Z.reshape(*Z.shape[:-3], nE * r, nred)
 
     def _assemble_scatter(self, A_K: torch.Tensor) -> torch.Tensor:
-        """Per-element (nbl, nbl) blocks summed into the dense reduced
-        operator on A_K's device: a scatter-add, or on an engine whose Kc
-        assembly is the gather (micro/chunk.py::kc_assembly_mode, the CUDA
-        default) the same sum in a fixed order."""
+        """Per-element (nbl, nbl) blocks of A_K (..., nE, r, r) summed into
+        the dense reduced operators (..., n, n) on A_K's device: a
+        scatter-add, or on an engine whose Kc assembly is the gather
+        (micro/chunk.py::kc_assembly_mode, the CUDA default) the same sum in
+        a fixed order."""
         from hommx_tpu_torch.micro.chunk import _get_kc_gather
 
         Draw = self._static("Draw", A_K)
-        vals = torch.einsum("erl,ert,etm->elm", Draw, A_K, Draw).reshape(-1)
+        lead = A_K.shape[:-3]
+        vals = torch.einsum("erl,...ert,etm->...elm", Draw, A_K, Draw).reshape(*lead, -1)
         n = self.n_reduced
         # the host build of K0 takes the scatter, which is in order there
         kcg = _get_kc_gather(self) if A_K.device.type == self.device.type else None
         if kcg is not None:
             nz_vals = gather_sum(vals, kcg.plan)
-            return torch.cat([nz_vals, nz_vals.new_zeros(1)])[kcg.inv_map].reshape(n, n)
+            nz_vals = torch.cat([nz_vals, nz_vals.new_zeros(*lead, 1)], dim=-1)
+            return nz_vals.index_select(-1, kcg.inv_map).reshape(*lead, n, n)
         l2r = torch.as_tensor(self.loc2red_np, device=A_K.device)
         flat = (l2r[:, :, None] * n + l2r[:, None, :]).reshape(-1)
-        K = torch.zeros(n * n, dtype=A_K.dtype, device=A_K.device)
-        K.index_add_(0, flat, vals)
-        return K.reshape(n, n)
+        K = torch.zeros(*lead, n * n, dtype=A_K.dtype, device=A_K.device)
+        return K.index_add(-1, flat, vals).reshape(*lead, n, n)
 
     def _get_stencil(self):
         from hommx_tpu_torch.micro.chunk import _get_stencil
@@ -403,36 +476,47 @@ class MicroEngine:
         """A*(c_T) (nc, s_full, s_full) for a batch of macro cell centers
         (nc, d); ``G_fn`` is the optional Dθᵀ(x) map of the stratified
         variants.  With ``with_correctors`` also the correctors (nc, n,
-        s_full): the unscaled solves of the cell systems (S·Y on the PCG
-        route, the direct solve's X on the Cholesky route), in the full
+        s_full), the solves of the (unscaled) cell systems in the full
         generator layout.
 
+        The route follows the reference's rule: the chunk Cholesky for
+        vector problems on ``solver='cholesky'`` (with
+        ``HOMMX_CHOL_SOLVE_BATCH=1``, one solve over the whole batch), the
+        chunk PCG where :meth:`_use_chunk` says so, the per-cell route for
+        the rest.
+
         The result is differentiable in every tensor the coefficient (or
-        ``G_fn``) closes over, and in ``centers``: each cell solve runs
-        under the implicit-function rule, whose adjoint is one more solve
-        by the same route (K1 or K3 on the card).  With
-        ``implicit_diff=False`` the solves carry no gradient (the
-        reference's shard_map micro stage)."""
+        ``G_fn``) closes over, and in ``centers``.  The chunk routes' solves
+        run under the implicit-function rule, whose adjoint is one more
+        solve by the same route (K1 or K3 on the card); the per-cell route
+        is differentiated by autograd through ``torch.linalg`` or its
+        unrolled PCG.  With ``implicit_diff=False`` the solves carry no
+        gradient (the reference's shard_map micro stage)."""
         from hommx_tpu_torch.micro.chunk import (
             tensors_chol_batched,
             tensors_chunk_chol,
             tensors_chunk_pcg,
         )
+        from hommx_tpu_torch.micro.percell import tensors_percell
 
         centers = torch.as_tensor(centers, device=self.device).to(self.dtype)
         nc = centers.shape[0]
         chunk = chunk or self._auto_chunk(nc)
         itemsize = torch.empty((), dtype=self.dtype).element_size()
-        if (
-            self.solver == "cholesky"
-            and not with_correctors
-            and os.environ.get("HOMMX_CHOL_SOLVE_BATCH", "0") == "1"
-            # the resident operators and the solve's panels, 2·nc·n²
-            # values: past 6 GB the in-chunk route takes the batch
-            and 2 * nc * self.n_reduced**2 * itemsize <= (6 << 30)
-        ):
-            return tensors_chol_batched(self, coeff, centers, G_fn, chunk, implicit_diff)
-        route = tensors_chunk_chol if self.solver == "cholesky" else tensors_chunk_pcg
+        if self._chol_route():
+            if (
+                not with_correctors
+                and os.environ.get("HOMMX_CHOL_SOLVE_BATCH", "0") == "1"
+                # the resident operators and the solve's panels, 2·nc·n²
+                # values: past 6 GB the in-chunk route takes the batch
+                and 2 * nc * self.n_reduced**2 * itemsize <= (6 << 30)
+            ):
+                return tensors_chol_batched(self, coeff, centers, G_fn, chunk, implicit_diff)
+            route = tensors_chunk_chol
+        elif self.solver == "pcg" and self._use_chunk():
+            route = tensors_chunk_pcg
+        else:
+            route = tensors_percell
         if not with_correctors:
             return _map_chunked(
                 lambda cs: route(self, coeff, cs, G_fn, implicit_diff=implicit_diff), centers, chunk
@@ -444,22 +528,76 @@ class MicroEngine:
 
         return _map_chunked(fn, centers, chunk)
 
+    def tensors_chunk_pcg(self, coeff, centers, G_fn=None, with_correctors=False,
+                          with_iters=False, implicit_diff=True):
+        """A*(c_T) (C, s_full, s_full) of one chunk by the chunk PCG
+        (micro/chunk.py::tensors_chunk_pcg), whatever ``_use_chunk`` says;
+        with ``with_correctors`` also X (C, n, s_full), with ``with_iters``
+        the lockstep iteration count (the whole chunk iterates until its
+        worst column converges)."""
+        from hommx_tpu_torch.micro.chunk import tensors_chunk_pcg
+
+        centers = torch.as_tensor(centers, device=self.device).to(self.dtype)
+        out = tensors_chunk_pcg(self, coeff, centers, G_fn, with_correctors=with_correctors,
+                                implicit_diff=implicit_diff, with_iters=with_iters)
+        if not isinstance(out, tuple):
+            return out
+        out = list(out)
+        if with_correctors:
+            out[1] = self._expand_cols(out[1].permute(2, 0, 1))
+        return tuple(out)
+
+    def check_coeff_rank(self, coeff, centers, rank: Optional[int] = None) -> float:
+        """Host-side residual of the rank-R interpolative factorization of
+        the reduced coefficient a(c, e) over the given centers, relative to
+        max |a| (the reference's check, float64).  A residual at rounding
+        level means the declared rank covers the coefficient and the
+        low-rank path (``coeff_rank``) is exact; a large one means it must
+        not be used."""
+        rank = rank or self.coeff_rank or 1
+        centers = torch.as_tensor(centers, device=self.device).to(self.dtype)
+        with torch.no_grad():
+            a = torch.func.vmap(lambda x: self._raw_coeff(coeff, x))(centers)
+        a = a.detach().cpu().numpy().astype(np.float64)
+        if a.ndim != 2:
+            raise ValueError("coeff_rank applies to scalar coefficients only")
+        nc = a.shape[0]
+        anchors = np.linspace(0, nc - 1, min(rank, nc)).astype(int)
+        V = a[anchors]
+        U = np.linalg.pinv(V @ V.T, rcond=1e-12) @ (V @ a.T)
+        return float(np.abs(a - U.T @ V).max() / max(np.abs(a).max(), 1e-300))
+
+    def _get_block_stencil(self):
+        from hommx_tpu_torch.micro.chunk import _get_block_stencil
+
+        return _get_block_stencil(self)
+
+    def _get_mg_levels(self, offsets, shape):
+        from hommx_tpu_torch.micro.chunk import _get_mg_levels
+
+        return _get_mg_levels(self, offsets, shape)
+
     def _auto_chunk(self, nc: int) -> int:
-        """Chunk size: per-cell work arrays under a memory budget, equal
-        chunks.  The lockstep PCG keeps 1 GB and a cap of 2048 (a chunk
-        iterates until its worst cell converges); the Cholesky route also
-        holds the per-cell operator, its equilibrated copy and the element
-        blocks, and wants large chunks: 4 GB, cap 4096.  The reference
-        doubles the itemsize of float64 for the TPU's emulated float64;
-        native float64 here takes its real size."""
+        """Chunk size by the reference's rules: per-cell work arrays under
+        a memory budget, equal chunks.  The chunk routes keep 1 GB and a cap
+        of 2048 (the lockstep PCG iterates until a chunk's worst cell
+        converges), the chunk Cholesky 4 GB and 4096, and count the dense
+        per-cell operators where they hold them; the per-cell route counts
+        its dense K and the dense-D intermediate.  The reference doubles the
+        itemsize of float64 for the TPU's emulated float64; native float64
+        here takes its real size."""
         itemsize = torch.empty((), dtype=self.dtype).element_size()
-        chol = self.solver == "cholesky"
         n = self.n_reduced
-        per_cell = (16 * self.nE * self.r * self.s + 10 * n * self.s) * itemsize
-        if chol:
-            per_cell += (4 * n * n + self.nE * self.nbl * self.nbl) * itemsize
-        budget, cap = ((4 << 30), 4096) if chol else ((1 << 30), 2048)
-        limit = int(np.clip(budget // max(per_cell, 1), 1, min(nc, cap)))
-        if nc > limit:
-            limit = int(np.ceil(nc / np.ceil(nc / limit)))
-        return limit
+        chol = self._chol_route()
+        if self.solver == "pcg" or chol:
+            per_cell = (16 * self.nE * self.r * self.s + 10 * n * self.s) * itemsize
+            if (self.pcg_strategy == "densek" or chol) and self.coeff_kind != "scalar":
+                per_cell += ((4 if chol else 2) * n * n + self.nE * self.nbl * self.nbl) * itemsize
+            budget, cap = ((4 << 30), 4096) if chol else ((1 << 30), 2048)
+            limit = int(np.clip(budget // max(per_cell, 1), 1, min(nc, cap)))
+            if nc > limit:
+                limit = int(np.ceil(nc / np.ceil(nc / limit)))
+            return limit
+        z_term = self.nE * self.r * n if self.D is not None and self.assembly == "dense" else 0
+        per_cell = (2 * n * n + 2 * z_term + 4 * self.nE * self.r * max(self.r, self.nbl)) * itemsize
+        return int(np.clip((1 << 30) // max(per_cell, 1), 1, max(nc, 1)))

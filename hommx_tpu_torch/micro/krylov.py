@@ -40,14 +40,14 @@ def _amp_cap(dtype) -> float:
 
 
 def _block_pcg_matfree(matvec, F, Minv, tol, maxiter):
-    """Block-CG with s right-hand sides F (n, s) on ONE SPD system given as
-    a matvec, preconditioned by the explicit shared inverse Minv = K0⁻¹
-    (the reference's ``_block_pcg_matfree``, the per-cell route's PCG):
-    the chunk loop's lockstep, freeze and stall rules on one cell, then the
-    zero-corrector energy clamp.  Returns X (n, s).  Autograd records the
-    loop: the per-cell route is differentiable by unrolling, which the
-    reference's ``while_loop`` is not."""
-    prec = lambda R: Minv @ R  # noqa: E731
+    """Block-CG with s right-hand sides F (n, s), or a chunk of cells F (n,
+    s, C), preconditioned by the explicit shared inverse Minv = K0⁻¹ (the
+    reference's ``_block_pcg_matfree``, the per-cell route's PCG, which the
+    reference vmaps over cells): the chunk loop's lockstep, freeze and stall
+    rules, then the zero-corrector energy clamp.  Returns X shaped as F.
+    Autograd records the loop: the per-cell route is differentiable by
+    unrolling, which the reference's ``while_loop`` is not."""
+    prec = (lambda R: shared_prec(Minv, R)) if F.ndim == 3 else (lambda R: Minv @ R)
     bX, _ = _chunk_pcg_raw(matvec, prec, F, tol, maxiter)
     good = _clamp_good(matvec, prec, F, bX)
     return torch.where(good[None], bX, torch.zeros((), dtype=bX.dtype, device=bX.device))

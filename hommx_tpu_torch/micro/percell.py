@@ -4,19 +4,24 @@ vector dofs).
 
 ``build_operators`` runs once at engine construction on the host: the
 per-element gradient operators, the reduced dof map, the generator fields
-(the Voigt set for elasticity) and the nullspace pinning.
+(the Voigt set for elasticity) and the nullspace pinning, then K0⁻¹ where a
+PCG with the shared K0⁻¹ preconditioner needs it and diag(K0) elsewhere
+(at 16³ elasticity, n = 12,288, a dense K0⁻¹ must not be built).
 
-``cell_tensor`` solves the cell problems of ONE macro point with a dense
-reduced operator K: a Cholesky factorization (float32: equilibrated, plus
-one refinement sweep) or the block-PCG preconditioned by K0⁻¹.
-``solve_periodic`` is the general periodic variational solve a(u, v) =
-L(v) on the unit cell.  These are dense per-cell solves that the reference
-runs with ``jax.scipy.linalg`` and no Pallas kernel; ``torch.linalg`` runs
-them here.  Above 4096 reduced dofs ``solve_periodic`` runs the block-PCG
-with the Jacobi preconditioner on the matrix-free operator (the
-reference's route without a block stencil; its block stencil and torus
-multigrid are ROADMAP A9).  Scatters onto the reduced dofs run in a fixed
-order where the engine's Kc assembly is the gather (the CUDA default).
+``tensors_percell`` is the reference's per-cell (vmapped) route, batched
+over a chunk of macro points: the dense reduced operators K (C, n, n) and a
+Cholesky factorization (float32: equilibrated, plus one refinement sweep),
+or the block-PCG preconditioned by K0⁻¹ on the assembled K
+(``pcg_strategy='densek'``) or on the matrix-free operator.  The reference
+runs it with ``jax.scipy.linalg`` and no Pallas kernel; ``torch.linalg``
+runs it here, on either device.  ``cell_tensor`` is the same route for one
+point.  ``solve_periodic`` is the general periodic variational solve a(u, v)
+= L(v) on the unit cell: a dense Cholesky up to 4096 reduced dofs, above it
+the one-cell PCG on the block stencil with the torus multigrid on
+structured meshes (micro/block_stencil.py, micro/mg_prec.py) and on the
+matrix-free operator with Jacobi otherwise.  Scatters onto the reduced dofs
+run in a fixed order where the engine's Kc assembly is the gather (the CUDA
+default).
 """
 
 from __future__ import annotations
@@ -130,11 +135,12 @@ def build_operators(eng):
     eng._eye_sym = (
         _sym_map(torch.eye(d, dtype=eng.dtype, device=eng.device)) if bs > 1 else None
     )
-    # built eagerly on the host: K0⁻¹ for the PCG's preconditioner, diag(K0)
-    # for the Cholesky route's equilibration
-    if eng.solver == "pcg":
+    # built eagerly on the host: K0⁻¹ for a PCG preconditioned by it; else
+    # diag(K0) alone, the reference scale of the diagonal scaling (a dense
+    # K0 of a 16³ elasticity cell is infeasible)
+    if eng.solver == "pcg" and eng.cell_prec == "k0inv":
         eng._get_K0inv()
-    else:
+    elif eng.solver == "pcg" or eng.diag_scale:
         eng._get_K0diag()
 
 
@@ -150,12 +156,65 @@ def _to_reduced(eng, vals: torch.Tensor) -> torch.Tensor:
     return out.index_add_(0, eng.loc2red.reshape(-1), vals)
 
 
+def _expand(eng, cols: torch.Tensor) -> torch.Tensor:
+    """Gradient fields of reduced-dof columns: (n, s, C) -> (nE, r, s, C),
+    through the dense D, or (large cells) a gather of the local dofs and the
+    element blocks Draw."""
+    n, s, C = cols.shape
+    if eng.D is not None:
+        return (eng.D.reshape(-1, n) @ cols.reshape(n, s * C)).reshape(eng.nE, eng.r, s, C)
+    return torch.einsum("erl,elsc->ersc", eng.Draw, cols[eng.loc2red])
+
+
+def _reduce(eng, fields: torch.Tensor) -> torch.Tensor:
+    """The transpose of :func:`_expand`: (nE, r, s, C) -> (n, s, C)."""
+    nE, r, s, C = fields.shape
+    if eng.D is not None:
+        return (eng.D.reshape(nE * r, -1).T @ fields.reshape(nE * r, s * C)).reshape(-1, s, C)
+    wl = torch.einsum("erl,ersc->elsc", eng.Draw, fields)
+    return _to_reduced(eng, wl.reshape(nE * eng.nbl, s * C)).reshape(-1, s, C)
+
+
+def _exact_diag(eng, A_K: torch.Tensor) -> torch.Tensor:
+    """diag(K) (n, C) of the element blocks A_K (C, nE, r, r), K never
+    formed."""
+    if eng.D is not None:
+        return torch.einsum("ern,cert,etn->nc", eng.D, A_K, eng.D)
+    dl = torch.einsum("erl,cert,etl->elc", eng.Draw, A_K, eng.Draw)
+    return _to_reduced(eng, dl.reshape(eng.nE * eng.nbl, -1))
+
+
+def _gather_matvec(eng, A_K: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
+    """K·P per cell with K = D̃ᵀ(A_K ∘ D̃·) never formed: A_K (C, nE, r, r),
+    P (n, s, C); the pinned dofs carry the identity."""
+    keep = (~eng.pin_mask).to(P.dtype)[:, None, None]
+    pinf = eng.pin_mask.to(P.dtype)[:, None, None]
+    Kp = _reduce(eng, torch.einsum("cert,etsc->ersc", A_K, _expand(eng, P * keep)))
+    return Kp * keep + pinf * P
+
+
 def _pinned_dense(eng, A_K: torch.Tensor, dense: bool) -> torch.Tensor:
-    """The reduced operator of the element blocks A_K, with the identity
-    on the pinned dofs."""
+    """The reduced operators of the element blocks A_K (..., nE, r, r),
+    (..., n, n), with the identity on the pinned dofs."""
     K = eng._assemble_dense(A_K) if dense else eng._assemble_scatter(A_K)
     keep = (~eng.pin_mask).to(K.dtype)
     return K * keep[:, None] * keep[None, :] + torch.diag(eng.pin_mask.to(K.dtype))
+
+
+def tensors_percell(eng, coeff, centers, G_fn=None, with_correctors=False, implicit_diff=True):
+    """A*(c_T) (C, s_full, s_full) of one chunk of centers (C, d) by the
+    per-cell route, and with ``with_correctors`` the solves X (n, s, C).
+    Autograd differentiates it (``torch.linalg`` or the unrolled PCG);
+    with ``implicit_diff=False`` the solves carry no gradient."""
+    a = torch.func.vmap(lambda x: eng._raw_coeff(coeff, x))(centers)
+    if eng.coeff_kind == "scalar":
+        a = a[..., None, None] * torch.eye(eng.r, dtype=eng.dtype, device=eng.device)
+    G = None
+    if G_fn is not None:
+        G = torch.func.vmap(lambda x: torch.as_tensor(G_fn(x), device=x.device).to(eng.dtype))(
+            centers)
+    A, X = _percell(eng, a, G, implicit_diff)
+    return (A, X.permute(1, 2, 0)) if with_correctors else A
 
 
 def cell_tensor(eng, Ae: torch.Tensor, G: Optional[torch.Tensor] = None):
@@ -167,69 +226,71 @@ def cell_tensor(eng, Ae: torch.Tensor, G: Optional[torch.Tensor] = None):
     """
     Ae = torch.as_tensor(Ae, device=eng.device).to(eng.dtype)
     if G is not None:
-        G = torch.as_tensor(G, device=eng.device).to(eng.dtype)
+        G = torch.as_tensor(G, device=eng.device).to(eng.dtype)[None]
+    A, X = _percell(eng, Ae[None], G)
+    return A[0], eng._expand_cols(X[0])
+
+
+def _percell(eng, Ae: torch.Tensor, G: Optional[torch.Tensor], implicit_diff: bool = True):
+    """(A* (C, s_full, s_full), X (C, n, s)) of the element coefficients Ae
+    (C, nE, r, r) and the maps G (C, d, d) or None."""
+    C, nE, r, _ = Ae.shape
+    s, n = eng.s, eng.n_reduced
     T = eng._grad_map(G)
+    if T is not None and T.ndim == 2:
+        T = T.expand(C, r, r)
     # test/trial-mapped element blocks: K-side TᵀĀT, F-side TᵀĀ
     if T is None:
         A_K = A_F = Ae
     else:
-        A_K = torch.einsum("mr,emt,tn->ern", T, Ae, T)
-        A_F = torch.einsum("mr,emt->ert", T, Ae)
-    s = eng.s
-    # loads F = −Σ_e D_eᵀ (TᵀĀ_e) E, the pinned dofs zeroed
-    AE = torch.einsum("ert,ts->ers", A_F, eng.E)
-    F = _to_reduced(eng, -torch.einsum("erl,ers->els", eng.Draw, AE).reshape(-1, s))
+        A_K = torch.einsum("cmr,cemt,ctn->cern", T, Ae, T)
+        A_F = torch.einsum("cmr,cemt->cert", T, Ae)
+    # loads F = −Σ_e D_eᵀ (TᵀĀ_e) E, the pinned dofs zeroed: (C, n, s)
+    F_loc = -torch.einsum("erl,cert,ts->elcs", eng.Draw, A_F, eng.E)
+    F = _to_reduced(eng, F_loc.reshape(nE * eng.nbl, C * s)).reshape(n, C, s).transpose(0, 1)
     keep = (~eng.pin_mask).to(eng.dtype)
-    pinf = eng.pin_mask.to(eng.dtype)
     F = F * keep[:, None]
 
-    if eng.solver == "cholesky":
-        K = _pinned_dense(eng, A_K, eng.assembly == "dense")
-        if eng.dtype == torch.float32 and eng.diag_scale:
-            # float32: symmetric equilibration Ks = S K S and one
-            # refinement sweep against K
-            sc = eng._scale_from_diag(torch.diagonal(K))[:, None]
-            L = torch.linalg.cholesky_ex(sc * K * sc.T).L
-            X = sc * torch.cholesky_solve(sc * F, L)
-            X = X + sc * torch.cholesky_solve(sc * (F - K @ X), L)
-        else:
-            X = torch.cholesky_solve(F, torch.linalg.cholesky_ex(K).L)
-    else:
-        # matrix-free block-PCG: K·p = D̃ᵀ(A_K ∘ D̃p), K never formed
-        def matvec(p):
-            pk = p * keep[:, None]
-            if eng.D is not None:
-                Dp = torch.einsum("ern,ns->ers", eng.D, pk)
-                Kp = torch.einsum("ern,ers->ns", eng.D, torch.einsum("ert,ets->ers", A_K, Dp))
+    with torch.set_grad_enabled(torch.is_grad_enabled() and implicit_diff):
+        if eng.solver == "cholesky":
+            K = _pinned_dense(eng, A_K, eng.assembly == "dense")
+            if eng.dtype == torch.float32 and eng.diag_scale:
+                # float32: symmetric equilibration Ks = S K S and one
+                # refinement sweep against K
+                sc = eng._scale_from_diag(torch.diagonal(K, dim1=1, dim2=2).T).T[:, :, None]
+                L = torch.linalg.cholesky_ex(sc * K * sc.transpose(1, 2)).L
+                X = sc * torch.cholesky_solve(sc * F, L)
+                X = X + sc * torch.cholesky_solve(sc * (F - K @ X), L)
             else:
-                Dp = torch.einsum("erl,els->ers", eng.Draw, pk[eng.loc2red])
-                wl = torch.einsum("erl,ers->els", eng.Draw,
-                                  torch.einsum("ert,ets->ers", A_K, Dp))
-                Kp = _to_reduced(eng, wl.reshape(-1, p.shape[1]))
-            return Kp * keep[:, None] + pinf[:, None] * p
-
-        Minv = eng._get_K0inv()
-        if eng.diag_scale:
-            # the exact diag(K) without forming K
-            if eng.D is not None:
-                dg = torch.einsum("ern,ert,etn->n", eng.D, A_K, eng.D)
-            else:
-                dl = torch.einsum("erl,ert,etl->el", eng.Draw, A_K, eng.Draw)
-                dg = _to_reduced(eng, dl.reshape(-1, 1))[:, 0]
-            sc = eng._scale_from_diag(dg)[:, None]
-            X = sc * _block_pcg_matfree(lambda p: sc * matvec(sc * p), sc * F, Minv,
-                                        eng.pcg_tol, eng.pcg_maxiter)
+                X = torch.cholesky_solve(F, torch.linalg.cholesky_ex(K).L)
         else:
-            X = _block_pcg_matfree(matvec, F, Minv, eng.pcg_tol, eng.pcg_maxiter)
+            # block-PCG with K0⁻¹ per cell, in the chunk loop's (n, s, C)
+            # layout: on the assembled K (densek) or matrix-free
+            if eng.pcg_strategy == "densek":
+                K = _pinned_dense(eng, A_K, eng.assembly == "dense")
+                matvec = lambda P: torch.einsum("cnm,msc->nsc", K, P)  # noqa: E731
+                dg = torch.diagonal(K, dim1=1, dim2=2).T
+            else:
+                matvec = lambda P: _gather_matvec(eng, A_K, P)  # noqa: E731
+                dg = _exact_diag(eng, A_K)
+            Fp = F.permute(1, 2, 0)
+            Minv = eng._get_K0inv()
+            if eng.diag_scale:
+                sc = eng._scale_from_diag(dg)[:, None, :]
+                Xp = sc * _block_pcg_matfree(lambda P: sc * matvec(sc * P), sc * Fp, Minv,
+                                             eng.pcg_tol, eng.pcg_maxiter)
+            else:
+                Xp = _block_pcg_matfree(matvec, Fp, Minv, eng.pcg_tol, eng.pcg_maxiter)
+            X = Xp.permute(2, 0, 1)
 
     # corrected element fields Φ_e = E + T D_e X_loc, then
     # A*[n, m] = (1/|Y|) Σ_e Φ[:, n]ᵀ Ā_e Φ[:, m]
-    DX = torch.einsum("erl,els->ers", eng.Draw, X[eng.loc2red])
+    DX = torch.einsum("erl,cels->cers", eng.Draw, X[:, eng.loc2red])
     if T is not None:
-        DX = torch.einsum("rt,ets->ers", T, DX)
-    Phi = eng.E[None] + DX
-    Astar = torch.einsum("ern,ert,etm->nm", Phi, Ae, Phi) / eng.volume_Y
-    return eng._expand_astar(Astar), eng._expand_cols(X)
+        DX = torch.einsum("crt,cets->cers", T, DX)
+    Phi = eng.E + DX
+    Astar = torch.einsum("cern,cert,cetm->cnm", Phi, Ae, Phi) / eng.volume_Y
+    return eng._expand_astar(Astar), X
 
 
 def _at_quad_points(eng, fn) -> torch.Tensor:
@@ -291,21 +352,34 @@ def solve_periodic(eng, coeff, rhs=None, grad_rhs=None, x_center=None) -> torch.
         K = _pinned_dense(eng, A_K, eng.assembly == "dense" and eng.D is not None)
         u = torch.cholesky_solve(b[:, None], torch.linalg.cholesky_ex(K).L)[:, 0]
     else:
-        # one-cell block-PCG on the matrix-free operator, Jacobi-preconditioned
-        pinf = eng.pin_mask.to(eng.dtype)
-        keep3, pinf3 = keep[:, None, None], pinf[:, None, None]
+        # one-cell PCG: on the block stencil with the torus multigrid where
+        # the mesh is structured, on the matrix-free operator with Jacobi
+        # otherwise
+        from hommx_tpu_torch.micro.block_stencil import (
+            block_stencil_matvec,
+            block_stencil_weights,
+        )
+        from hommx_tpu_torch.micro.chunk import _mg_nu
+        from hommx_tpu_torch.micro.mg_prec import MAX_COARSE, mg_prec, mg_setup
 
-        def matvec(P):
-            p_loc = (P * keep3)[:, 0, 0][eng.loc2red]
-            Dp = torch.einsum("erl,el->er", eng.Draw, p_loc)
-            wl = torch.einsum("erl,er->el", eng.Draw, torch.einsum("ert,et->er", A_K, Dp))
-            return _to_reduced(eng, wl.reshape(-1, 1))[:, :, None] * keep3 + pinf3 * P
-
-        dl = torch.einsum("erl,ert,etl->el", eng.Draw, A_K, eng.Draw)
-        dg = _to_reduced(eng, dl.reshape(-1, 1))[:, 0]
-        dg = torch.where(eng.pin_mask | (dg <= 0), torch.ones_like(dg), dg)
-        u3, _ = _chunk_pcg_raw(matvec, lambda R: R / dg[:, None, None], b[:, None, None],
-                               eng.pcg_tol, eng.pcg_maxiter)
+        A_K1 = A_K[None]
+        bst = eng._get_block_stencil()
+        levels = None
+        if bst is not None:
+            Wb = block_stencil_weights(bst, eng, A_K1)
+            matvec = lambda P: block_stencil_matvec(bst, Wb, P)  # noqa: E731
+            levels = eng._get_mg_levels(bst.offsets, bst.shape)
+            if levels is not None and levels[-1].n * bs > MAX_COARSE:
+                levels = None  # the hierarchy stops at an odd side: Jacobi
+        else:
+            matvec = lambda P: _gather_matvec(eng, A_K1, P)  # noqa: E731
+        if levels is not None:
+            prec = mg_prec(levels, mg_setup(levels, Wb), nu=_mg_nu(eng))
+        else:
+            dg = _exact_diag(eng, A_K1)[:, 0]
+            dg = torch.where(eng.pin_mask | (dg <= 0), torch.ones_like(dg), dg)
+            prec = lambda R: R / dg[:, None, None]  # noqa: E731
+        u3, _ = _chunk_pcg_raw(matvec, prec, b[:, None, None], eng.pcg_tol, eng.pcg_maxiter)
         u = u3[:, 0, 0]
     red = np.asarray(eng.pmap.reduced_index)
     idx = (red[:, None] * bs + np.arange(bs)[None, :]).reshape(-1)

@@ -18,6 +18,7 @@ nothing.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -34,6 +35,7 @@ __all__ = [
     "stencil_matvec",
     "torus_matvec",
     "torus_coords",
+    "micro_matvec_mode",
 ]
 
 # Size gate for the dense matmul formulations (entries of K·n·nE): above
@@ -75,15 +77,26 @@ class MicroStencil:
         return t
 
 
+def micro_matvec_mode() -> str:
+    """The reference's ``HOMMX_MICRO_MATVEC`` switch: 'auto' (the periodic
+    stencils on structured meshes) or 'matfree' (the matrix-free gather
+    matvec, for comparisons)."""
+    mode = os.environ.get("HOMMX_MICRO_MATVEC", "auto")
+    if mode not in ("auto", "matfree"):
+        raise ValueError(f"HOMMX_MICRO_MATVEC must be 'auto' or 'matfree', got {mode!r}")
+    return mode
+
+
 def torus_coords(engine):
-    """(shape, coords) of the reduced periodic node space as the raster torus
-    grid, or None if the micro mesh is not a structured box whose reduced
-    nodes raster-order onto the grid."""
+    """(shape, coords) of the reduced periodic NODE space as the raster
+    torus grid, or None if the micro mesh is not a structured box whose
+    reduced nodes raster-order onto the grid (callers with bs > 1 multiply
+    by the block size themselves)."""
     st = engine.mesh.structure
     if st is None:
         return None
     shape = tuple(int(x) for x in np.asarray(st.shape))
-    n_nodes = engine.n_reduced
+    n_nodes = engine.n_reduced // engine.bs
     if int(np.prod(shape)) != n_nodes:
         return None
     red = np.asarray(engine.pmap.reduced_index)
@@ -104,7 +117,10 @@ def torus_coords(engine):
 
 def build_stencil(engine) -> Optional[MicroStencil]:
     """Host-side stencil construction for a MicroEngine, or None when the
-    micro mesh is not a raster-ordered structured box."""
+    micro mesh is not a raster-ordered structured box (or the problem is not
+    scalar)."""
+    if engine.bs != 1:
+        return None
     tc = torus_coords(engine)
     if tc is None:
         return None

@@ -39,6 +39,7 @@ __all__ = [
     "stencil_pcg_plain",
     "stencil_pcg_cuda",
     "launch_config",
+    "check_k1_fits",
     "K1Config",
     "KERNEL",
 ]
@@ -131,6 +132,20 @@ def launch_config(n: int, s: int) -> K1Config:
         f"<= {SMEM_LIMIT} bytes a block (R and P of s·CB columns and two Minv "
         f"slabs of n x {SLAB_ROW} floats, CB >= 4) and 8 rows a thread"
     )
+
+
+def check_k1_fits(n: int, s: int) -> K1Config:
+    """K1's launch configuration for n unknowns and s right-hand sides, or
+    NotImplementedError naming ROADMAP B7 where the kernel has none (the
+    engine calls this when it is built, before any coefficient work)."""
+    try:
+        return launch_config(n, s)
+    except ValueError as err:
+        raise NotImplementedError(
+            f"the stencil PCG kernel K1 holds a chunk's Krylov state in shared memory and "
+            f"has no launch configuration for this cell: {err} (ROADMAP B7; "
+            f"cell_prec='mg' takes such cells without K1)"
+        ) from None
 
 
 def stencil_pcg_plain(ws, F, Minv, shape, offsets, tol, maxiter, block=None, per_block=False):

@@ -13,7 +13,7 @@ multigrid V-cycle and K2's DIA product, on the card by default.
 ``fem_solve_fn`` is the differentiable solve ``solve(theta) -> x``: its
 macro solve carries the implicit-function rule (ops/solvers.py::
 make_implicit_solver), whose adjoint is one more solve with the same
-options and kernels.  Not ported: P2 spaces (``degree=2``, ROADMAP A9),
+options and kernels.  Not ported: P2 spaces (``degree=2``, ROADMAP A9d),
 which raise ``NotImplementedError``.
 """
 
@@ -54,7 +54,7 @@ def _p1_only(degree: int) -> None:
     if int(degree) != 1:
         raise NotImplementedError(
             f"degree={degree}: the port's FEM is P1 only; P2 spaces (ops/p2.py) "
-            "are ROADMAP A9"
+            "are ROADMAP A9d"
         )
 
 

@@ -1,6 +1,6 @@
 """Function spaces, functions and Dirichlet boundary conditions (torch port
 of ``hommx_tpu/ops/function_space.py``; P1 Lagrange only — P2 spaces wait
-for ROADMAP A9).
+for ROADMAP A9d).
 
 Dof layout: node-major, component-minor — dof = node * bs + component.
 """
@@ -48,7 +48,7 @@ class FunctionSpace:
 
     def __init__(self, mesh: SimplexMesh, bs: int = 1, degree: int = 1):
         if int(degree) != 1:
-            raise NotImplementedError("only P1 spaces are ported (P2: ROADMAP A9)")
+            raise NotImplementedError("only P1 spaces are ported (P2: ROADMAP A9d)")
         self.mesh = mesh
         self.bs = int(bs)
         self.degree = 1

@@ -1,6 +1,6 @@
 """Point evaluation of P1 functions and cross-mesh interpolation (torch
 port of ``hommx_tpu/ops/interpolation.py``, P1 only; P2 waits for ROADMAP
-A9).
+A9d).
 
 Point → cell location is analytic on structured box meshes (the grid box
 and the simplex within it follow from local coordinates); unstructured

@@ -109,10 +109,9 @@ def cell_problem_engine_kwargs(opts: Union[SolverOptions, dict, None]) -> dict:
       relative one), with a warning.  When both are given, ``ksp_rtol``
       wins and ``ksp_atol`` is dropped.
     - ``ksp_max_it`` / ``maxiter`` → ``pcg_maxiter``.
-    - ``ksp_type`` ``preonly`` / ``pc_type`` ``lu`` → ``solver='cholesky'``;
-      ``ksp_type`` ``cg``/``gmres`` → ``solver='pcg'``.  The engine raises
-      for a route it lacks (a scalar problem on ``'cholesky'`` is the
-      per-cell route, ROADMAP A9) instead of taking another.
+    - ``ksp_type`` ``preonly`` / ``pc_type`` ``lu`` → ``solver='cholesky'``
+      (a scalar problem takes the per-cell Cholesky route);
+      ``ksp_type`` ``cg``/``gmres`` → ``solver='pcg'``.
     - multigrid-ish ``pc_type`` values are accepted: the engine's own cell
       preconditioner plays that role.
 

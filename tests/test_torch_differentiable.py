@@ -222,7 +222,7 @@ def test_implicit_linear_solve_matches_autograd():
 def _scalar_engines():
     jm = hx.create_unit_square(8, 8)
     centers = np.random.default_rng(0).uniform(0, 1, (5, 2))
-    te = ht.MicroEngine(port_mesh(jm), device="cpu", pcg_tol=1e-13)
+    te = ht.MicroEngine(port_mesh(jm), device="cpu", solver="pcg", pcg_tol=1e-13)
     return jm, te, centers
 
 

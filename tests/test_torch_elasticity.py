@@ -336,7 +336,7 @@ def test_golden_elasticity_f64(name):
 
 def test_elasticity_error_probes():
     """What the port lacks raises instead of running: multi-device solves,
-    and PCG or the chunk Cholesky on the wrong problem kind.  The elasticity
+    the FFT cell preconditioner, P2 micro elements.  The elasticity
     CG macro solve runs (float64 assembly, float64 multigrid CG)."""
     args = (ht.create_rectangle([[0.0, 0.0], [1.0, 0.25]], [4, 2]), TORCH_A2, [0.0, -0.01],
             ht.create_unit_square(4), 0.1)
@@ -345,11 +345,15 @@ def test_elasticity_error_probes():
     assert h._macro_method == "cg" and h._macro_f64 and h._sys.mg is not None
     with pytest.raises(NotImplementedError, match="A12"):
         ht.LinearElasticityHMM(*args, shard_mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # what the micro engine still lacks: the FFT cell preconditioner, P2
+    # micro elements, a scalar coefficient on a vector problem
+    with pytest.raises(NotImplementedError, match="A9c"):
         ht.MicroEngine(ht.create_unit_square(4), bs=2, coeff_kind="tensor4", solver="pcg",
-                       device="cpu")
+                       cell_prec="fft", device="cpu")
+    with pytest.raises(NotImplementedError, match="A9d"):
+        ht.MicroEngine(ht.create_unit_square(4), micro_degree=2, device="cpu")
     with pytest.raises(NotImplementedError):
-        ht.MicroEngine(ht.create_unit_square(4), solver="cholesky", device="cpu")
+        ht.MicroEngine(ht.create_unit_square(4), bs=2, device="cpu")
 
 
 def test_entry_points_default_to_the_card():

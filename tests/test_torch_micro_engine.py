@@ -1,7 +1,8 @@
 """Micro engine parity: the port's ``tensors_for_centers`` against the JAX
 package's MicroEngine on its chunk-PCG route (float64, 8x8 micro mesh, 64
-seeded centers, chunk 16), plus the zero-corrector tensors and the routes
-that are not ported yet."""
+seeded centers, chunk 16), plus the zero-corrector tensors, the routes an
+earlier slice lacked, K1's size check and the whole-batch Cholesky's
+``diag_scale``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +25,7 @@ TORCH_A = lambda x, y: 1.5 + x[0] + torch.sin(2 * torch.pi * y[0]) * torch.cos(2
 def engines():
     jm = hx.create_unit_square(8)
     je = JaxEngine(jm, dtype=jnp.float64, solver="pcg")
-    te = ht.MicroEngine(port_mesh(jm), device="cpu")
+    te = ht.MicroEngine(port_mesh(jm), device="cpu", solver="pcg")
     centers = np.random.default_rng(11).uniform(0, 1, (64, 2))
     return je, te, centers
 
@@ -83,11 +84,77 @@ def test_chunking_and_padding_do_not_change_results(engines):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [{"solver": "cholesky"}, {"cell_prec": "fft"}, {"bs": 2}, {"coeff_kind": "matrix"}],
+    [{"solver": "cholesky"}, {"cell_prec": "fft"},
+     {"bs": 2, "coeff_kind": "tensor4", "solver": "pcg", "pcg_strategy": "matfree"},
+     {"coeff_kind": "matrix"}],
 )
 def test_unported_routes_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        ht.MicroEngine(ht.create_unit_square(4), device="cpu", **kwargs)
+    """The routes this test once pinned as unported: the FFT cell
+    preconditioner still raises, naming ROADMAP A9c; the scalar per-cell
+    Cholesky, the vector PCG (block stencil) and matrix coefficients (the
+    per-cell route) now run and give the reference's A* (1e-10)."""
+    if kwargs.get("cell_prec") == "fft":
+        with pytest.raises(NotImplementedError, match="A9c"):
+            ht.MicroEngine(ht.create_unit_square(4), device="cpu", **kwargs)
+        return
+    jm = hx.create_unit_square(4)
+    c = np.random.default_rng(3).uniform(0, 1, (6, 2))
+    if kwargs.get("coeff_kind") == "tensor4":
+        from hommx_tpu.utils.validation import hooke_tensor as jh
+        from hommx_tpu_torch.utils.validation import hooke_tensor as th
+
+        jA = jh(2, lambda x, y: 1.0 + 0.5 * jnp.sin(2 * jnp.pi * y[0]), lambda x, y: 1.0)
+        tA = th(2, lambda x, y: 1.0 + 0.5 * torch.sin(2 * torch.pi * y[0]), lambda x, y: 1.0)
+    elif kwargs.get("coeff_kind") == "matrix":
+        jA = lambda x, y: jnp.array([[2.0 + jnp.sin(2 * jnp.pi * y[0]), 0.2 * x[0]],
+                                     [0.2 * x[0], 1.0 + x[1]]])
+        tA = lambda x, y: torch.stack([torch.stack([2.0 + torch.sin(2 * torch.pi * y[0]),
+                                                    0.2 * x[0]]),
+                                       torch.stack([0.2 * x[0], 1.0 + x[1]])])
+    else:
+        jA, tA = JAX_A, TORCH_A
+    je = JaxEngine(jm, dtype=jnp.float64, **kwargs)
+    te = ht.MicroEngine(port_mesh(jm), device="cpu", **kwargs)
+    A_ref = np.asarray(je.tensors_for_centers(jA, jnp.asarray(c)))
+    A = te.tensors_for_centers(tA, torch.as_tensor(c)).numpy()
+    assert A.shape == A_ref.shape
+    assert np.abs(A - A_ref).max() / np.abs(A_ref).max() < 1e-10
+
+
+def test_k1_limit_checked_at_construction():
+    """K1's shared-memory limit is checked when a float32 CUDA engine on
+    K1's route is built: the check itself, called with n = 1025 and s = 2,
+    raises NotImplementedError naming ROADMAP B7 (n = 1024 fits)."""
+    from hommx_tpu_torch.micro.stencil_pcg import check_k1_fits
+
+    assert check_k1_fits(1024, 2).cells_per_block >= 4
+    with pytest.raises(NotImplementedError, match="B7"):
+        check_k1_fits(1025, 2)
+    # the engine's rule for which routes launch K1: not the multigrid one
+    eng = ht.MicroEngine(ht.create_unit_square(4), dtype=torch.float32, device="cpu")
+    assert eng._k1_route()
+    assert not ht.MicroEngine(ht.create_unit_square(4), dtype=torch.float32, cell_prec="mg",
+                              device="cpu")._k1_route()
+
+
+def test_chol_batched_honours_diag_scale():
+    """``tensors_chol_batched`` with diag_scale=False (the reference
+    equilibrates whatever diag_scale says) solves the unscaled systems: it
+    equals the in-chunk route with diag_scale=False (1e-12) and the scaled
+    run within 1e-8 (float64, 3³ elasticity)."""
+    from hommx_tpu_torch.micro.chunk import tensors_chol_batched
+    from hommx_tpu_torch.utils.validation import hooke_tensor as th
+
+    A = th(3, lambda x, y: 1.0 + x[0] + 0.5 * torch.sin(2 * torch.pi * y[1]), lambda x, y: 1.0)
+    c = torch.as_tensor(np.random.default_rng(4).uniform(0, 1, (5, 3)))
+    kw = dict(bs=3, coeff_kind="tensor4", device="cpu")
+    off = ht.MicroEngine(ht.create_unit_cube(3), diag_scale=False, **kw)
+    on = ht.MicroEngine(ht.create_unit_cube(3), **kw)
+    A_off = tensors_chol_batched(off, A, c, chunk=2)
+    A_chunk = off.tensors_for_centers(A, c, chunk=2)
+    A_on = tensors_chol_batched(on, A, c, chunk=2)
+    assert float((A_off - A_chunk).abs().max()) <= 1e-12 * float(A_chunk.abs().max())
+    assert float((A_off - A_on).abs().max()) <= 1e-8 * float(A_on.abs().max())
 
 
 def test_k0_scatter_assembly_matches_dense():
@@ -109,9 +176,9 @@ def test_scaling_variants_match(engines, variant):
     A_ref = te.tensors_for_centers(TORCH_A, c)
     mesh = te.mesh
     if variant == "dfree_scaling":
-        other = ht.MicroEngine(mesh, device="cpu")
+        other = ht.MicroEngine(mesh, device="cpu", solver="pcg")
         other.D = None  # what build_operators leaves above its size cap
     else:
-        other = ht.MicroEngine(mesh, diag_scale=False, device="cpu")
+        other = ht.MicroEngine(mesh, diag_scale=False, device="cpu", solver="pcg")
     np.testing.assert_allclose(other.tensors_for_centers(TORCH_A, c).numpy(), A_ref.numpy(),
                                rtol=1e-9, atol=0)

@@ -7,6 +7,7 @@ import dataclasses
 import logging
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -124,9 +125,18 @@ def test_engine_kwargs_win_over_cell_options():
 @pytest.mark.parametrize("opts", [{"ksp_type": "preonly"}, {"pc_type": "lu"},
                                   {"pc_factor_mat_solver_type": "mumps"}])
 def test_scalar_direct_cell_options_raise_naming_a9(opts):
-    """A scalar problem mapped onto the direct cell solve is the reference's
-    per-cell route, which the port lacks: it raises instead of taking the
-    PCG."""
-    with pytest.raises(NotImplementedError, match="A9"):
-        ht.PoissonHMM(ht.create_unit_square(4), TORCH_A, 1.0, ht.create_unit_square(4), 0.1,
-                      options_cell_problem=opts, device="cpu")
+    """A scalar problem mapped onto the direct cell solve takes the
+    reference's per-cell Cholesky route (it raised naming A9 before that
+    route was ported): the engine's solver and u are the reference's
+    (1e-10)."""
+    h = ht.PoissonHMM(port_mesh(hx.create_unit_square(4)), TORCH_A, 1.0,
+                      port_mesh(hx.create_unit_square(4)), 0.1, options_cell_problem=opts,
+                      dtype=torch.float32, device="cpu")
+    hj = hx.PoissonHMM(hx.create_unit_square(4), JAX_A, lambda x: 1.0,
+                       hx.create_unit_square(4), 0.1, options_cell_problem=opts)
+    assert h._engine.solver == hj._engine.solver == "cholesky"
+    h64 = ht.PoissonHMM(port_mesh(hx.create_unit_square(4)), TORCH_A, 1.0,
+                        port_mesh(hx.create_unit_square(4)), 0.1, options_cell_problem=opts,
+                        device="cpu")
+    u, u_ref = h64.solve().array.numpy(), np.asarray(hj.solve().array)
+    assert np.abs(u - u_ref).max() <= 1e-10 * np.abs(u_ref).max()

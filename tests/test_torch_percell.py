@@ -55,7 +55,7 @@ def _engines(kind, dtype="float64"):
     if kind == "scalar":
         jm = hx.create_unit_square(6)
         return (JaxEngine(jm, dtype=jdt, solver="pcg"),
-                ht.MicroEngine(port_mesh(jm), dtype=tdt, device="cpu"),
+                ht.MicroEngine(port_mesh(jm), dtype=tdt, device="cpu", solver="pcg"),
                 jax_scalar, torch_scalar)
     jm = hx.create_unit_square(4)
     return (JaxEngine(jm, bs=2, coeff_kind="tensor4", dtype=jdt, solver="cholesky"),
@@ -145,9 +145,10 @@ def test_solve_periodic_matches_reference(kind, terms):
 
 
 def test_solve_periodic_pcg_branch(monkeypatch):
-    """Above the dense limit solve_periodic runs the Jacobi block-PCG on
-    the matrix-free operator: the dense branch's (and the reference's)
-    solution within 1e-8; no load raises."""
+    """Above the dense limit solve_periodic runs the one-cell PCG (on this
+    structured mesh: the block stencil with the torus multigrid): the
+    dense branch's (and the reference's) solution within 1e-8; no load
+    raises."""
     je, te, jA, tA = _engines("scalar")
     fj, gj, ft, gt = _loads("scalar")
     u_ref = np.asarray(je.solve_periodic(jA, rhs=fj, grad_rhs=gj))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the hommx_tpu_torch slice goes, on one NVIDIA GPU.
 
-    python3 tools/profile_slice.py [--mode poisson|elasticity] [--macro 512]
+    python3 tools/profile_slice.py [--mode poisson|elasticity|micro16] [--macro 512]
                                    [--micro 16] [--pc auto|jacobi] [--out FILE]
 
 Run from the repository root on a machine with one CUDA card; it fails
@@ -44,6 +44,12 @@ float64 macro solve):
   macro stage, as above, with K3's launches;
 - ``micro_bench``: the micro stage alone at the bench row's size (8640
   fresh cells, x-dependent fibre modulus, chunk 1080), profiled.
+
+``--mode micro16`` drives the 16³ elasticity cells of ``chip_smoke.py``'s
+``micro_highres`` (rotated stiff fibre, float32, the torus-multigrid PCG):
+``mg16``, ``torch.profiler`` over 8 cells at chunk 8 and over 128 cells at
+the auto chunk (fresh centres each, one warm-up first), with the top
+kernels by device time.
 """
 
 from __future__ import annotations
@@ -208,9 +214,32 @@ def elasticity(args, device, keep, kernels):
     return lambda: make_beam(device)
 
 
+def micro16(device, keep, kernels):
+    import numpy as np
+    import torch
+
+    from chip_smoke import beam_coeff, beam_rotation
+    from hommx_tpu_torch import MicroEngine, create_unit_cube
+
+    eng = MicroEngine(create_unit_cube(16), bs=3, coeff_kind="tensor4", solver="pcg",
+                      pcg_strategy="matfree", cell_prec="mg", dtype=torch.float32,
+                      device=device)
+    coeff, rng = beam_coeff(True), np.random.default_rng(5)
+
+    def run(cells, chunk):
+        c = torch.as_tensor(rng.uniform(0, 1, (cells, 3)), dtype=torch.float32, device=device)
+        with torch.no_grad():
+            eng.tensors_for_centers(coeff, c, G_fn=beam_rotation, chunk=chunk)
+
+    run(8, 8)  # warm-up
+    for cells, chunk in ((8, 8), (128, 0)):
+        keep({"tag": "mg16", "cells": cells, "chunk": chunk or eng._auto_chunk(cells),
+              **profiled(f"mg16_{cells}", lambda: run(cells, chunk), kernels)})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("poisson", "elasticity"), default="poisson")
+    ap.add_argument("--mode", choices=("poisson", "elasticity", "micro16"), default="poisson")
     ap.add_argument("--macro", type=int, default=512)
     ap.add_argument("--micro", type=int, default=16)
     ap.add_argument("--pc", choices=("auto", "jacobi"), default="auto")
@@ -242,8 +271,23 @@ def main() -> int:
     phase_build()
     kernels = {"stencil_pcg": stencil_pcg.KERNEL, "dia_spmv": dia.KERNEL,
                "chol_solve": chol_kernel.KERNEL}
-    make = (poisson if args.mode == "poisson" else elasticity)(args, device, keep, kernels)
+    make = None
+    if args.mode == "micro16":
+        micro16(device, keep, kernels)
+    else:
+        make = (poisson if args.mode == "poisson" else elasticity)(args, device, keep, kernels)
+    if make is not None:
+        _solves_and_stages(args, make, keep, kernels)
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as fh:
+        json.dump(records, fh, indent=1)
+    return 0
 
+
+def _solves_and_stages(args, make, keep, kernels):
+    import torch
+
+    device = torch.device("cuda", 0)
     make().solve()  # warm-up
     for rep in range(3):
         hmm = make()
@@ -263,11 +307,6 @@ def main() -> int:
           "macro_iterations": hmm.diagnostics["macro_iterations"]})
     if args.mode == "poisson":
         macro_pc(make, A_star, keep, kernels)
-
-    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
-    with open(out, "w") as fh:
-        json.dump(records, fh, indent=1)
-    return 0
 
 
 if __name__ == "__main__":
