@@ -124,9 +124,28 @@ prints no result line):
                CG (K2 forward and adjoint) against a central difference; at
                64x64 against the CPU's float64 gradient
 
+13. the FFT cell preconditioner and P2 elements (float32 unless stated;
+   cuFFT through torch.fft; K1 launches must be 0 on every FFT and P2
+   run):
+   micro_fft   benchmarks/suite.py's stratified configuration (48² macro,
+               24² micro, the wavy laminate, dedup off) on the FFT route
+               beside K1's: iterations per chunk and per block, A* of every
+               cell against the float64 Cholesky route, u against the
+               float64 solve of its system; the 512² flagship on the FFT
+               route (multigrid CG through K2) beside K1's micro stage; the
+               block symbol on the 20x6x6 beam's cells (4³ cube) with the
+               dense-K and block-stencil matvecs against the K3 route's
+               float64 A*; the contrast-1e5 stiff-fibre cells at 8³ in
+               float64 (iterations, fallback cells)
+   p2          the 512² flagship with P2 cells on 8² (matrix-free gather,
+               K0⁻¹), the beam with P2 cells on the 2³ cube through K3 and
+               the 8640-cell stage beside the P1 4³ one, PoissonFEM(degree=2)
+               L2 rates (8², 16², 31²), the 513² P2 system by the Jacobi CG
+               against its float64 solve, and pc='auto' raising for A10
+
 Phases 1-9 pass ``dedup_cells=False`` and so solve every cell, as before
 the models' default became dedup.  ``--only fem_flagship,kc_gather`` runs
-the named phases of parts 11 and 12 alone (after the build) and prints no
+the named phases of parts 11 to 13 alone (after the build) and prints no
 result line.  The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -176,6 +195,13 @@ GRAD_FD_RTOL = 2e-2  # float32 dJ/dθ vs the central difference of the float32 f
 GRAD_F64_RTOL = 1e-3  # float32 dJ/dθ on the card vs the CPU's float64 gradient
 GRAD2_F64_RTOL = 1e-3  # float32 d²J/dθ² on the card (8²) vs the CPU's float64
 BEAM_GRAD_RTOL = 1e-3  # the beam's float32 dJ/dθ vs the CPU's float64 (10x its measured error)
+# the FFT cell preconditioner and P2 elements
+FFT_ASTAR_RTOL = 1e-4  # float32 A* of the FFT route vs the float64 Cholesky route
+FFT_U_RTOL = 1e-4  # float32 u vs the float64 solve of its system
+FFT_STRATEGY_RTOL = 1e-5  # block FFT: dense-K vs block-stencil matvec, float32
+FFT_STIFF_RTOL = 1e-6  # contrast-1e5 cells, float64: A* of the converged cells vs Cholesky
+P2_FEM_RATE = 2.8  # least L2 convergence rate of PoissonFEM(degree=2)
+P2_FEM_CG_RTOL = 1e-3  # float32 Jacobi CG of the 513² P2 system vs its float64 solve
 
 # NVIDIA H100 SXM peaks (data sheet, dense): float32 outside the tensor
 # cores and device memory bandwidth, for each kernel's least time
@@ -333,11 +359,12 @@ def clamp_x0(hmm):
     )
 
 
-def make_beam(device, macro_n=(20, 6, 6), **kw):
+def make_beam(device, macro_n=(20, 6, 6), micro_n: int = 4, **kw):
     """The rotated-fiber beam of examples/linear_elasticity/rotated_fibers.py
     in float32: LinearElasticityStratifiedHMM on a macro box of
-    ``macro_n`` cells per axis with a 4³ micro cube, f = (0, 0, −0.05·W²),
-    clamped at x₀ = 0; no cell dedup unless ``kw`` asks for it."""
+    ``macro_n`` cells per axis with a ``micro_n``³ micro cube (4³ unless
+    given), f = (0, 0, −0.05·W²), clamped at x₀ = 0; no cell dedup unless
+    ``kw`` asks for it."""
     import torch
 
     from hommx_tpu_torch import LinearElasticityStratifiedHMM, create_box, create_unit_cube
@@ -345,7 +372,7 @@ def make_beam(device, macro_n=(20, 6, 6), **kw):
     macro = create_box([[0, 0, 0], [BEAM_L, BEAM_W, BEAM_H]], list(macro_n))
     f = torch.tensor([0.0, 0.0, -0.05 * (BEAM_W / BEAM_L) ** 2], dtype=torch.float64)
     hmm = LinearElasticityStratifiedHMM(macro, beam_coeff(False), lambda x: f,
-                                        create_unit_cube(4), 2**-5, beam_rotation,
+                                        create_unit_cube(micro_n), 2**-5, beam_rotation,
                                         dtype=torch.float32, device=device,
                                         **{"dedup_cells": False, **kw})
     clamp_x0(hmm)
@@ -1344,6 +1371,15 @@ def _f64_solution(hmm):
     the run's A*: the answer that its A* gives without the float32 macro
     matrix."""
     return _f64_solution_of(hmm, *_rebuild_system(hmm, macro_f64=True))
+
+
+def _own_system_f64(hmm):
+    """The float64 solve of the macro system ``hmm.solve()`` solved, as it
+    was stored (a float32 CG system rounded once; a direct system in
+    float64): the distance of u from it is the solve's alone, without the
+    ~1e-4 that storing the 512² matrix in float32 costs (PR 8)."""
+    vals, b = _rebuild_system(hmm, macro_f64=hmm._macro_f64)
+    return _f64_solution_of(hmm, vals.double(), b.double())
 
 
 def _f64_solution_of(hmm, vals, b):
@@ -2361,16 +2397,10 @@ def phase_micro_highres(device, reps: int = 5):
         # untimed pass through the same chunk route on the first rep's
         # cells; the models' guard (a heuristic) beside them
         c, A = first
-        ck = out["chunk"]
-        out["iterations"], fallback = [], 0
+        its = _chunk_iters(eng, coeff, c, beam_rotation, out["chunk"])
+        out["iterations"], out["fallback_cells"] = (its["iterations_per_chunk"],
+                                                    its["zero_corrector_cells"])
         with torch.no_grad():
-            for i in range(0, cells, ck):
-                _, X, it = eng.tensors_chunk_pcg(coeff, c[i:i + ck], G_fn=beam_rotation,
-                                                 with_correctors=True, with_iters=True,
-                                                 implicit_diff=False)
-                out["iterations"].append(int(it))
-                fallback += int((X.abs().amax(dim=1) == 0).any(dim=1).sum())
-            out["fallback_cells"] = fallback
             out["diverged_cells"], out["guard_fallback_flags"] = _guard_counts(
                 eng, coeff, c, A, G_fn=beam_rotation)
         out["finite"] = bool(torch.isfinite(A).all())
@@ -2541,12 +2571,354 @@ def phase_micro_routes(device):
     return {"chol_solve": k3}
 
 
-#: the phases of the periodic, FEM and per-cell slice, of differentiation
-#: and of the micro engine's other routes, in their order
+def _chunk_iters(eng, coeff, centers, G_fn=None, chunk: int = 0) -> dict:
+    """Lockstep PCG iterations per chunk and the cells whose energy clamp
+    took the zero corrector (a column of X exactly 0), from one untimed
+    pass through the chunk route over ``centers``."""
+    import torch
+
+    n = centers.shape[0]
+    chunk = chunk or eng._auto_chunk(n)
+    its, fallback = [], 0
+    with torch.no_grad():
+        for i in range(0, n, chunk):
+            _, X, it = eng.tensors_chunk_pcg(coeff, centers[i:i + chunk], G_fn=G_fn,
+                                             with_correctors=True, with_iters=True,
+                                             implicit_diff=False)
+            its.append(int(it))
+            fallback += int((X.abs().amax(dim=1) == 0).any(dim=1).sum())
+    return {"chunk": chunk, "iterations_per_chunk": its, "zero_corrector_cells": fallback}
+
+
+def _f64_astar(mesh, coeff, centers, G_fn=None, **kw):
+    """A* of ``centers`` by the float64 Cholesky route on the card (the
+    per-cell route of a scalar problem, the plain chunk Cholesky of a
+    vector one)."""
+    import torch
+
+    from hommx_tpu_torch import MicroEngine
+    from hommx_tpu_torch.micro.chunk import tensors_chunk_chol_plain
+    from hommx_tpu_torch.micro.krylov import _map_chunked
+
+    eng = MicroEngine(mesh, dtype=torch.float64, device=centers.device, **kw)
+    c64 = centers.double()
+    with torch.no_grad():
+        if eng._chol_route():
+            return _map_chunked(lambda c: tensors_chunk_chol_plain(eng, coeff, c, G_fn), c64,
+                                1080)
+        return eng.tensors_for_centers(coeff, c64, G_fn=G_fn)
+
+
+def _hmm_record(phase, hmm, t_setup) -> tuple:
+    """``_solve_record`` with the engine's route (n, effective elements,
+    cell preconditioner, element degree) and K1's and K3's launches in the
+    solve."""
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.ops import chol_kernel
+
+    kernels = {"k1_launches": stencil_pcg.KERNEL, "chol_solve_launches": chol_kernel.KERNEL}
+    before = {key: k.launches for key, k in kernels.items()}
+    rec, u = _solve_record(phase, hmm, t_setup)
+    eng = hmm._engine
+    rec.update({key: k.launches - before[key] for key, k in kernels.items()})
+    rec.update({"n_reduced": eng.n_reduced, "effective_elements": eng.nE,
+                "cell_prec": eng.cell_prec, "micro_degree": eng.micro_degree})
+    return rec, u
+
+
+def phase_micro_fft(device, checked: int = 4096, suite_n: int = 48, flagship_n: int = 512,
+                    stiff_n: int = 8):
+    """The FFT-symbol cell preconditioner (cell_prec='fft'; cuFFT through
+    torch.fft, no kernel of this repository, K1 kept off), float32:
+    (a) benchmarks/suite.py's configuration — PoissonStratifiedHMM, 48²
+    macro, 24² micro, the wavy laminate (contrast 100) and its map, dedup
+    off — lockstep iterations per chunk, fallback cells, K1 launches (0),
+    micro and macro seconds, beside the same solve on K1's route; A* of
+    every cell against the float64 Cholesky route, u against the float64
+    solve of its system; (b) the 512² flagship (16² micro, chunk 2048,
+    multigrid CG through K2): A* of ``checked`` cells and u against
+    float64, its micro stage beside K1's; (c) the block symbol on the
+    20x6x6 beam's 4320 centres and map (4³ cube, μ = 1 + ½ sin 2πy₀, λ = 1)
+    with the dense-K and the block-stencil matvec, against each other and
+    the K3 route's float64 A*; (d) the contrast-1e5 stiff-fibre cells at
+    8³ in float64, tol 1e-9 (benchmarks/mg_iteration_sweep.py): iterations,
+    fallback cells, A* of the converged cells against Cholesky."""
+    import numpy as np
+    import torch
+
+    from hommx_tpu_torch import (MicroEngine, PoissonHMM, PoissonStratifiedHMM, SolverOptions,
+                                 create_box, create_unit_cube, create_unit_square)
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.micro.chunk import tensors_chunk_chol_plain
+    from hommx_tpu_torch.ops import dia
+    from hommx_tpu_torch.utils.validation import hooke_tensor
+
+    out = {}
+    # (a) the reference's own FFT configuration, then K1's route
+    micro24 = create_unit_square(24, 24)
+    runs = {}
+    for route, kw in (("fft", {"engine_kwargs": {"cell_prec": "fft"}}), ("k1", {})):
+        t0 = time.perf_counter()
+        hmm = PoissonStratifiedHMM(create_unit_square(suite_n, suite_n), laminate_coeff,
+                                   lambda x: 1.0,
+                                   micro24, 2**-4, laminate_dtheta, dtype=torch.float32,
+                                   device=device, dedup_cells=False, **kw)
+        rec, u = _hmm_record(f"micro_fft_suite_{route}", hmm, time.perf_counter() - t0)
+        runs[route] = (hmm, u, rec)
+    hmm, u, rec = runs["fft"]
+    centers = hmm._sys.centers
+    rec.update(_chunk_iters(hmm._engine, laminate_coeff, centers, laminate_dtheta,
+                            hmm._chunk or 0))
+    rec["k1_route_block_iters"] = _k1_block_iters(runs["k1"][0])
+    A64 = _f64_astar(micro24, laminate_coeff, centers, laminate_dtheta)
+    rec["astar_rel_diff_f64"] = rel_diff(hmm.homogenized_tensors(), A64)
+    rec["k1_route_astar_rel_diff_f64"] = rel_diff(runs["k1"][0].homogenized_tensors(), A64)
+    rec["u_rel_diff_f64"] = rel_diff(u, _own_system_f64(hmm))
+    rec["u_rel_diff_f64_assembly"] = rel_diff(u, _f64_solution(hmm))
+    rec["k1_route_micro_seconds"] = runs["k1"][2]["micro_seconds"]
+    emit(rec)
+    out["a"] = rec
+    # (b) the flagship on the FFT route, and on K1's beside it
+    micro16 = create_unit_square(16, 16)
+    opts = SolverOptions(rtol=1e-5, maxiter=20000)
+    flag = {}
+    for route, kw in (("fft", {"engine_kwargs": {"cell_prec": "fft"}}), ("k1", {})):
+        t0 = time.perf_counter()
+        hmm = PoissonHMM(create_unit_square(flagship_n, flagship_n), flagship, 1.0, micro16,
+                         2**-5, opts, dtype=torch.float32, device=device, chunk=2048,
+                         dedup_cells=False, **kw)
+        flag[route] = _hmm_record(f"micro_fft_flagship_{route}", hmm,
+                                  time.perf_counter() - t0) + (hmm,)
+    rec, u, hmm = flag["fft"]
+    idx = torch.linspace(0, rec["num_cells"] - 1, checked, device=device).round().long()
+    A64 = _f64_astar(micro16, flagship, hmm._sys.centers[idx])
+    rec.update({"checked_cells": checked,
+                "astar_rel_diff_f64": rel_diff(hmm.homogenized_tensors()[idx], A64),
+                "u_rel_diff_f64": rel_diff(u, _own_system_f64(hmm)),
+                "u_rel_diff_f64_assembly": rel_diff(u, _f64_solution(hmm)),
+                "k1_route_micro_seconds": flag["k1"][0]["micro_seconds"],
+                "k1_route_macro_seconds": flag["k1"][0]["macro_seconds"]})
+    emit(rec)
+    out["b"] = rec
+    k2_main = out["b"]["dia_spmv_launches"]
+    # (c) the block symbol on the beam's cells, two matvecs
+    macro = create_box([[0, 0, 0], [BEAM_L, BEAM_W, BEAM_H]], [20, 6, 6])
+    bc = torch.as_tensor(macro.vertices[macro.cells].mean(axis=1), device=device)
+    lame = hooke_tensor(3, lambda x, y: 1.0 + 0.5 * torch.sin(2 * torch.pi * y[0]),
+                        lambda x, y: 1.0)
+    cube4 = create_unit_cube(4)
+    A_st, rec = {}, {"phase": "micro_fft_block", "cells": bc.shape[0]}
+    for strategy in ("densek", "matfree"):
+        eng = MicroEngine(cube4, bs=3, coeff_kind="tensor4", dtype=torch.float32, device=device,
+                          solver="pcg", pcg_strategy=strategy, cell_prec="fft")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            A_st[strategy] = eng.tensors_for_centers(lame, bc.float(), G_fn=beam_rotation)
+        torch.cuda.synchronize()
+        rec[f"{strategy}_seconds"] = time.perf_counter() - t0
+        rec[f"{strategy}_iterations"] = _chunk_iters(eng, lame, bc.float(),
+                                                     beam_rotation)["iterations_per_chunk"]
+    A64 = _f64_astar(cube4, lame, bc, beam_rotation, bs=3, coeff_kind="tensor4")
+    rec.update({"densek_rel_diff_k3_route_f64": rel_diff(A_st["densek"], A64),
+                "matfree_rel_diff_k3_route_f64": rel_diff(A_st["matfree"], A64),
+                "densek_vs_matfree": rel_diff(A_st["matfree"], A_st["densek"]),
+                "finite": bool(torch.isfinite(A_st["densek"]).all()
+                               and torch.isfinite(A_st["matfree"]).all())})
+    emit(rec)
+    out["c"] = rec
+    # (d) the contrast-1e5 stiff-fibre cells, float64
+    rng = np.random.default_rng(0)
+    rng.uniform(0, 1, (4, 2))  # the sweep draws its scalar centres first
+    c3 = torch.as_tensor(rng.uniform(0, 1, (2, 3)), device=device)
+    stiff = beam_coeff(False)
+    cube8 = create_unit_cube(stiff_n)
+    eng = MicroEngine(cube8, bs=3, coeff_kind="tensor4", dtype=torch.float64, device=device,
+                      solver="pcg", pcg_strategy="matfree", cell_prec="fft", pcg_tol=1e-9,
+                      pcg_maxiter=6000)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        A, X, it = eng.tensors_chunk_pcg(stiff, c3, with_correctors=True, with_iters=True,
+                                         implicit_diff=False)
+    secs = time.perf_counter() - t0
+    good = ~(X.abs().amax(dim=1) == 0).any(dim=1)
+    A_ch = _f64_astar(cube8, stiff, c3, bs=3, coeff_kind="tensor4")
+    rec = {"phase": "micro_fft_stiff", "n_reduced": eng.n_reduced, "iterations": int(it),
+           "seconds": secs, "fallback_cells": int((~good).sum()),
+           "converged_rel_diff_cholesky": rel_diff(A[good], A_ch[good]) if good.any() else None}
+    emit(rec)
+    out["d"] = rec
+    a, b, c, d = out["a"], out["b"], out["c"], out["d"]
+    astar_ok = a["astar_rel_diff_f64"] <= FFT_ASTAR_RTOL or (
+        a["k1_route_astar_rel_diff_f64"] > FFT_ASTAR_RTOL
+        and a["astar_rel_diff_f64"] <= 2.0 * a["k1_route_astar_rel_diff_f64"])
+    ok = (astar_ok and all(r["finite"] and r["k1_launches"] == 0 and r["fallback_cells"] == 0
+                           and r["diverged_cells"] == 0 and r["nan_cells"] == 0
+                           for r in (a, b))
+          and a["zero_corrector_cells"] == 0 and a["u_rel_diff_f64"] <= FFT_U_RTOL
+          and b["astar_rel_diff_f64"] <= FFT_ASTAR_RTOL and b["u_rel_diff_f64"] <= FFT_U_RTOL
+          and b["macro_method"] == "cg" and k2_main >= 1 and c["finite"]
+          and c["densek_rel_diff_k3_route_f64"] <= FFT_ASTAR_RTOL
+          and c["matfree_rel_diff_k3_route_f64"] <= FFT_ASTAR_RTOL
+          and c["densek_vs_matfree"] <= FFT_STRATEGY_RTOL
+          and (d["converged_rel_diff_cholesky"] is None
+               or d["converged_rel_diff_cholesky"] <= FFT_STIFF_RTOL))
+    if not ok:
+        raise AssertionError(f"FFT cell preconditioner failed its checks: {out}")
+    return {"dia_spmv": k2_main}
+
+
+def phase_p2(device, checked: int = 4096, cells: int = 8640, chunk: int = 1080,
+             flagship_n: int = 512, fem_ns=(8, 16, 31), cg_n: int = 256):
+    """P2 elements, float32: (a) the 512² flagship with P2 cell problems on
+    an 8² micro square (n = 256, the chunk PCG's matrix-free gather with
+    K0⁻¹, no K1; multigrid CG through K2): A* of ``checked`` cells and u
+    against float64, A* beside the P1 16² cells'; (b) the 20x6x6 beam with
+    P2 cells on the 2³ cube (n = 192, s = 6) through K3: A* and u against
+    float64; then the 8640-cell bench-size stage on the P2 2³ and the P1 4³
+    cube in turns; (c) PoissonFEM(degree=2) on −Δu = 2π² sin πx sin πy
+    (Dirichlet data from Function.interpolate on the card): L2 errors and
+    rates at 8², 16², 31² (direct), the 256² system (263,169 dofs) by the
+    Jacobi CG against its float64 solve, and pc='auto' raising for A10."""
+    import numpy as np
+    import torch
+
+    from hommx_tpu_torch import (Function, FunctionSpace, MicroEngine, PoissonFEM, PoissonHMM,
+                                 SolverOptions, create_unit_cube, create_unit_square,
+                                 dirichletbc)
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.models.common import assemble_macro_system, merge_bcs
+    from hommx_tpu_torch.models.fem import fem_system
+    from hommx_tpu_torch.ops import chol_kernel, dia, solvers
+    from hommx_tpu_torch.ops.function_space import boundary_dofs
+    from hommx_tpu_torch.utils.validation import l2_norm_space
+
+    out = {}
+    # (a) the flagship with P2 cells
+    micro8 = create_unit_square(8, 8)
+    t0 = time.perf_counter()
+    hmm = PoissonHMM(create_unit_square(flagship_n, flagship_n), flagship, 1.0, micro8, 2**-5,
+                     SolverOptions(rtol=1e-5, maxiter=20000), dtype=torch.float32,
+                     device=device, chunk=2048, dedup_cells=False,
+                     engine_kwargs={"micro_degree": 2})
+    rec, u = _hmm_record("p2_flagship", hmm, time.perf_counter() - t0)
+    k2_main = rec["dia_spmv_launches"]
+    idx = torch.linspace(0, rec["num_cells"] - 1, checked, device=device).round().long()
+    c = hmm._sys.centers[idx]
+    A64 = _f64_astar(micro8, flagship, c, micro_degree=2)
+    A_p1 = _f64_astar(create_unit_square(16, 16), flagship, c)
+    rec.update({"checked_cells": checked, "k1_route": hmm._engine._k1_route(),
+                "stencil": hmm._engine._get_stencil() is not None,
+                "astar_rel_diff_f64": rel_diff(hmm.homogenized_tensors()[idx], A64),
+                "u_rel_diff_f64": rel_diff(u, _own_system_f64(hmm)),
+                "u_rel_diff_f64_assembly": rel_diff(u, _f64_solution(hmm)),
+                "p1_16_rel_diff_f64": rel_diff(A_p1, A64),
+                "astar_mean_p2_8": A64.mean(dim=0).tolist(),
+                "astar_mean_p1_16": A_p1.mean(dim=0).tolist()})
+    emit(rec)
+    out["a"] = rec
+    # (b) the beam with P2 cells through K3
+    t0 = time.perf_counter()
+    beam = make_beam(device, micro_n=2, engine_kwargs={"micro_degree": 2})
+    rec, u = _hmm_record("p2_beam", beam, time.perf_counter() - t0)
+    k3_main = rec["chol_solve_launches"]
+    cube2 = create_unit_cube(2)
+    A64 = _f64_astar(cube2, beam_coeff(False), beam._sys.centers, beam_rotation, bs=3,
+                     coeff_kind="tensor4", micro_degree=2)
+    mask, bvals = merge_bcs(beam._bcs, beam.function_space.num_dofs, torch.float64, device)
+    u64 = _f64_solution_of(beam, *assemble_macro_system(beam._sys, A64, beam._b_load, mask,
+                                                        bvals, macro_f64=True))
+    rec.update({"astar_rel_diff_f64": rel_diff(beam.homogenized_tensors(), A64),
+                "u_rel_diff_f64": rel_diff(u, u64)})
+    # the bench-size micro stage, P2 2³ and P1 4³ in turns
+    centers = torch.as_tensor(np.random.default_rng(1).uniform(0, 1, (cells, 3)),
+                              dtype=torch.float32, device=device)
+    engs = {"p2_2": MicroEngine(cube2, bs=3, coeff_kind="tensor4", dtype=torch.float32,
+                                device=device, micro_degree=2),
+            "p1_4": MicroEngine(create_unit_cube(4), bs=3, coeff_kind="tensor4",
+                                dtype=torch.float32, device=device)}
+    stage = {key: [] for key in engs}
+    coeff_x = beam_coeff(True)
+    for key in ("p2_2", "p1_4", "p1_4", "p2_2"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            A = engs[key].tensors_for_centers(coeff_x, centers, G_fn=beam_rotation, chunk=chunk)
+        torch.cuda.synchronize()
+        stage[key].append(time.perf_counter() - t0)
+        rec.setdefault("stage_finite", True)
+        rec["stage_finite"] &= bool(torch.isfinite(A).all())
+    rec.update({"stage_cells": cells, "stage_chunk": chunk, "stage_seconds": stage,
+                "stage_n_reduced": {k: e.n_reduced for k, e in engs.items()}})
+    emit(rec)
+    out["b"] = rec
+    # (c) P2 FEM
+    f = lambda x: 2 * torch.pi**2 * torch.sin(torch.pi * x[0]) * torch.sin(torch.pi * x[1])  # noqa
+    exact = lambda x: torch.sin(torch.pi * x[0]) * torch.sin(torch.pi * x[1])  # noqa: E731
+
+    def fem(n, opts=None):
+        V = FunctionSpace(create_unit_square(n, n), 1, degree=2)
+        g = Function(V, device=device).interpolate(exact)
+        model = PoissonFEM(V.mesh, lambda x: 1.0, f, opts, degree=2, dtype=torch.float32,
+                           device=device)
+        model.set_boundary_conditions([dirichletbc(g, boundary_dofs(V))])
+        return model, g
+
+    errs, rows = [], []
+    for n in fem_ns:
+        model, g = fem(n)
+        u = model.solve()
+        errs.append(l2_norm_space(u, exact=exact))
+        rows.append({"n": n, "dofs": model.function_space.num_dofs, "l2_error": errs[-1],
+                     "method": u.macro_method, "interpolated_on": str(g.array.device)})
+    rates = [math.log(errs[i] / errs[i + 1]) / math.log(rows[i + 1]["n"] / rows[i]["n"])
+             for i in range(2)]
+    jac = SolverOptions(method="cg", pc="jacobi", rtol=1e-5, maxiter=20000)
+    model, _ = fem(cg_n, jac)
+    k2 = dia.KERNEL.launches
+    u = model.solve()
+    torch.cuda.synchronize()
+    sys = u.system
+    mask, bvals = merge_bcs(model._bcs, sys.V.num_dofs, torch.float64, device)
+    vals, b = fem_system(sys, lambda x: 1.0, "scalar", f, mask, bvals)
+    vals, b = vals.float().double(), b.float().double()
+    x64, k64, _ = solvers.solve_ell(vals, sys.cols, b,
+                                    SolverOptions(method="cg", pc="jacobi", rtol=1e-12,
+                                                  atol=0.0, maxiter=100000), dia=sys.dia)
+    rec = {"phase": "p2_fem", "rows": rows, "rates": rates, "cg_dofs": sys.V.num_dofs,
+           "cg_iterations": u.solver_iterations, "cg_residual": u.solver_residual,
+           "cg_seconds": u.diagnostics, "dia_view": None if sys.dia is None
+           else len(sys.dia.offsets), "k2_launches": dia.KERNEL.launches - k2,
+           "f64_iterations": k64, "u_rel_diff_f64": rel_diff(u.array, x64),
+           "cg_l2_error": l2_norm_space(u, exact=exact)}
+    try:
+        fem(cg_n, SolverOptions(method="cg"))[0].solve()
+        rec["pc_auto"] = "did not raise"
+    except NotImplementedError as err:
+        rec["pc_auto"] = str(err)[:200]
+    emit(rec)
+    out["c"] = rec
+    a, b, c = out["a"], out["b"], out["c"]
+    ok = (all(r["finite"] and r["k1_launches"] == 0 and r["diverged_cells"] == 0
+              and r["nan_cells"] == 0 for r in (a, b))
+          and not a["k1_route"] and not a["stencil"] and k2_main >= 1 and k3_main >= 1
+          and a["astar_rel_diff_f64"] <= SLICE_ASTAR_RTOL and a["u_rel_diff_f64"] <= SLICE_MG_RTOL
+          and b["astar_rel_diff_f64"] <= GOLDEN_ELASTICITY_RTOL
+          and b["u_rel_diff_f64"] <= GOLDEN_ELASTICITY_RTOL and b["stage_finite"]
+          and min(c["rates"]) >= P2_FEM_RATE and c["u_rel_diff_f64"] <= P2_FEM_CG_RTOL
+          and c["cg_iterations"] < jac.maxiter and "A10" in c["pc_auto"])
+    if not ok:
+        raise AssertionError(f"P2 elements failed their checks: {out}")
+    return {"dia_spmv": k2_main, "chol_solve": k3_main}
+
+
+#: the phases of the periodic, FEM and per-cell slice, of differentiation,
+#: of the micro engine's other routes and of the FFT and P2 routes, in
+#: their order
 NEW_PHASES = (phase_fem_flagship, phase_golden_periodic_fem, phase_periodic_identity,
               phase_elasticity_periodic, phase_chol_batched, phase_kc_gather,
               phase_pipeline_grad, phase_pipeline_grad_elasticity, phase_fem_grad,
-              phase_micro_highres, phase_micro_routes)
+              phase_micro_highres, phase_micro_routes, phase_micro_fft, phase_p2)
 
 
 def main(argv) -> int:

@@ -8,10 +8,11 @@ whose matvec is the DIA SpMV CUDA kernel), the elasticity path,
 ``LinearElasticityHMM`` and ``LinearElasticityStratifiedHMM`` (the chunk
 Cholesky micro route with its batched factor+solve CUDA kernel), periodic
 homogenization (``PoissonPeriodicHMM``, ``ElasticityPeriodicHMM``), the
-single-scale P1 FEM (``fem_solve``, ``PoissonFEM``,
-``LinearElasticityFEM``), the per-cell micro route
-(``MicroEngine.cell_tensor``, ``MicroEngine.solve_periodic``) and
-``helpers``.  Every model takes the reference's constructor arguments and
+single-scale P1 and P2 FEM (``fem_solve``, ``PoissonFEM``,
+``LinearElasticityFEM``) with the DOLFINx-style ``functionspace`` and
+``Function``, every micro route (the per-cell one, ``cell_tensor``,
+``solve_periodic``, the FFT and multigrid cell preconditioners, P2 cell
+problems) and ``helpers``.  Every model takes the reference's constructor arguments and
 defaults: cell dedup on (``dedup_cells``, ``dedup_verify``),
 ``SolverOptions`` or PETSc-style dicts for both solve levels.
 The solve is differentiable end to end: ``BaseHMM.build_pipeline``,
@@ -54,6 +55,7 @@ from hommx_tpu_torch.ops.function_space import (
     Function,
     FunctionSpace,
     dirichletbc,
+    functionspace,
     locate_dofs_geometrical,
 )
 from hommx_tpu_torch.utils.options import SolverOptions
@@ -86,6 +88,7 @@ __all__ = [
     "DirichletBC",
     "Function",
     "FunctionSpace",
+    "functionspace",
     "dirichletbc",
     "locate_dofs_geometrical",
     "SolverOptions",

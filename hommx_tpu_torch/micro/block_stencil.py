@@ -103,7 +103,7 @@ def build_block_stencil(engine) -> Optional[BlockStencil]:
         return None
     shape, coords = tc
     red = np.asarray(engine.pmap.reduced_index)
-    red_cells = red[np.asarray(engine.mesh.cells)]  # (nE, nnd) reduced node per local node
+    red_cells = red[np.asarray(engine._node_cells)]  # (nE, nnd) reduced node per local node
     sh = np.asarray(shape)
     # per (e, a, b): offset Δ = grid(node(e, b)) − grid(node(e, a)) mod shape
     p = red_cells[:, :, None]
@@ -142,7 +142,7 @@ def block_stencil_weights(st: BlockStencil, engine, A_K: torch.Tensor) -> torch.
 
     C = A_K.shape[0]
     bs = st.bs
-    nE, nnd = engine.mesh.cells.shape
+    nE, nnd = np.asarray(engine._node_cells).shape
     n_nodes = int(np.prod(st.shape))
     K = st.offsets.shape[0]
     dt, dev = A_K.dtype, A_K.device

@@ -12,11 +12,13 @@ plain version on the CPU.
 
 The other PCG configurations (:func:`_tensors_chunk_general`, plain torch
 as in the reference): the dense per-cell Kc (``pcg_strategy='densek'``),
-the periodic stencil with the torus multigrid (``cell_prec='mg'``), the
-block stencil of vector and matrix-coefficient problems
-(micro/block_stencil.py), the low-rank shared Grams (``coeff_rank``), and
-the matrix-free gather matvec; preconditioned by K0⁻¹ or the V-cycle
-(micro/mg_prec.py).  The cell axis C is minor: Krylov state (n, s, C).
+the periodic stencil, the block stencil of vector and matrix-coefficient
+problems (micro/block_stencil.py), the low-rank shared Grams
+(``coeff_rank``), and the matrix-free gather matvec (P2 cells, unstructured
+meshes); preconditioned by K0⁻¹, the FFT symbol of the cell's mean
+coefficient (``cell_prec='fft'``, :func:`_fft_prec`, ``torch.fft``) or the
+torus-multigrid V-cycle (``cell_prec='mg'``, micro/mg_prec.py).  The cell
+axis C is minor: Krylov state (n, s, C).
 
 Cholesky route (elasticity): map the coefficient blocks by the per-cell
 strain map T, assemble the per-cell reduced operators Kc (C, n, n) by the
@@ -39,8 +41,7 @@ equilibrated, one K3 launch solves the whole batch, and A* is contracted
 per chunk.  The other opt-in switches (``HOMMX_ASTAR``,
 ``HOMMX_CHOL_REFINE``, ``HOMMX_CHOL_KERNEL``, ``HOMMX_CHOL_BODY``,
 ``HOMMX_STENCIL_PCG``) are not ported: the port takes their defaults
-(bilinear, refinement on, the kernels).  The FFT cell preconditioner is
-ROADMAP A9c.
+(bilinear, refinement on, the kernels).
 """
 
 from __future__ import annotations
@@ -87,6 +88,7 @@ from hommx_tpu_torch.micro.stencil import (
 from hommx_tpu_torch.micro.stencil_pcg import stencil_pcg, stencil_pcg_plain
 from hommx_tpu_torch.ops.assembly import GatherPlan, gather_sum, invert_scatter
 from hommx_tpu_torch.ops.chol_kernel import fused_chol_solve, fused_chol_solve_plain
+from hommx_tpu_torch.ops.elements import _inv_and_det
 from hommx_tpu_torch.ops.solvers import implicit_linear_solve
 
 __all__ = [
@@ -260,8 +262,8 @@ def tensors_chunk_pcg(eng, coeff, centers, G_fn=None, with_correctors=False,
 def _tensors_chunk_general(eng, coeff, centers, G_fn, with_correctors, implicit_diff,
                            with_iters):
     """The chunk PCG in plain torch (``hommx_tpu/micro/chunk.py::
-    tensors_chunk_pcg`` but K1's branch and the FFT symbol), the Krylov
-    state (n, s, C) with the cell axis minor.  The matvec is, in the
+    tensors_chunk_pcg`` but K1's branch), the Krylov state (n, s, C) with
+    the cell axis minor.  The matvec is, in the
     reference's order of precedence:
 
     - the dense per-cell Kc (``pcg_strategy='densek'``, non-scalar
@@ -274,11 +276,12 @@ def _tensors_chunk_general(eng, coeff, centers, G_fn, with_correctors, implicit_
     - the matrix-free gather D̃ᵀ(A_K ∘ D̃·) (``HOMMX_MICRO_MATVEC=matfree``
       or an unstructured mesh).
 
-    The preconditioner is the shared K0⁻¹, or the torus multigrid V-cycle
-    built on the unscaled stencil weights and applied to the scaled system
-    by the congruence S⁻¹V(S⁻¹·).  The operator is given to the implicit
-    rule as a function of its tensors, so the gradient reaches the
-    coefficient through it."""
+    The preconditioner is the shared K0⁻¹, the FFT symbol of the cell's
+    mean coefficient (:func:`_fft_prec`), or the torus multigrid V-cycle
+    built on the unscaled stencil weights; the last two approximate the
+    unscaled K⁻¹ and go onto the scaled system by the congruence
+    S⁻¹P(S⁻¹·).  The operator is given to the implicit rule as a function
+    of its tensors, so the gradient reaches the coefficient through it."""
     C = centers.shape[0]
     nE, r, s, n = eng.nE, eng.r, eng.s, eng.n_reduced
     raw = torch.func.vmap(lambda x: eng._raw_coeff(coeff, x))(centers)
@@ -286,6 +289,7 @@ def _tensors_chunk_general(eng, coeff, centers, G_fn, with_correctors, implicit_
     scalar_sep = eng.coeff_kind == "scalar"
     densek = eng.pcg_strategy == "densek" and not scalar_sep
     mg = eng.cell_prec == "mg"
+    fft = eng.cell_prec == "fft"
     keep = (~eng.pin_mask).to(eng.dtype)[:, None, None]
     pinf = eng.pin_mask.to(eng.dtype)[:, None, None]
     E = eng.E
@@ -302,7 +306,8 @@ def _tensors_chunk_general(eng, coeff, centers, G_fn, with_correctors, implicit_
         if T is not None and T.ndim == 2:
             T = T.expand(C, r, r)
         B_Phi = T
-        if not densek or mg:
+        # the FFT symbol reads A_K's mean, so the Kron fast path keeps it too
+        if not densek or mg or fft:
             A_K = Ae if T is None else torch.einsum("cmr,cemt,ctn->cern", T, Ae, T)
 
     stencil = eng._get_stencil() if scalar_sep else None
@@ -382,7 +387,14 @@ def _tensors_chunk_general(eng, coeff, centers, G_fn, with_correctors, implicit_
     else:
         sc = _scale(eng, dp if dp is not None else _exact_diag(eng, A_K), eng._get_K0diag())
 
-    if mg:
+    if fft:
+        base = _fft_prec(eng, a if scalar_sep else None, B_K, A_K)
+        if sc is None:
+            prec = base
+        else:
+            inv_sc = 1.0 / sc.detach()
+            prec = lambda R: inv_sc * base(inv_sc * R)  # noqa: E731
+    elif mg:
         src = stencil if scalar_sep else bst
         levels = eng._get_mg_levels(src.offsets, src.shape) if src is not None else None
         if levels is None:
@@ -430,6 +442,130 @@ def _tensors_chunk_general(eng, coeff, centers, G_fn, with_correctors, implicit_
         APhi = Phi * a_w if scalar_sep else torch.einsum("cert,etsc->ersc", Ae, Phi)
         A = eng._expand_astar(torch.einsum("ernc,ermc->cnm", Phi, APhi) / eng.volume_Y)
     return _outputs(A, X, iters, with_correctors, with_iters)
+
+
+def _fft_prec(eng, a, B_K, A_K):
+    """The FFT cell preconditioner R (n, s, C) -> (n, s, C): the exact
+    inverse of the cell operator at its volume-mean coefficient, from the
+    DFT symbols of :func:`_get_fft_symbols` (``torch.fft``; approximates
+    the unscaled K⁻¹).
+
+    Scalar coefficients: the symbol of ā·B_K per cell (ā the mean of the
+    reduced coefficient ``a`` (C, nE), B_K = GᵀG or the identity), its
+    zero frequency (exactly 0: the constant nullspace, pinned) replaced by
+    its largest magnitude.  Block problems: the (bs, bs) complex Hermitian
+    symbol per frequency of the symmetrized mean of ``A_K`` (C, nE, r, r),
+    inverted in closed form; a frequency whose determinant is below 1e-10
+    of (tr/bs)^bs (the rigid translations at frequency 0) takes (tr/bs)·I,
+    tr the largest trace over the frequencies."""
+    syms, grid = eng._get_fft_symbols()
+    d, n = eng.d, eng.n_reduced
+    C = A_K.shape[0] if a is None else a.shape[0]
+    dims = tuple(range(d))
+    if a is not None:
+        nsym = syms.shape[0]
+        if B_K is None:
+            coords = torch.cat([torch.ones((C, d), dtype=eng.dtype, device=eng.device),
+                                torch.zeros((C, nsym - d), dtype=eng.dtype, device=eng.device)],
+                               dim=1)
+        else:
+            iu = torch.triu_indices(d, d, 1, device=B_K.device)
+            coords = torch.cat([torch.diagonal(B_K, dim1=1, dim2=2), B_K[:, iu[0], iu[1]]], dim=1)
+        abar = a.detach().sum(dim=1) / eng.volume_Y  # (C,) mean coefficient
+        sym_c = torch.einsum("ck,k...->c...", coords.detach() * abar[:, None], syms)
+        smax = sym_c.abs().amax(dim=tuple(range(1, 1 + d)), keepdim=True)
+        sym_c = torch.where(sym_c.abs() > 1e-8 * smax, sym_c, smax)
+        sym_b = sym_c.movedim(0, -1)[..., None, :]  # (*grid, 1, C)
+
+        def prec(R):
+            Rh = torch.fft.fftn(R.reshape(*grid, -1, C), dim=dims)
+            return torch.fft.ifftn(Rh / sym_b, dim=dims).real.to(R.dtype).reshape(n, -1, C)
+
+        return prec
+    bsz, r = eng.bs, eng.r
+    Bbar = A_K.detach().sum(dim=1) / eng.volume_Y  # (C, r, r)
+    Bbar = 0.5 * (Bbar + Bbar.transpose(1, 2))
+    iu = torch.triu_indices(r, r, 1, device=Bbar.device)
+    coords = torch.cat([torch.diagonal(Bbar, dim1=1, dim2=2), Bbar[:, iu[0], iu[1]]],
+                       dim=1).to(syms.dtype)
+    S = torch.einsum("ck,kab...->...cab", coords, syms)  # (*grid, C, bs, bs)
+    tr = torch.diagonal(S, dim1=-2, dim2=-1).sum(dim=-1)  # (*grid, C)
+    alpha = (tr.abs().amax(dim=dims) / bsz + 1e-30)[(None,) * d + (slice(None), None, None)]
+    _, det = _inv_and_det(S)
+    bad = (det.abs() < 1e-10 * alpha[..., 0, 0] ** bsz)[..., None, None]
+    eye = torch.eye(bsz, dtype=S.dtype, device=S.device)
+    inv, _ = _inv_and_det(torch.where(bad, alpha * eye, S))
+    invc = inv.movedim(d, -1)[(slice(None),) * d + (None,)]  # (*grid, 1, bs_i, bs_j, C)
+
+    def prec(R):
+        s = R.shape[1]
+        Rh = torch.fft.fftn(R.reshape(*grid, bsz, s, C), dim=dims)
+        Rv = Rh.movedim(-3, -2)  # (*grid, s, bs_j, C)
+        Xv = (invc * Rv[..., None, :, :]).sum(dim=-2)  # (*grid, s, bs_i, C)
+        out = torch.fft.ifftn(Xv.movedim(-2, -3), dim=dims).real
+        return out.to(R.dtype).reshape(n, s, C)
+
+    return prec
+
+
+def _get_fft_symbols(eng):
+    """Cached DFT symbols of the reduced periodic operator for a basis of
+    constant coefficients: (syms, grid), syms (nsym, *grid) real for a
+    scalar problem (the circulant stencil is symmetric), (nsym, bs, bs,
+    *grid) complex Hermitian per frequency for a block one, nsym = r +
+    r(r−1)/2 spanning the symmetric (r, r) coefficient blocks; the symbol
+    of any constant block is the matching linear combination.  Built on
+    the host in float64 from unit impulses through the element operators
+    (as the reference, from the compute-dtype ``Draw``), then copied once
+    to the device in the engine's dtype (complex64 for a float32 block
+    problem).  Raises ValueError unless the micro mesh is a structured
+    box with P1 elements whose reduced dofs form the torus grid."""
+    if eng._fft_syms is None:
+        st = eng.mesh.structure
+        if st is None or eng.micro_degree != 1:
+            raise ValueError(
+                "cell_prec='fft' requires a structured box micro mesh and P1 micro elements"
+            )
+        shape = tuple(int(x) for x in np.asarray(st.shape))
+        bs, r, n = eng.bs, eng.r, eng.n_reduced
+        if int(np.prod(shape)) * bs != n:
+            raise ValueError("reduced dof space is not the torus grid")
+        basis = []
+        for i in range(r):
+            E = np.zeros((r, r))
+            E[i, i] = 1.0
+            basis.append(E)
+        for i in range(r):
+            for j in range(i + 1, r):
+                E = np.zeros((r, r))
+                E[i, j] = E[j, i] = 1.0
+                basis.append(E)
+        wsum = np.asarray(eng.wq, dtype=np.float64).sum(axis=1)
+        D64 = eng.Draw.detach().cpu().numpy().astype(np.float64)  # (nE, r, nbl)
+        l2r = eng.loc2red_np
+        syms = []
+        for B in basis:
+            Ae = wsum[:, None, None] * B[None]
+            cols = []
+            for j in range(bs):  # unit impulse at node 0, component j
+                e0 = np.zeros(n)
+                e0[j] = 1.0
+                Dp = np.einsum("erl,el->er", D64, e0[l2r])
+                wl = np.einsum("erl,er->el", D64, np.einsum("ert,et->er", Ae, Dp))
+                col = np.zeros(n)
+                np.add.at(col, l2r.reshape(-1), wl.reshape(-1))
+                cols.append(col.reshape(shape + (bs,)))
+            S = np.fft.fftn(np.stack(cols, axis=-1), axes=tuple(range(len(shape))))
+            if bs == 1:
+                syms.append(S.real[..., 0, 0])
+            else:
+                syms.append(np.moveaxis(S, (-2, -1), (0, 1)))  # (bs_out, bs_in, *grid)
+        if bs == 1:
+            dt = eng.dtype
+        else:
+            dt = torch.complex64 if eng.dtype == torch.float32 else torch.complex128
+        eng._fft_syms = (torch.as_tensor(np.stack(syms), dtype=dt, device=eng.device), shape)
+    return eng._fft_syms
 
 
 def tensors_chunk_plain(eng, coeff, centers, G_fn=None):

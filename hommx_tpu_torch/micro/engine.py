@@ -1,5 +1,5 @@
 """The batched micro cell-problem engine (torch port of
-``hommx_tpu/micro/engine.py``; P1 problems on structured box cells).
+``hommx_tpu/micro/engine.py``; P1 and P2 cell problems).
 
 For every macro cell center c_T:
 
@@ -7,16 +7,21 @@ For every macro cell center c_T:
     K_c X = F_c                             # periodic cell problems
     A*_c  = (1/|Y|) Σ_e (E + T D_e X)ᵀ Ā_e (E + T D_e X)
 
-Periodicity is eliminated through the reduced vertex index
+Periodicity is eliminated through the reduced node index
 (micro/periodic.py); the nullspace is removed by pinning the dofs of reduced
-vertex 0.  ``tensors_for_centers`` picks a route by the reference's rule:
+node 0.  P2 cell problems (``micro_degree=2``) fold the edge midpoints by
+the vertices' rule and turn every (element, quadrature point) pair into an
+"effective element" with constant gradients, so nE = ne·nq and every
+downstream stage runs unchanged (micro/percell.py::build_operators).
+``tensors_for_centers`` picks a route by the reference's rule:
 
 - the chunk PCG (micro/chunk.py::tensors_chunk_pcg) for ``solver='pcg'``
-  with ``pcg_strategy='matfree'``, ``cell_prec='mg'`` or a declared
-  ``coeff_rank``: the scalar periodic stencil with the shared K0⁻¹, whose
-  Krylov loop is the CUDA kernel K1; otherwise the stencil, the block
-  stencil (micro/block_stencil.py), the matrix-free gather, the low-rank or
-  the dense-K matvec, preconditioned by K0⁻¹ or the torus multigrid
+  with ``pcg_strategy='matfree'``, ``cell_prec`` 'fft' or 'mg', or a
+  declared ``coeff_rank``: the scalar periodic stencil with the shared
+  K0⁻¹, whose Krylov loop is the CUDA kernel K1; otherwise the stencil,
+  the block stencil (micro/block_stencil.py), the matrix-free gather, the
+  low-rank or the dense-K matvec, preconditioned by K0⁻¹, the FFT symbol
+  of the cell's mean coefficient (``torch.fft``) or the torus multigrid
   (micro/mg_prec.py), in plain torch;
 - the chunk Cholesky (vector problems on ``solver='cholesky'``, s =
   d(d+1)/2 Voigt generators), whose batched direct solve is the CUDA
@@ -25,8 +30,6 @@ vertex 0.  ``tensors_for_centers`` picks a route by the reference's rule:
 - the per-cell route (micro/percell.py) for the rest — the float64 scalar
   default, matrix coefficients, ``pcg_strategy='densek'`` — dense K and
   Cholesky or a block-PCG, batched over a chunk with ``torch.linalg``.
-
-Not ported: ``cell_prec='fft'`` (ROADMAP A9c) and P2 micro elements (A9d).
 
 Coefficients are torch callables ``A(x, y)`` on 1-D points, evaluated with
 nested ``torch.func.vmap``; quadrature coordinates stay float64 whatever
@@ -44,10 +47,11 @@ import torch
 from hommx_tpu_torch.config import as_device, default_dtype
 from hommx_tpu_torch.meshes.simplex import SimplexMesh
 from hommx_tpu_torch.micro.krylov import _map_chunked
-from hommx_tpu_torch.micro.periodic import build_periodic_map
+from hommx_tpu_torch.micro.periodic import build_periodic_map, build_periodic_map_points
 from hommx_tpu_torch.micro.stencil import micro_matvec_mode, torus_coords
 from hommx_tpu_torch.micro.stencil_pcg import check_k1_fits
 from hommx_tpu_torch.ops.assembly import gather_sum
+from hommx_tpu_torch.ops.function_space import FunctionSpace
 
 __all__ = ["MicroEngine"]
 
@@ -94,11 +98,15 @@ class MicroEngine:
         matmul_precision: accepted for the reference's signature; the port
             computes float32 matmuls in full float32 whatever it says
             (TF32 stays off).
-        micro_degree: 1 (P2 micro elements, 2, are ROADMAP A9d).
+        micro_degree: 1 (P1) or 2 (P2 micro elements: no periodic stencil,
+            so no K1 and no 'fft' or 'mg' cell preconditioner).
         coeff_rank: declared rank of a low-rank scalar coefficient
             Σ_k f_k(x) g_k(y) (0: off); see :meth:`check_coeff_rank`.
-        cell_prec: 'k0inv' (the shared K0⁻¹) | 'mg' (the torus multigrid
-            V-cycle, structured box meshes) | 'fft' (ROADMAP A9c).
+        cell_prec: 'k0inv' (the shared K0⁻¹) | 'fft' (the DFT symbol of
+            the cell's volume-mean coefficient, exact for a constant
+            coefficient; structured box meshes, P1; weak on strongly
+            heterogeneous elasticity) | 'mg' (the torus multigrid V-cycle,
+            structured box meshes, P1).
         chol_backend: 'auto' | 'xla' | 'blocked', accepted for the
             reference's signature: on every backend the port's chunk
             Cholesky is the kernel K3 on the card (float32) and the plain
@@ -107,10 +115,11 @@ class MicroEngine:
             scalar problems, 4 for vector ones).
 
     Routes (``tensors_for_centers``): the chunk PCG (micro/chunk.py) for
-    ``solver='pcg'`` with a matrix-free strategy, an MG cell
+    ``solver='pcg'`` with a matrix-free strategy, an FFT or MG cell
     preconditioner or a declared coefficient rank — the scalar stencil
-    PCG (kernel K1 on the card), the block stencil or matrix-free gather
-    matvec, the dense-K matvec; the chunk Cholesky (kernel K3 on the card)
+    PCG (kernel K1 on the card, K0⁻¹ only), the block stencil or
+    matrix-free gather matvec, the dense-K matvec, with the K0⁻¹, FFT or
+    multigrid preconditioner; the chunk Cholesky (kernel K3 on the card)
     for vector problems on ``solver='cholesky'``; the per-cell route
     (micro/percell.py, ``torch.linalg``) for the rest.
     """
@@ -142,8 +151,6 @@ class MicroEngine:
             raise ValueError("bs must be 1 (scalar) or dim (vector)")
         if micro_degree not in (1, 2):
             raise ValueError("micro_degree must be 1 or 2")
-        if micro_degree == 2:
-            raise NotImplementedError("P2 micro elements are not ported yet (ROADMAP A9d)")
         if coeff_kind not in ("scalar", "matrix", "tensor4"):
             raise ValueError("coeff_kind must be 'scalar', 'matrix' or 'tensor4'")
         if coeff_kind not in (("scalar", "matrix") if bs == 1 else ("tensor4",)):
@@ -153,11 +160,6 @@ class MicroEngine:
             )
         if cell_prec not in ("k0inv", "fft", "mg"):
             raise ValueError("cell_prec must be 'k0inv', 'fft' or 'mg'")
-        if cell_prec == "fft":
-            raise NotImplementedError(
-                "cell_prec='fft', the FFT-symbol cell preconditioner, is not ported yet "
-                "(ROADMAP A9c)"
-            )
         if chol_backend not in ("auto", "xla", "blocked"):
             raise ValueError("chol_backend must be 'auto'|'xla'|'blocked'")
         self.mesh = micro_mesh
@@ -166,14 +168,22 @@ class MicroEngine:
         self.bs = bs
         self.coeff_kind = coeff_kind
         self.quad_degree = int(quad_degree)
-        self.micro_degree = 1
+        self.micro_degree = int(micro_degree)
         self.d = d
         self.r = d if bs == 1 else d * d  # gradient components per element
         # generator problems SOLVED per cell: d for scalar, the Voigt set
         # d(d+1)/2 for elasticity, expanded back to d² on output
         self.s = d if bs == 1 else d * (d + 1) // 2
         self.s_full = d if bs == 1 else d * d
-        self.pmap = build_periodic_map(micro_mesh)
+        if self.micro_degree == 2:
+            # the P2 nodes (vertices, then edge midpoints) fold by the
+            # vertices' rule
+            V = FunctionSpace(micro_mesh, 1, degree=2)
+            self._node_cells = V.cell_nodes()
+            self.pmap = build_periodic_map_points(V.tabulate_dof_coordinates())
+        else:
+            self._node_cells = micro_mesh.cells
+            self.pmap = build_periodic_map(micro_mesh)
         self.n_reduced = self.pmap.n_reduced * bs
         self.volume_Y = micro_mesh.volume()
         if assembly == "auto":
@@ -210,6 +220,7 @@ class MicroEngine:
         self._K0inv = None
         self._K0diag = None
         self._kron_M = None
+        self._fft_syms = None
         # the kernels' size limits, checked before any device or coefficient work
         on_card_f32 = self.device.type == "cuda" and self.dtype == torch.float32
         if on_card_f32 and self._chol_route():
@@ -230,11 +241,11 @@ class MicroEngine:
     # -- routes ----------------------------------------------------------------
     def _use_chunk(self) -> bool:
         """Whether ``solver='pcg'`` runs the chunk PCG (the per-cell route
-        takes the rest): a matrix-free strategy, an MG cell preconditioner,
-        or a declared rank of a scalar coefficient."""
+        takes the rest): a matrix-free strategy, an FFT or MG cell
+        preconditioner, or a declared rank of a scalar coefficient."""
         return (
             self.pcg_strategy == "matfree"
-            or self.cell_prec == "mg"
+            or self.cell_prec in ("fft", "mg")
             or (self.coeff_rank > 0 and self.coeff_kind == "scalar")
         )
 
@@ -566,6 +577,11 @@ class MicroEngine:
         V = a[anchors]
         U = np.linalg.pinv(V @ V.T, rcond=1e-12) @ (V @ a.T)
         return float(np.abs(a - U.T @ V).max() / max(np.abs(a).max(), 1e-300))
+
+    def _get_fft_symbols(self):
+        from hommx_tpu_torch.micro.chunk import _get_fft_symbols
+
+        return _get_fft_symbols(self)
 
     def _get_block_stencil(self):
         from hommx_tpu_torch.micro.chunk import _get_block_stencil

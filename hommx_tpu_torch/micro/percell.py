@@ -1,6 +1,6 @@
 """Static operator construction and the per-cell solve route of the micro
-engine (torch port of ``hommx_tpu/micro/percell.py``, P1, scalar and
-vector dofs).
+engine (torch port of ``hommx_tpu/micro/percell.py``, P1 and P2, scalar
+and vector dofs).
 
 ``build_operators`` runs once at engine construction on the host: the
 per-element gradient operators, the reduced dof map, the generator fields
@@ -50,37 +50,60 @@ def build_operators(eng):
     verts = torch.as_tensor(mesh.vertices, dtype=torch.float64)
     cells = torch.as_tensor(mesh.cells)
     grads, _ = cell_geometry(verts, cells)  # (ne, d+1, d)
-    xq, wq, lam_q = quad_points_physical(verts, cells, eng.quad_degree)
+    quad_degree = eng.quad_degree
+    if eng.micro_degree == 2:
+        quad_degree = max(quad_degree, 2)  # ∇P2·∇P2 integrands are quadratic
+    xq, wq, lam_q = quad_points_physical(verts, cells, quad_degree)
     ne, nq = wq.shape
     grads_np = grads.numpy()
 
-    red = eng.pmap.reduced_index  # (nv,)
-    node_cells = mesh.cells  # (ne, d+1)
-    nbl = node_cells.shape[1] * bs  # local dofs per micro element
+    red = eng.pmap.reduced_index  # (n_nodes,)
+    node_cells = eng._node_cells  # (ne, nnd): P1 vertices or P2 nodes
+    nnd = node_cells.shape[1]
+    nbl = nnd * bs  # local dofs per micro element
     eng.nbl = nbl
 
-    # local gradient operator Draw: (ne, r, nbl) — P1 gradients are
-    # elementwise constant, so quadrature folds into the element coefficient
+    if eng.micro_degree == 2:
+        # P2 gradients vary over an element, so quadrature cannot fold into
+        # the element coefficient; each (element, q) pair becomes an
+        # effective element with the constant gradients ∇φ_k(x_q) =
+        # Σ_i c[q,k,i]·∇λ_i and weight w_eq, and every later stage runs
+        # unchanged with nE = ne·nq
+        from hommx_tpu_torch.ops.p2 import p2_basis
+
+        phi, dlam = p2_basis(lam_q[:, 1:], d)  # (nq, nnd), (nq, nnd, d+1)
+        node_grads = np.einsum("qki,eid->eqkd", dlam.numpy(), grads_np).reshape(ne * nq, nnd, d)
+        node_cells = np.repeat(node_cells, nq, axis=0)  # (ne·nq, nnd)
+        eng.yq = xq.numpy().reshape(ne * nq, 1, d)
+        eng.wq = wq.numpy().reshape(ne * nq, 1)
+        # P2 basis values at the points, one row per effective element
+        eng.phi_q = np.tile(phi.numpy(), (ne, 1)).reshape(ne * nq, 1, nnd)
+        ne, nq = ne * nq, 1
+    else:
+        # P1 gradients are elementwise constant, so quadrature folds into
+        # the element coefficient
+        node_grads = grads_np
+        eng.yq = xq.numpy()  # (ne, nq, d) quadrature points (f64)
+        eng.wq = wq.numpy()  # (ne, nq) weights, sum = |Y|
+        # P1 basis values at the quadrature points (the barycentric
+        # coordinates, shared by the elements) for solve_periodic's loads
+        eng.phi_q = np.broadcast_to(lam_q.numpy()[None], (ne, nq, d + 1)).copy()
+    # local gradient operator Draw: (ne, r, nbl)
     Draw = np.zeros((ne, eng.r, nbl), dtype=np.float64)
-    for a in range(d + 1):
+    for a in range(nnd):
         if bs == 1:
-            Draw[:, :, a] = grads_np[:, a, :]
+            Draw[:, :, a] = node_grads[:, a, :]
         else:
             for i in range(bs):
                 # component i of vector dof (a, i) contributes grad_a[j] to
                 # gradient entry H_ij (row i*d + j)
-                Draw[:, i * d : (i + 1) * d, a * bs + i] = grads_np[:, a, :]
-    eng.yq = xq.numpy()  # (ne, nq, d) quadrature points (f64)
-    eng.wq = wq.numpy()  # (ne, nq) weights, sum = |Y|
-    # P1 basis values at the quadrature points (the barycentric
-    # coordinates, shared by the elements) for solve_periodic's loads
-    eng.phi_q = np.broadcast_to(lam_q.numpy()[None], (ne, nq, d + 1)).copy()
+                Draw[:, i * d : (i + 1) * d, a * bs + i] = node_grads[:, a, :]
     eng.nE, eng.nq = ne, nq
     eng.Draw_np = Draw
     eng.Draw = torch.as_tensor(Draw, dtype=eng.dtype, device=eng.device)
 
     # local -> reduced dof map (ne, nbl)
-    red_cells = red[node_cells]  # (ne, d+1)
+    red_cells = red[node_cells]  # (ne, nnd)
     if bs == 1:
         loc2red = red_cells
     else:
@@ -123,7 +146,7 @@ def build_operators(eng):
     eng.E_np = E
     eng.E = torch.as_tensor(E, dtype=eng.dtype, device=eng.device)
 
-    # nullspace pinning: the bs dofs of reduced vertex 0
+    # nullspace pinning: the bs dofs of reduced node 0
     pin = np.zeros(nred, dtype=bool)
     pin[:bs] = True
     eng.pin_np = pin
@@ -137,11 +160,13 @@ def build_operators(eng):
     )
     # built eagerly on the host: K0⁻¹ for a PCG preconditioned by it; else
     # diag(K0) alone, the reference scale of the diagonal scaling (a dense
-    # K0 of a 16³ elasticity cell is infeasible)
+    # K0 of a 16³ elasticity cell is infeasible); the FFT symbols
     if eng.solver == "pcg" and eng.cell_prec == "k0inv":
         eng._get_K0inv()
     elif eng.solver == "pcg" or eng.diag_scale:
         eng._get_K0diag()
+    if eng.cell_prec == "fft":
+        eng._get_fft_symbols()
 
 
 def _to_reduced(eng, vals: torch.Tensor) -> torch.Tensor:

@@ -90,10 +90,10 @@ def micro_matvec_mode() -> str:
 def torus_coords(engine):
     """(shape, coords) of the reduced periodic NODE space as the raster
     torus grid, or None if the micro mesh is not a structured box whose
-    reduced nodes raster-order onto the grid (callers with bs > 1 multiply
-    by the block size themselves)."""
+    reduced nodes raster-order onto the grid, or its elements are not P1
+    (callers with bs > 1 multiply by the block size themselves)."""
     st = engine.mesh.structure
-    if st is None:
+    if st is None or engine.micro_degree != 1:
         return None
     shape = tuple(int(x) for x in np.asarray(st.shape))
     n_nodes = engine.n_reduced // engine.bs

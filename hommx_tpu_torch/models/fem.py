@@ -1,4 +1,4 @@
-"""Single-scale P1 FEM solvers (torch port of ``hommx_tpu/models/fem.py``):
+"""Single-scale P1/P2 FEM solvers (torch port of ``hommx_tpu/models/fem.py``):
 the fine-mesh references that the examples validate the HMM against, and
 the convenience classes ``PoissonFEM`` and ``LinearElasticityFEM``.
 
@@ -13,8 +13,13 @@ multigrid V-cycle and K2's DIA product, on the card by default.
 ``fem_solve_fn`` is the differentiable solve ``solve(theta) -> x``: its
 macro solve carries the implicit-function rule (ops/solvers.py::
 make_implicit_solver), whose adjoint is one more solve with the same
-options and kernels.  Not ported: P2 spaces (``degree=2``, ROADMAP A9d),
-which raise ``NotImplementedError``.
+options and kernels.
+
+P2 spaces (``degree=2``, ops/p2.py) take per-quadrature-point basis
+gradients, with the quadrature raised to degree 3.  They have no geometric
+multigrid hierarchy: above ``direct_threshold`` the CG runs with
+``pc='jacobi'``, and ``pc='auto'``/``'mg'`` raise naming ROADMAP A10 (the
+reference takes aggregation AMG there).
 """
 
 from __future__ import annotations
@@ -27,7 +32,12 @@ import torch
 
 from hommx_tpu_torch.config import as_device, default_dtype, sync
 from hommx_tpu_torch.models.common import MacroSystem, macro_precs, merge_bcs, probe_coeff_kind
-from hommx_tpu_torch.ops.assembly import apply_dirichlet, assemble_ell, assemble_load_vector
+from hommx_tpu_torch.ops.assembly import (
+    apply_dirichlet,
+    assemble_ell,
+    assemble_load_vector,
+    gather_sum,
+)
 from hommx_tpu_torch.ops.elements import quad_points_physical
 from hommx_tpu_torch.ops.function_space import (
     DirichletBC,
@@ -37,6 +47,8 @@ from hommx_tpu_torch.ops.function_space import (
     dirichletbc,
     eval_at_points,
 )
+from hommx_tpu_torch.ops.p2 import p2_basis
+from hommx_tpu_torch.ops.quadrature import simplex_rule
 from hommx_tpu_torch.ops.solvers import STOP_TEST, make_implicit_solver, solve_ell
 from hommx_tpu_torch.utils.options import SolverOptions
 
@@ -50,20 +62,17 @@ __all__ = [
 ]
 
 
-def _p1_only(degree: int) -> None:
-    if int(degree) != 1:
-        raise NotImplementedError(
-            f"degree={degree}: the port's FEM is P1 only; P2 spaces (ops/p2.py) "
-            "are ROADMAP A9d"
-        )
-
-
 def _local_matrices(sys: MacroSystem, coeff: Callable, kind: str, degree: int) -> torch.Tensor:
     """Per-cell stiffness blocks (nc, nb, nb) in float64 for a pointwise
-    coefficient A(x): S[a, b] = Σ_q w_q ∇λ_aᵀ A(x_q) ∇λ_b (rows = test),
+    coefficient A(x): S[a, b] = Σ_q w_q ∇φ_aᵀ A(x_q) ∇φ_b (rows = test),
     or for elasticity S[m, n] = Σ_q w_q P_m Ā(x_q) P_n with P the strain
-    coefficients of the vector basis."""
-    d = sys.V.mesh.dim
+    coefficients of the vector basis.  P1 gradients are cellwise constant;
+    P2 gradients are ∇φ_k(x_q) = Σ_i c[q, k, i] ∇λ_i (ops/p2.py), with the
+    quadrature raised to degree 3."""
+    V = sys.V
+    d = V.mesh.dim
+    if V.degree == 2:
+        degree = max(degree, 3)  # quadratic basis gradients are degree 1
     xq, wq, _ = quad_points_physical(sys.verts64, sys.cells, degree)  # (nc, nq, d)
     vals = eval_at_points(coeff, xq).to(torch.float64)
     nc, nq = wq.shape
@@ -74,16 +83,42 @@ def _local_matrices(sys: MacroSystem, coeff: Callable, kind: str, degree: int) -
         Aq = vals.reshape(nc, nq, d, d)
     else:
         Aq = vals.reshape(nc, nq, d * d, d * d)
-    if sys.V.bs == 1:
+    if V.degree == 2:
+        xi = torch.as_tensor(simplex_rule(d, degree)[0], dtype=torch.float64, device=wq.device)
+        _, dlam = p2_basis(xi, d)  # (nq, nb, d+1)
+        B = torch.einsum("qki,cid->cqkd", dlam, sys.grads64)  # ∇φ at the points
+        if V.bs == 1:
+            return torch.einsum("cq,cqkd,cqde,cqle->ckl", wq, B, Aq, B)
+        # vector P2: strain coefficients of basis (a, i) per point,
+        # e(v_(a,i))_kl = ½(δ_ik ∂φ_a/∂x_l + δ_il ∂φ_a/∂x_k)
+        eye = torch.eye(d, dtype=torch.float64, device=wq.device)
+        P = 0.5 * (torch.einsum("ik,cqal->cqaikl", eye, B)
+                   + torch.einsum("il,cqak->cqaikl", eye, B))
+        P = P.reshape(B.shape[0], B.shape[1], B.shape[2] * d, d * d)
+        return torch.einsum("cq,cqmr,cqrt,cqnt->cmn", wq, P, Aq, P)
+    if V.bs == 1:
         return torch.einsum("cq,cad,cqde,cbe->cab", wq, sys.grads64, Aq, sys.grads64)
     P = sys.strain_P64
     return torch.einsum("cq,cmr,cqrt,cnt->cmn", wq, P, Aq, P)
 
 
 def _load_vector(sys: MacroSystem, f_fn: Callable, degree: int) -> torch.Tensor:
-    """b_i = ∫ f φ_i dx in float64."""
-    return assemble_load_vector(sys.verts64, sys.cells, f_fn, bs=sys.V.bs, degree=degree,
-                                gather=sys.load_gather)
+    """b_i = ∫ f φ_i dx in float64 (P2: quadrature of degree 3 at least)."""
+    V = sys.V
+    if V.degree == 1:
+        return assemble_load_vector(sys.verts64, sys.cells, f_fn, bs=V.bs, degree=degree,
+                                    gather=sys.load_gather)
+    degree = max(degree, 3)
+    xq, wq, _ = quad_points_physical(sys.verts64, sys.cells, degree)
+    xi = torch.as_tensor(simplex_rule(V.mesh.dim, degree)[0], dtype=torch.float64,
+                         device=wq.device)
+    phi, _ = p2_basis(xi, V.mesh.dim)  # (nq, nb)
+    fvals = eval_at_points(f_fn, xq).to(torch.float64).reshape(*wq.shape, V.bs)
+    contrib = torch.einsum("cq,cqb,qk->ckb", wq, fvals, phi).reshape(-1)
+    if sys.load_gather is not None:
+        return gather_sum(contrib, sys.load_gather)
+    dofs = torch.as_tensor(V.cell_dofs_unrolled().astype(np.int64), device=wq.device)
+    return contrib.new_zeros(V.num_dofs).index_add_(0, dofs.reshape(-1), contrib)
 
 
 def fem_assemble_values(sys: MacroSystem, coeff: Callable, kind: str, degree: int):
@@ -120,7 +155,6 @@ def fem_solve(
 
     The result carries ``solver_iterations``, ``solver_residual`` and
     ``macro_method`` ('direct' or 'cg')."""
-    _p1_only(V.degree)
     device = as_device(device)
     dtype = dtype or default_dtype(device)
     options = SolverOptions.from_any(options)
@@ -187,7 +221,6 @@ def fem_solve_fn(
     ``solve`` is exact at convergence on every solver path (the adjoint
     CG runs the same multigrid and K2).  ``solve.macro_solve.iterations``
     lists the solves' iteration counts, forward and adjoint."""
-    _p1_only(V.degree)
     device = as_device(device)
     dtype = dtype or default_dtype(device)
     options = SolverOptions.from_any(options)
@@ -235,8 +268,7 @@ class PoissonFEM:
         dtype: Optional[torch.dtype] = None,
         device="cuda",
     ):
-        _p1_only(degree)
-        self._V = FunctionSpace(msh, 1)
+        self._V = FunctionSpace(msh, 1, degree=degree)
         self._coeff = A
         self._f = f
         self._options = SolverOptions.from_any(options)
@@ -280,5 +312,5 @@ class LinearElasticityFEM(PoissonFEM):
         device="cuda",
     ):
         super().__init__(msh, A, f, options, quad_degree, degree, dtype=dtype, device=device)
-        self._V = FunctionSpace(msh, msh.dim)
+        self._V = FunctionSpace(msh, msh.dim, degree=degree)
         self._bcs = []

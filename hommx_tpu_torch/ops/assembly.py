@@ -1,5 +1,6 @@
-"""Global FEM assembly, Dirichlet lifting, load vectors, the L2 norm and
-the H1 seminorm (torch port of ``hommx_tpu/ops/assembly.py``)."""
+"""Global FEM assembly, Dirichlet lifting, load vectors, integrals, the L2
+norm, the H1 seminorm and the P1 local stiffness (torch port of
+``hommx_tpu/ops/assembly.py``)."""
 
 from __future__ import annotations
 
@@ -18,8 +19,10 @@ __all__ = [
     "gather_sum",
     "apply_dirichlet",
     "assemble_load_vector",
+    "integrate",
     "l2_norm_fn",
     "h1_seminorm_fn",
+    "assemble_p1_stiffness_local",
 ]
 
 
@@ -181,6 +184,14 @@ def assemble_load_vector(vertices, cells, f, bs: int = 1, degree: int = 2, gathe
     return b.index_add_(0, dofs, contrib.reshape(-1))
 
 
+def integrate(vertices, cells, fn, degree: int = 4) -> torch.Tensor:
+    """∫ fn(x) dx over the mesh with a quadrature rule of ``degree``;
+    ``fn`` is a torch callable x:(d,) -> scalar."""
+    xq, wq, _ = quad_points_physical(vertices, cells, degree)
+    vals = eval_at_points(fn, xq).to(wq.dtype)
+    return (wq * vals.reshape(wq.shape)).sum()
+
+
 def l2_norm_fn(vertices, cells, u_nodes, bs: int = 1, exact=None, degree: int = 4):
     """L² norm of (u_h - exact) for a P1 function; ``exact`` may be None."""
     xq, wq, lam = quad_points_physical(vertices, cells, degree)
@@ -206,3 +217,10 @@ def h1_seminorm_fn(vertices, cells, u_nodes, bs: int = 1, exact_grad=None, degre
     ge = ge.reshape(xq.shape[0], xq.shape[1], bs, vertices.shape[1])
     diff = gu[:, None] - ge
     return torch.sqrt((wq * (diff * diff).sum(dim=(2, 3))).sum())
+
+
+def assemble_p1_stiffness_local(vertices, cells, coeff_at_cell: torch.Tensor) -> torch.Tensor:
+    """Per-cell P1 stiffness (nc, nb0, nb0) of an elementwise-constant
+    matrix coefficient (nc, d, d): S[c, a, b] = |T_c|·∇λ_a · A_c ∇λ_b."""
+    grads, vols = cell_geometry(vertices, cells)
+    return torch.einsum("c,cad,cde,cbe->cab", vols, grads, coeff_at_cell.to(grads.dtype), grads)

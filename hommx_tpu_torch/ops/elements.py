@@ -17,7 +17,9 @@ __all__ = ["cell_geometry", "quad_points_physical", "p1_basis_at"]
 
 
 def _inv_and_det(J):
-    """Explicit inverse and determinant for (..., d, d), d in {1, 2, 3}."""
+    """Explicit inverse and determinant for (..., d, d), d in {1, 2, 3},
+    real or complex (the FFT cell preconditioner inverts its complex
+    Hermitian block symbols per frequency with it)."""
     d = J.shape[-1]
     if d == 1:
         det = J[..., 0, 0]

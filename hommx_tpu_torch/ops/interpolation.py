@@ -1,6 +1,5 @@
-"""Point evaluation of P1 functions and cross-mesh interpolation (torch
-port of ``hommx_tpu/ops/interpolation.py``, P1 only; P2 waits for ROADMAP
-A9d).
+"""Point evaluation of P1/P2 functions and cross-mesh interpolation (torch
+port of ``hommx_tpu/ops/interpolation.py``).
 
 Point → cell location is analytic on structured box meshes (the grid box
 and the simplex within it follow from local coordinates); unstructured
@@ -90,9 +89,10 @@ def _locate_binned(mesh: SimplexMesh, points: np.ndarray) -> np.ndarray:
 
 
 def eval_p1(func, points, cells=None) -> torch.Tensor:
-    """Evaluate a P1 Function at arbitrary points (np, d) -> (np,) or
+    """Evaluate a P1/P2 Function at arbitrary points (np, d) -> (np,) or
     (np, bs), on the host in float64.  With ``cells`` given, each point
-    uses the affine extension of its cell even outside it."""
+    takes the polynomial of its cell even outside it (the macro -> micro
+    interpolation's semantics)."""
     V = func.space
     mesh = V.mesh
     points = np.asarray(points, dtype=np.float64)[:, : mesh.dim]
@@ -102,14 +102,23 @@ def eval_p1(func, points, cells=None) -> torch.Tensor:
     T = np.swapaxes(cp[:, 1:, :] - cp[:, :1, :], 1, 2)
     xi = np.linalg.solve(T, (points - cp[:, 0, :])[..., None])[..., 0]
     lam = np.concatenate([1.0 - xi.sum(axis=1, keepdims=True), xi], axis=1)
+    if V.degree == 1:
+        basis = lam
+    else:
+        from hommx_tpu_torch.ops.p2 import EDGE_PAIRS
+
+        phi_e = np.stack([4.0 * lam[:, i] * lam[:, j] for (i, j) in EDGE_PAIRS[mesh.dim]],
+                         axis=1)
+        basis = np.concatenate([lam * (2.0 * lam - 1.0), phi_e], axis=1)
     uv = func.array.detach().cpu().numpy().astype(np.float64).reshape(-1, V.bs)
-    vals = np.einsum("pa,pab->pb", lam, uv[mesh.cells[cells]])
+    vals = np.einsum("pa,pab->pb", basis, uv[V.cell_nodes()[cells]])
     return torch.as_tensor(vals if V.bs > 1 else vals[:, 0])
 
 
 def interpolate_nonmatching(V_to, func_from):
-    """Nodal interpolation of a P1 function onto another P1 space, as a
-    float64 Function on the host."""
+    """Nodal interpolation of a P1/P2 function onto another P1/P2 space (the
+    function evaluated at every node of ``V_to``), as a float64 Function
+    on the host."""
     from hommx_tpu_torch.ops.function_space import Function
 
     vals = eval_p1(func_from, V_to.tabulate_dof_coordinates())

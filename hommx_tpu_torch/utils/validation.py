@@ -1,6 +1,7 @@
 """Validation utilities: L² and H¹ norms and errors, cross-mesh comparison,
 the zero box-boundary BC, and the Hooke-tensor builder (torch port of
-``hommx_tpu/utils/validation.py``; P1 spaces).
+``hommx_tpu/utils/validation.py``; ``l2_norm_space`` takes P1 and P2
+spaces, the rest P1).
 
 Norms are evaluated in float64 on the host, whatever the device and dtype
 of the function they measure.
@@ -14,12 +15,16 @@ import numpy as np
 import torch
 
 from hommx_tpu_torch.ops.assembly import h1_seminorm_fn, l2_norm_fn
+from hommx_tpu_torch.ops.elements import p1_basis_at, quad_points_physical
 from hommx_tpu_torch.ops.function_space import (
     FunctionSpace,
     dirichletbc,
+    eval_at_points,
     locate_dofs_geometrical,
 )
 from hommx_tpu_torch.ops.interpolation import interpolate_nonmatching
+from hommx_tpu_torch.ops.p2 import p2_basis
+from hommx_tpu_torch.ops.quadrature import simplex_rule
 
 __all__ = [
     "calc_l2_error",
@@ -53,9 +58,18 @@ def calc_l2_norm(mesh, u, bs: int = 1, exact: Optional[Callable] = None) -> floa
 
 
 def l2_norm_space(u, exact: Optional[Callable] = None, degree: int = 4) -> float:
-    """L² norm of a Function (or of u − exact) on its own space."""
+    """L² norm of a Function (or of u − exact) on its own space, P1 or P2:
+    the space's basis evaluated at the quadrature points."""
     V = u.space
-    return float(l2_norm_fn(*_geometry(V.mesh), _host64(u), bs=V.bs, exact=exact, degree=degree))
+    verts, cells = _geometry(V.mesh)
+    xq, wq, _ = quad_points_physical(verts, cells, degree)
+    xi = torch.as_tensor(simplex_rule(V.mesh.dim, degree)[0], dtype=torch.float64)
+    phi = p1_basis_at(xi) if V.degree == 1 else p2_basis(xi, V.mesh.dim)[0]
+    uv = _host64(u).reshape(-1, V.bs)[torch.as_tensor(V.cell_nodes()).long()]  # (nc, nb, bs)
+    uq = torch.einsum("qk,ckb->cqb", phi, uv)
+    if exact is not None:
+        uq = uq - eval_at_points(exact, xq).reshape(uq.shape).to(uq.dtype)
+    return float(torch.sqrt((wq * (uq * uq).sum(dim=-1)).sum()))
 
 
 def calc_h1_error(mesh, u1, u2, bs: int = 1) -> float:

@@ -335,9 +335,11 @@ def test_golden_elasticity_f64(name):
 
 
 def test_elasticity_error_probes():
-    """What the port lacks raises instead of running: multi-device solves,
-    the FFT cell preconditioner, P2 micro elements.  The elasticity
-    CG macro solve runs (float64 assembly, float64 multigrid CG)."""
+    """What the port lacks raises instead of running: multi-device solves
+    and a scalar coefficient on a vector problem.  The elasticity CG macro
+    solve runs (float64 assembly, float64 multigrid CG), and so do the
+    routes this test once pinned as unported: the block FFT cell
+    preconditioner and P2 micro elements give the reference's A* (1e-10)."""
     args = (ht.create_rectangle([[0.0, 0.0], [1.0, 0.25]], [4, 2]), TORCH_A2, [0.0, -0.01],
             ht.create_unit_square(4), 0.1)
     h = ht.LinearElasticityHMM(*args, options_global_solve=ht.SolverOptions(method="cg"),
@@ -345,13 +347,14 @@ def test_elasticity_error_probes():
     assert h._macro_method == "cg" and h._macro_f64 and h._sys.mg is not None
     with pytest.raises(NotImplementedError, match="A12"):
         ht.LinearElasticityHMM(*args, shard_mesh=object(), device="cpu")
-    # what the micro engine still lacks: the FFT cell preconditioner, P2
-    # micro elements, a scalar coefficient on a vector problem
-    with pytest.raises(NotImplementedError, match="A9c"):
-        ht.MicroEngine(ht.create_unit_square(4), bs=2, coeff_kind="tensor4", solver="pcg",
-                       cell_prec="fft", device="cpu")
-    with pytest.raises(NotImplementedError, match="A9d"):
-        ht.MicroEngine(ht.create_unit_square(4), micro_degree=2, device="cpu")
+    jm = hx.create_unit_square(4)
+    c = np.random.default_rng(5).uniform(0, 1, (4, 2))
+    for kw in (dict(solver="pcg", cell_prec="fft"), dict(micro_degree=2)):
+        je = JaxEngine(jm, bs=2, coeff_kind="tensor4", dtype=jnp.float64, **kw)
+        te = ht.MicroEngine(port_mesh(jm), bs=2, coeff_kind="tensor4", device="cpu", **kw)
+        A_ref = np.asarray(je.tensors_for_centers(JAX_A2, jnp.asarray(c)))
+        A = te.tensors_for_centers(TORCH_A2, torch.as_tensor(c)).numpy()
+        assert np.abs(A - A_ref).max() / np.abs(A_ref).max() < 1e-10, kw
     with pytest.raises(NotImplementedError):
         ht.MicroEngine(ht.create_unit_square(4), bs=2, device="cpu")
 

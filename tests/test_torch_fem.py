@@ -97,8 +97,7 @@ def test_nonzero_dirichlet_lifting():
     the exact u to O(h²), and the reference's solution to 1e-12."""
     Vj, Vt = _pair(hx.create_unit_square(16, 16))
     gj = hx.Function(Vj).interpolate(lambda x: 1 + x[0] ** 2 + x[1] ** 2)
-    xy = Vt.tabulate_dof_coordinates()
-    gt = ht.Function(Vt, torch.as_tensor(1 + xy[:, 0] ** 2 + xy[:, 1] ** 2))
+    gt = ht.Function(Vt, device="cpu").interpolate(lambda x: 1 + x[0] ** 2 + x[1] ** 2)
     ref = jax_fem_solve(Vj, lambda x: 1.0, lambda x: -4.0,
                         [hx.dirichletbc(gj, jax_boundary_dofs(Vj))])
     u = fem_solve(Vt, lambda x: 1.0, lambda x: -4.0, [ht.dirichletbc(gt, boundary_dofs(Vt))],
@@ -174,9 +173,23 @@ def test_golden_fem_f64():
 
 
 def test_fem_unported_parts_raise():
-    """P2 spaces name A9, plotting A13."""
-    msh = ht.create_unit_square(4)
-    with pytest.raises(NotImplementedError, match="A9"):
-        ht.PoissonFEM(msh, lambda x: 1.0, 1.0, degree=2, device="cpu")
+    """P2 spaces now run: PoissonFEM(degree=2) gives the reference's
+    solution (1e-10) on a direct solve; a P2 system above
+    ``direct_threshold`` has no geometric hierarchy, so its CG with
+    pc='auto' raises naming A10 (the reference takes aggregation AMG) and
+    with pc='jacobi' runs.  Plotting still names A13."""
+    jm = hx.create_unit_square(4)
+    msh = port_mesh(jm)
+    f = lambda x: 1.0 + x[0]  # noqa: E731
+    u = ht.PoissonFEM(msh, lambda x: 1.0, f, degree=2, device="cpu").solve()
+    ref = hx.PoissonFEM(jm, lambda x: 1.0, f, degree=2).solve()
+    assert u.function_space.degree == 2 and u.macro_method == "direct"
+    assert _rel(u.array.numpy(), ref.array) < 1e-10
+    small = ht.SolverOptions(method="auto", direct_threshold=16)
+    with pytest.raises(NotImplementedError, match="A10"):
+        ht.PoissonFEM(msh, lambda x: 1.0, f, small, degree=2, device="cpu").solve()
+    jac = ht.SolverOptions(method="auto", direct_threshold=16, pc="jacobi", rtol=1e-12)
+    u_cg = ht.PoissonFEM(msh, lambda x: 1.0, f, jac, degree=2, device="cpu").solve()
+    assert u_cg.macro_method == "cg" and _rel(u_cg.array.numpy(), ref.array) < 1e-9
     with pytest.raises(NotImplementedError, match="A13"):
         ht.PoissonFEM(msh, lambda x: 1.0, 1.0, device="cpu").plot_solution()

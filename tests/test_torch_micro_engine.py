@@ -84,19 +84,15 @@ def test_chunking_and_padding_do_not_change_results(engines):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [{"solver": "cholesky"}, {"cell_prec": "fft"},
+    [{"solver": "cholesky"}, {"solver": "pcg", "cell_prec": "fft"},
      {"bs": 2, "coeff_kind": "tensor4", "solver": "pcg", "pcg_strategy": "matfree"},
      {"coeff_kind": "matrix"}],
 )
 def test_unported_routes_raise(kwargs):
-    """The routes this test once pinned as unported: the FFT cell
-    preconditioner still raises, naming ROADMAP A9c; the scalar per-cell
-    Cholesky, the vector PCG (block stencil) and matrix coefficients (the
-    per-cell route) now run and give the reference's A* (1e-10)."""
-    if kwargs.get("cell_prec") == "fft":
-        with pytest.raises(NotImplementedError, match="A9c"):
-            ht.MicroEngine(ht.create_unit_square(4), device="cpu", **kwargs)
-        return
+    """The routes this test once pinned as unported — the scalar per-cell
+    Cholesky, the FFT cell preconditioner on the chunk PCG, the vector PCG
+    (block stencil) and matrix coefficients (the per-cell route) — run and
+    give the reference's A* (1e-10)."""
     jm = hx.create_unit_square(4)
     c = np.random.default_rng(3).uniform(0, 1, (6, 2))
     if kwargs.get("coeff_kind") == "tensor4":

@@ -81,7 +81,11 @@ CASES = [
     (3, 1, "scalar", False, dict(solver="pcg", cell_prec="mg")),
     (3, 3, "tensor4", False, dict(solver="pcg")),
     (3, 3, "tensor4", False, dict(solver="pcg", pcg_strategy="matfree")),
+    (2, 1, "scalar", False, dict(solver="pcg", cell_prec="fft")),
+    (2, 1, "scalar", False, dict(solver="pcg", coeff_rank=2, cell_prec="fft")),
+    (3, 1, "scalar", False, dict(solver="pcg", cell_prec="fft")),
 ]
+FFT_CASES = [c for c in CASES if c[4].get("cell_prec") == "fft"]
 
 
 def _ids(case):
@@ -171,3 +175,99 @@ def test_check_coeff_rank_matches_reference(rank):
     with pytest.raises(ValueError, match="scalar"):
         ht.MicroEngine(ht.create_unit_square(4), bs=2, coeff_kind="tensor4",
                        device="cpu").check_coeff_rank(_coeff(2, "tensor4", torch), c)
+
+
+@pytest.mark.parametrize("case", FFT_CASES, ids=[_ids(c) for c in FFT_CASES])
+def test_fft_route_matches_reference_route(case):
+    """The FFT cell preconditioner on the chunk PCG (the stencil matvec, the
+    scaling by congruence, no K1): the reference's tensors of the same
+    route to 1e-10."""
+    dim, bs, kind, flat, kw = case
+    eng, A = _run(case, torch.float64)
+    assert not eng._k1_route() and eng._use_chunk()
+    jeng = JaxEngine(_mesh(dim, flat), bs=bs, coeff_kind=kind, dtype=jnp.float64, **kw)
+    ref = np.asarray(jeng.tensors_for_centers(_coeff(dim, kind, jnp), jnp.asarray(_centers(dim))))
+    assert np.abs(A.numpy() - ref).max() / np.abs(ref).max() < 1e-10
+
+
+@pytest.mark.parametrize("dim,bs", [(2, 1), (3, 1), (2, 2), (3, 3)])
+def test_fft_symbols_match_reference(dim, bs):
+    """``_get_fft_symbols``: the real scalar symbols and the complex
+    Hermitian block symbols equal the reference's tables to 1e-12."""
+    jm = hx.create_unit_square(4, 6) if dim == 2 else hx.create_unit_cube(3)
+    kind = "scalar" if bs == 1 else "tensor4"
+    kw = dict(bs=bs, coeff_kind=kind, solver="pcg", cell_prec="fft")
+    eng = ht.MicroEngine(port_mesh(jm), device="cpu", **kw)
+    syms, grid = eng._get_fft_symbols()
+    jsyms, jgrid = JaxEngine(jm, dtype=jnp.float64, **kw)._get_fft_symbols()
+    assert tuple(grid) == tuple(jgrid) and syms.dtype == (
+        torch.float64 if bs == 1 else torch.complex128)
+    jsyms = np.asarray(jsyms)
+    assert syms.shape == jsyms.shape
+    assert np.abs(syms.numpy() - jsyms).max() <= 1e-12 * np.abs(jsyms).max()
+
+
+def test_block_fft_dense_k_and_block_stencil():
+    """The block FFT symbol on 3D elasticity with the stratified map
+    (test_mg_prec.py's configuration): the dense-K and the block-stencil
+    matvecs agree to 1e-9 and both give the Cholesky route's A* to 1e-8."""
+    def mu(x, y):
+        return torch.where(y[1] < 0.5, 20.0 * (1 + 0.1 * x[0]), 0.05).to(y.dtype)
+
+    A_el = torch_hooke(3, mu, lambda x, y: 1.0)
+
+    def G_fn(x):
+        g = 0.5 * torch.pi * x[1] / 0.4
+        c, s = torch.cos(g), torch.sin(g)
+        z, o = torch.zeros_like(g), torch.ones_like(g)
+        return torch.stack([torch.stack([c, z, s]), torch.stack([z, o, z]),
+                            torch.stack([-s, z, c])]).T
+
+    mesh = ht.create_unit_cube(4)
+    centers = torch.as_tensor(np.random.default_rng(0).uniform(0, 1, (4, 3)))
+    kw = dict(bs=3, coeff_kind="tensor4", solver="pcg", cell_prec="fft", pcg_tol=1e-11,
+              pcg_maxiter=3000, device="cpu")
+    out = {}
+    for strategy in ("densek", "matfree"):
+        eng = ht.MicroEngine(mesh, pcg_strategy=strategy, **kw)
+        assert eng._get_block_stencil() is not None and not eng._k1_route()
+        out[strategy] = eng.tensors_chunk_pcg(A_el, centers, G_fn=G_fn,
+                                              implicit_diff=False).numpy()
+    scale = np.abs(out["densek"]).max()
+    assert np.abs(out["matfree"] - out["densek"]).max() / scale < 1e-9
+    chol = ht.MicroEngine(mesh, bs=3, coeff_kind="tensor4", device="cpu")
+    A_chol = chol.tensors_for_centers(A_el, centers, G_fn=G_fn).numpy()
+    for A in out.values():
+        assert np.abs(A - A_chol).max() / np.abs(A_chol).max() < 1e-8
+
+
+def test_stratified_fft_matches_reference():
+    """PoissonStratifiedHMM (8x8 macro, 8x8 micro, the wavy-laminate map G)
+    with ``cell_prec='fft'`` on the chunk PCG: the reference's A* and u to
+    1e-10."""
+    jA = lambda x, y: jnp.where(jnp.cos(2 * jnp.pi * y[0]) < 0, 5.0, 0.05)  # noqa: E731
+
+    def tA(x, y):  # both values in y's dtype: 0.05 is not rounded to float32
+        one = torch.ones((), dtype=y.dtype)
+        return torch.where(torch.cos(2 * torch.pi * y[0]) < 0, 5.0 * one, 0.05 * one)
+
+    def jG(x):
+        return jnp.array([[-2 * jnp.pi * jnp.cos(2 * jnp.pi * x[0]), 1.0], [1.0, 0.0]])
+
+    def tG(x):
+        o, z = torch.ones_like(x[0]), torch.zeros_like(x[0])
+        return torch.stack([torch.stack([-2 * torch.pi * torch.cos(2 * torch.pi * x[0]), o]),
+                            torch.stack([o, z])])
+
+    kw = dict(dedup_cells=False, engine_kwargs={"cell_prec": "fft", "solver": "pcg"})
+    jmac, jmic = hx.create_unit_square(8), hx.create_unit_square(8)
+    hj = hx.PoissonStratifiedHMM(jmac, jA, lambda x: 1.0, jmic, 2**-4, jG,
+                                 dtype=jnp.float64, **kw)
+    ht_ = ht.PoissonStratifiedHMM(port_mesh(jmac), tA, lambda x: 1.0, port_mesh(jmic), 2**-4,
+                                  tG, device="cpu", **kw)
+    u_ref, u = np.asarray(hj.solve().array), ht_.solve().array.numpy()
+    assert ht_._engine.cell_prec == "fft" and not ht_._engine._k1_route()
+    A_ref = np.asarray(hj.homogenized_tensors())
+    A = ht_.homogenized_tensors().numpy()
+    assert np.abs(A - A_ref).max() / np.abs(A_ref).max() < 1e-10
+    assert np.abs(u - u_ref).max() / np.abs(u_ref).max() < 1e-10

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the hommx_tpu_torch slice goes, on one NVIDIA GPU.
 
-    python3 tools/profile_slice.py [--mode poisson|elasticity|micro16] [--macro 512]
+    python3 tools/profile_slice.py [--mode poisson|elasticity|micro16|routes] [--macro 512]
                                    [--micro 16] [--pc auto|jacobi] [--out FILE]
 
 Run from the repository root on a machine with one CUDA card; it fails
@@ -50,6 +50,12 @@ float64 macro solve):
 ``mg16``, ``torch.profiler`` over 8 cells at chunk 8 and over 128 cells at
 the auto chunk (fresh centres each, one warm-up first), with the top
 kernels by device time.
+
+``--mode routes`` profiles the flagship's micro stage (``--macro``² cells,
+dedup off, float32, chunk 2048) on three routes, one warm-up model first
+for each: ``k1`` (16² micro, K1), ``fft`` (16² micro, ``cell_prec='fft'``:
+the chunk PCG in plain torch with cuFFT) and ``p2`` (8² micro,
+``micro_degree=2``: the matrix-free gather with K0⁻¹).
 """
 
 from __future__ import annotations
@@ -237,9 +243,30 @@ def micro16(device, keep, kernels):
               **profiled(f"mg16_{cells}", lambda: run(cells, chunk), kernels)})
 
 
+def routes(args, device, keep, kernels):
+    import torch
+
+    from chip_smoke import flagship
+    from hommx_tpu_torch import PoissonHMM, SolverOptions, create_unit_square
+
+    cases = {"k1": (16, {}), "fft": (16, {"cell_prec": "fft"}), "p2": (8, {"micro_degree": 2})}
+    for route, (micro_n, kw) in cases.items():
+        def make():
+            return PoissonHMM(create_unit_square(args.macro, args.macro), flagship, 1.0,
+                              create_unit_square(micro_n, micro_n), 2**-5,
+                              SolverOptions(rtol=1e-5, maxiter=20000), dtype=torch.float32,
+                              device=device, chunk=2048, dedup_cells=False, engine_kwargs=kw)
+
+        make().homogenized_tensors()  # warm-up
+        hmm = make()
+        keep({"tag": "route", "route": route, "micro_n": micro_n, "cells": args.macro**2 * 2,
+              **profiled(f"micro_{route}", hmm.homogenized_tensors, kernels)})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("poisson", "elasticity", "micro16"), default="poisson")
+    ap.add_argument("--mode", choices=("poisson", "elasticity", "micro16", "routes"),
+                    default="poisson")
     ap.add_argument("--macro", type=int, default=512)
     ap.add_argument("--micro", type=int, default=16)
     ap.add_argument("--pc", choices=("auto", "jacobi"), default="auto")
@@ -274,6 +301,8 @@ def main() -> int:
     make = None
     if args.mode == "micro16":
         micro16(device, keep, kernels)
+    elif args.mode == "routes":
+        routes(args, device, keep, kernels)
     else:
         make = (poisson if args.mode == "poisson" else elasticity)(args, device, keep, kernels)
     if make is not None:
