@@ -10,7 +10,8 @@ prints no result line):
 2. build       the three CUDA kernels compiled from the repository's
                sources, one nvcc each, all started together
 3. dia_spmv    K2 vs its plain version on the 512x512 macro DIA pattern
-               (7 diagonals) and on a 62³ box (15 diagonals), with a
+               (7 diagonals), on a 62³ box (15 diagonals) and on the
+               jittered 512² Delaunay mesh of phase amg (9 diagonals), with a
                cuSPARSE CSR matvec of the same matrix as yardstick: single
                call (as the CG makes it, and through ``dia_spmv_cuda``),
                back to back, 200 launches in one CUDA graph, and at a cold
@@ -141,11 +142,29 @@ prints no result line):
                K0⁻¹), the beam with P2 cells on the 2³ cube through K3 and
                the 8640-cell stage beside the P1 4³ one, PoissonFEM(degree=2)
                L2 rates (8², 16², 31²), the 513² P2 system by the Jacobi CG
-               against its float64 solve, and pc='auto' raising for A10
+               against its float64 solve
+
+14. the unstructured macro path (smoothed-aggregation AMG preconditioning
+   the macro CG; plain torch with fixed-order gathers, float32 unless
+   stated):
+   amg         (a) examples/diffusion/unstructured.py at 512² (jittered
+               Delaunay, 263,169 dofs; PoissonHMM, 16² micro, dedup on),
+               cold then warm: setup seconds (Delaunay, MacroSystem, the
+               AMG host build), levels, amg_setup seconds, iterations, ms
+               per V-cycle, K1's and K2's launches; u against the float64
+               solve of its own system (through the ELL gather, not K2)
+               and the structured 512² u at its nodes; Jacobi CG's iterations; two identical macro solves
+               bitwise equal.  (b) a random-point Delaunay mesh of 263,169
+               vertices (no DIA view) through PoissonFEM.  (c)
+               PoissonFEM(degree=2) at 256² with pc='auto'.  (d)
+               LinearElasticityFEM(degree=2) on the 20x6x6 beam box
+               (float64, six rigid modes, beside the translations).  (e)
+               build_pipeline's dJ/dθ on a 64² jittered mesh through K1 and
+               the AMG-CG against the CPU's float64 gradient
 
 Phases 1-9 pass ``dedup_cells=False`` and so solve every cell, as before
 the models' default became dedup.  ``--only fem_flagship,kc_gather`` runs
-the named phases of parts 11 to 13 alone (after the build) and prints no
+the named phases of parts 11 to 14 alone (after the build) and prints no
 result line.  The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -202,6 +221,13 @@ FFT_STRATEGY_RTOL = 1e-5  # block FFT: dense-K vs block-stencil matvec, float32
 FFT_STIFF_RTOL = 1e-6  # contrast-1e5 cells, float64: A* of the converged cells vs Cholesky
 P2_FEM_RATE = 2.8  # least L2 convergence rate of PoissonFEM(degree=2)
 P2_FEM_CG_RTOL = 1e-3  # float32 Jacobi CG of the 513² P2 system vs its float64 solve
+# the unstructured macro path (aggregation AMG); the bars that PERF.md states
+# with its prediction, before the run
+AMG_U_RTOL = 1e-4  # float32 AMG-CG u vs the float64 solve of its own system
+AMG_STRUCTURED_RTOL = 5e-2  # unstructured u vs the structured u at its nodes (the example's bar)
+AMG_JACOBI_FACTOR = 3  # Jacobi CG takes at least this many times AMG-CG's iterations
+AMG_FEM_RTOL = 1e-3  # float32 AMG-CG FEM u vs the float64 solve of its system
+AMG_OPTIONS = {"rtol": 1e-5, "maxiter": 20000}  # the float32 CG runs (as slice_default)
 
 # NVIDIA H100 SXM peaks (data sheet, dense): float32 outside the tensor
 # cores and device memory bandwidth, for each kernel's least time
@@ -542,11 +568,13 @@ def _k2_case(name, mesh, device, seed, dtype=None, bs=1):
 
 
 def phase_dia(device):
-    """K2 on the 512x512 macro pattern (7 diagonals, the slice's) and on a
-    62³ box (250,047 dofs, 15 diagonals, 3D P1); its float64 instance on
-    the 512x512 pattern and on the elasticity pattern of the 40x12x12 beam
-    (20,787 dofs, bs = 3, the float64 CG's).  Returns the float32 2d512
-    record and the float64 beam record."""
+    """K2 on the 512x512 macro pattern (7 diagonals, the slice's), on a
+    62³ box (250,047 dofs, 15 diagonals, 3D P1) and on the jittered 512²
+    Delaunay mesh of phase amg (263,169 dofs, its irregular offsets: the
+    AMG-CG's outer product, through the kernel's run-time diagonal count);
+    its float64 instance on the 512x512 pattern and on the elasticity
+    pattern of the 40x12x12 beam (20,787 dofs, bs = 3, the float64 CG's).
+    Returns the float32 2d512 record and the float64 beam record."""
     import torch
 
     from hommx_tpu_torch import create_box, create_unit_cube, create_unit_square
@@ -554,6 +582,7 @@ def phase_dia(device):
     beam = create_box([[0, 0, 0], [BEAM_L, BEAM_W, BEAM_H]], [40, 12, 12])
     cases = [("2d512", create_unit_square(512, 512), 2, torch.float32, 1),
              ("3d62", create_unit_cube(62), 3, torch.float32, 1),
+             ("jittered512", jittered_delaunay(512)[0], 6, torch.float32, 1),
              ("2d512_f64", create_unit_square(512, 512), 4, torch.float64, 1),
              ("beam40x12x12_f64", beam, 5, torch.float64, 3)]
     recs, failed = {}, []
@@ -1383,13 +1412,14 @@ def _own_system_f64(hmm):
 
 
 def _f64_solution_of(hmm, vals, b):
-    """Multigrid CG to 1e-12 on a float64 system of ``hmm``'s pattern."""
+    """Multigrid (or AMG) CG to 1e-12 on a float64 system of ``hmm``'s
+    pattern."""
     from hommx_tpu_torch import SolverOptions
     from hommx_tpu_torch.ops import solvers
 
     x, _, _ = solvers.solve_ell(vals, hmm._sys.cols, b,
                                 SolverOptions(rtol=1e-12, atol=0.0, maxiter=20000),
-                                dia=hmm._sys.dia, mg=hmm._sys.mg)
+                                dia=hmm._sys.dia, mg=hmm._sys.mg, amg=hmm._sys.amg)
     return x
 
 
@@ -2778,8 +2808,9 @@ def phase_p2(device, checked: int = 4096, cells: int = 8640, chunk: int = 1080,
     float64; then the 8640-cell bench-size stage on the P2 2³ and the P1 4³
     cube in turns; (c) PoissonFEM(degree=2) on −Δu = 2π² sin πx sin πy
     (Dirichlet data from Function.interpolate on the card): L2 errors and
-    rates at 8², 16², 31² (direct), the 256² system (263,169 dofs) by the
-    Jacobi CG against its float64 solve, and pc='auto' raising for A10."""
+    rates at 8², 16², 31² (direct), and the 256² system (263,169 dofs) by
+    the Jacobi CG against its float64 solve (with pc='auto' it takes
+    aggregation AMG: phase amg, case (c))."""
     import numpy as np
     import torch
 
@@ -2891,11 +2922,6 @@ def phase_p2(device, checked: int = 4096, cells: int = 8640, chunk: int = 1080,
            else len(sys.dia.offsets), "k2_launches": dia.KERNEL.launches - k2,
            "f64_iterations": k64, "u_rel_diff_f64": rel_diff(u.array, x64),
            "cg_l2_error": l2_norm_space(u, exact=exact)}
-    try:
-        fem(cg_n, SolverOptions(method="cg"))[0].solve()
-        rec["pc_auto"] = "did not raise"
-    except NotImplementedError as err:
-        rec["pc_auto"] = str(err)[:200]
     emit(rec)
     out["c"] = rec
     a, b, c = out["a"], out["b"], out["c"]
@@ -2906,19 +2932,337 @@ def phase_p2(device, checked: int = 4096, cells: int = 8640, chunk: int = 1080,
           and b["astar_rel_diff_f64"] <= GOLDEN_ELASTICITY_RTOL
           and b["u_rel_diff_f64"] <= GOLDEN_ELASTICITY_RTOL and b["stage_finite"]
           and min(c["rates"]) >= P2_FEM_RATE and c["u_rel_diff_f64"] <= P2_FEM_CG_RTOL
-          and c["cg_iterations"] < jac.maxiter and "A10" in c["pc_auto"])
+          and c["cg_iterations"] < jac.maxiter)
     if not ok:
         raise AssertionError(f"P2 elements failed their checks: {out}")
     return {"dia_spmv": k2_main, "chol_solve": k3_main}
 
 
+def jittered_delaunay(n: int, jitter: float = 0.25, seed: int = 3):
+    """examples/diffusion/unstructured.py's mesh: the (n+1)² grid with its
+    interior points moved by up to ``jitter``/n, triangulated by Delaunay;
+    (mesh, Delaunay seconds)."""
+    import numpy as np
+    from scipy.spatial import Delaunay
+
+    from hommx_tpu_torch import mesh_from_delaunay
+
+    g = np.linspace(0.0, 1.0, n + 1)
+    X, Y = np.meshgrid(g, g, indexing="ij")
+    pts = np.stack([X.reshape(-1), Y.reshape(-1)], axis=1)
+    rng = np.random.default_rng(seed)
+    interior = (pts[:, 0] > 0) & (pts[:, 0] < 1) & (pts[:, 1] > 0) & (pts[:, 1] < 1)
+    pts[interior] += rng.uniform(-jitter, jitter, (int(interior.sum()), 2)) / n
+    t0 = time.perf_counter()
+    tri = Delaunay(pts).simplices
+    return mesh_from_delaunay(pts, tri), time.perf_counter() - t0
+
+
+def random_delaunay(n: int, seed: int = 5):
+    """The (n+1)² grid's boundary nodes and (n+1)² − 4n uniform interior
+    points, triangulated by Delaunay: (mesh, Delaunay seconds)."""
+    import numpy as np
+    from scipy.spatial import Delaunay
+
+    from hommx_tpu_torch import mesh_from_delaunay
+
+    g = np.linspace(0.0, 1.0, n + 1)
+    z, o = np.zeros(n), np.ones(n)
+    edge = g[:-1]
+    boundary = np.concatenate([np.stack([edge, z], 1), np.stack([o, edge], 1),
+                               np.stack([1 - edge, o], 1), np.stack([z, 1 - edge], 1)])
+    inner = np.random.default_rng(seed).uniform(0, 1, ((n + 1) ** 2 - 4 * n, 2))
+    pts = np.concatenate([boundary, inner])
+    t0 = time.perf_counter()
+    tri = Delaunay(pts).simplices
+    return mesh_from_delaunay(pts, tri), time.perf_counter() - t0
+
+
+def _amg_probe(amg, vals, b, reps: int = 10) -> dict:
+    """amg_setup's seconds (its device tables already made), whether its
+    bottom Cholesky failed (then the pseudo-inverse), and the host
+    milliseconds of one V-cycle (back to back, synchronized)."""
+    import torch
+
+    from hommx_tpu_torch.ops.amg import amg_setup, amg_vcycle
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = amg_setup(amg, vals)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    for _ in range(2):
+        amg_vcycle(amg, state, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        z = amg_vcycle(amg, state, b)
+    torch.cuda.synchronize()
+    return {"levels": amg.level_sizes, "host_build_seconds": dict(amg.timings),
+            "amg_setup_seconds": t_setup, "bottom_pinv": state[-1]["bottom_pinv"],
+            "vcycle_ms": (time.perf_counter() - t0) / reps * 1e3,
+            "vcycle_finite": bool(torch.isfinite(z).all())}
+
+
+def _fem_f64(u, coeff, f, bcs, solve: bool = True):
+    """The system that ``fem_solve`` solved, stored as it was (a float32
+    scalar system rounded once), in float64, and with ``solve`` its float64
+    CG to 1e-12 on the same hierarchy: (x64, iterations, vals, b)."""
+    import torch
+
+    from hommx_tpu_torch import SolverOptions
+    from hommx_tpu_torch.models.common import merge_bcs
+    from hommx_tpu_torch.models.fem import fem_system
+    from hommx_tpu_torch.ops import solvers
+
+    sys = u.system
+    mask, bvals = merge_bcs(bcs, sys.V.num_dofs, torch.float64, u.array.device)
+    kind = "scalar" if sys.V.bs == 1 else "tensor4"
+    vals, b = fem_system(sys, coeff, kind, f, mask, bvals)
+    if u.array.dtype == torch.float32 and sys.V.bs == 1:
+        vals, b = vals.float().double(), b.float().double()
+    if not solve:
+        return None, 0, vals, b
+    x64, k64, _ = solvers.solve_ell(vals, sys.cols, b,
+                                    SolverOptions(method="cg", rtol=1e-12, atol=0.0,
+                                                  maxiter=20000),
+                                    dia=sys.dia, mg=sys.mg, amg=sys.amg)
+    return x64, k64, vals, b
+
+
+def phase_amg(device, n: int = 512, micro_n: int = 16, rand_n: int = 512, p2_n: int = 256,
+              beam_n=(20, 6, 6), grad_n: int = 64, grad_micro_n: int = 8):
+    """The unstructured macro path: smoothed-aggregation AMG (plain torch,
+    fixed-order gathers on the card) preconditioning the macro CG, float32
+    unless stated.  (a) examples/diffusion/unstructured.py at n² (jitter
+    0.25, seed 3; PoissonHMM, A = 1.1 + x₀ + sin 2πy₀, f = 1, 16² micro,
+    ε = 1/32, dedup on, CG rtol 1e-5): cold then warm, setup seconds
+    (Delaunay, MacroSystem, the AMG host build's sweep, QR and maps), the
+    levels' sizes, amg_setup's seconds, iterations, ms per V-cycle, micro
+    seconds and unique cells, K1's and K2's launches; u against the float64
+    solve of its own system (the ELL gather: independent of K2, which
+    phase dia holds on this mesh's pattern) and against the structured n²
+    solution at the jittered nodes; Jacobi CG's iterations on the same
+    system; two identical macro solves bitwise equal.  Only the runs
+    through the entry points (a's two solves, b's to d's ``solve()``, e's
+    card gradient) count their launches.  (b) a random-point Delaunay mesh
+    of (rand_n+1)² vertices (no DIA view: the ELL gather) through
+    PoissonFEM: iterations beside Jacobi's, u against float64.  (c)
+    PoissonFEM(degree=2) at p2_n² with pc='auto': AMG-CG iterations, u
+    against float64.  (d) LinearElasticityFEM(degree=2) on the 20x6x6 beam
+    box (float64, six rigid modes) beside the translations alone, u against
+    the float64 direct solve.  (e) build_pipeline on a grad_n² jittered
+    mesh: dJ/dθ through K1 and the AMG-CG, forward and adjoint, against
+    the CPU's float64 gradient."""
+    import numpy as np
+    import torch
+
+    from hommx_tpu_torch import (Function, FunctionSpace, LinearElasticityFEM, PoissonFEM,
+                                 PoissonHMM, SolverOptions, create_box, create_unit_square)
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.models.common import MacroSystem
+    from hommx_tpu_torch.ops import dia, solvers
+    from hommx_tpu_torch.ops.amg import build_amg_structure
+    from hommx_tpu_torch.ops.function_space import boundary_dofs
+    from hommx_tpu_torch.ops.interpolation import eval_p1
+    from hommx_tpu_torch.utils.validation import hooke_tensor
+
+    main = {"stencil_pcg": 0, "dia_spmv": 0, "dia_spmv_f64": 0}
+
+    def on_main_path(fn, *args):
+        # the counts of one main-path run, set to 0 just before it and
+        # read just after: the comparison runs between them count nowhere
+        stencil_pcg.KERNEL.reset_counts()
+        dia.KERNEL.reset_counts()
+        result = fn(*args)
+        torch.cuda.synchronize()
+        n = {"stencil_pcg": stencil_pcg.KERNEL.launches,
+             "dia_spmv": dia.KERNEL.counts["hommx_dia_spmv_f32"],
+             "dia_spmv_f64": dia.KERNEL.counts["hommx_dia_spmv_f64"]}
+        for key in main:
+            main[key] += n[key]
+        return result, n
+
+    opts = SolverOptions(**AMG_OPTIONS)
+    out = {}
+    # (a) the unstructured example at full width
+    micro = create_unit_square(micro_n, micro_n)
+    mesh, t_del = jittered_delaunay(n)
+    t0 = time.perf_counter()
+    hmm = PoissonHMM(mesh, flagship, 1.0, micro, 2**-5, opts, dtype=torch.float32,
+                     device=device, chunk=2048)
+    t_model = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    MacroSystem(hmm.function_space, torch.float32, device)
+    torch.cuda.synchronize()
+    t_sys = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    amg = hmm._sys.amg
+    t_amg = time.perf_counter() - t0
+    runs = [on_main_path(_hmm_record, "amg_unstructured", hmm, 0.0)[0] for _ in ("cold", "warm")]
+    rec, u = runs[0]
+    rec.update({"delaunay_seconds": t_del, "model_setup_seconds": t_model,
+                "macro_system_seconds": t_sys, "amg_host_build_seconds": t_amg,
+                "cells": mesh.num_cells, "dia_view": None if hmm._sys.dia is None
+                else len(hmm._sys.dia.offsets), "amg_levels": hmm.diagnostics["macro_amg_levels"],
+                "warm": {k: runs[1][0][k] for k in ("solve_seconds", "micro_seconds",
+                                                    "macro_seconds", "macro_iterations",
+                                                    "k1_launches", "dia_spmv_launches")},
+                "warm_u_bitwise_equal_cold": bool(torch.equal(runs[1][1], u))})
+    vals, b = _rebuild_system(hmm, macro_f64=hmm._macro_f64)
+    rec.update(_amg_probe(amg, vals, b))
+    x1, k1, _ = solvers.solve_ell(vals, hmm._sys.cols, b, opts, dia=hmm._sys.dia, amg=amg)
+    x2, _, _ = solvers.solve_ell(vals, hmm._sys.cols, b, opts, dia=hmm._sys.dia, amg=amg)
+    jac = SolverOptions(method="cg", pc="jacobi", **AMG_OPTIONS)
+    _, kj, _ = solvers.solve_ell(vals, hmm._sys.cols, b, jac, dia=hmm._sys.dia)
+    # the float64 solve of the system solved, through the ELL gather: no K2
+    u64, _, _ = solvers.solve_ell(vals.double(), hmm._sys.cols, b.double(),
+                                  SolverOptions(rtol=1e-12, atol=0.0, maxiter=20000), amg=amg)
+    t0 = time.perf_counter()
+    hs = PoissonHMM(create_unit_square(n, n), flagship, 1.0, micro, 2**-5, opts,
+                    dtype=torch.float32, device=device, chunk=2048)
+    u_s = hs.solve()
+    at_nodes = eval_p1(u_s, mesh.vertices).double()
+    rec.update({"rebuilt_solve_iterations": k1, "macro_solves_bitwise_equal": bool(torch.equal(x1, x2)),
+                "rebuilt_equals_solve": bool(torch.equal(x1, u)),
+                "jacobi_iterations": kj, "u_rel_diff_f64": rel_diff(u, u64),
+                "structured_seconds": time.perf_counter() - t0,
+                "structured_macro_iterations": hs.diagnostics["macro_iterations"],
+                "rel_l2_vs_structured": float(torch.linalg.vector_norm(u.double().cpu() - at_nodes.cpu())
+                                              / torch.linalg.vector_norm(at_nodes))})
+    emit(rec)
+    out["a"] = rec
+    del hmm, hs, runs, u, u_s, vals, b, x1, x2, u64
+    torch.cuda.empty_cache()
+
+    # (b) a random-point Delaunay mesh: no DIA view
+    A_x = lambda x: 1.1 + x[0] + torch.sin(2 * torch.pi * x[1])  # noqa: E731
+    rmesh, t_del = random_delaunay(rand_n)
+    t0 = time.perf_counter()
+    model = PoissonFEM(rmesh, A_x, 1.0, opts, dtype=torch.float32, device=device)
+    uf, n_b = on_main_path(model.solve)
+    rec = {"phase": "amg_random_delaunay", "delaunay_seconds": t_del,
+           "total_seconds": time.perf_counter() - t0, "dofs": uf.function_space.num_dofs,
+           "cells": rmesh.num_cells, "dia_view": uf.system.dia is not None, **uf.diagnostics,
+           "amg_host_build_seconds": dict(uf.system.amg.timings),
+           "iterations": uf.solver_iterations, "launches": n_b,
+           "finite": bool(torch.isfinite(uf.array).all())}
+    x64, k64, vals, b = _fem_f64(uf, A_x, 1.0, model._bcs)
+    _, kj, _ = solvers.solve_ell(vals.float(), uf.system.cols, b.float(), jac, dia=uf.system.dia)
+    rec.update({"f64_iterations": k64, "jacobi_iterations": kj,
+                "u_rel_diff_f64": rel_diff(uf.array, x64),
+                **_amg_probe(uf.system.amg, vals.float(), b.float())})
+    emit(rec)
+    out["b"] = rec
+    del model, uf, x64, vals, b
+    torch.cuda.empty_cache()
+
+    # (c) P2 FEM at p2_n² with the default preconditioner
+    f2 = lambda x: 2 * torch.pi**2 * torch.sin(torch.pi * x[0]) * torch.sin(torch.pi * x[1])  # noqa
+    model = PoissonFEM(create_unit_square(p2_n, p2_n), lambda x: 1.0, f2, opts, degree=2,
+                       dtype=torch.float32, device=device)
+    t0 = time.perf_counter()
+    u2, n_c = on_main_path(model.solve)
+    rec = {"phase": "amg_p2", "dofs": u2.function_space.num_dofs,
+           "total_seconds": time.perf_counter() - t0, **u2.diagnostics,
+           "iterations": u2.solver_iterations, "launches": n_c,
+           "dia_view": u2.system.dia is not None, "finite": bool(torch.isfinite(u2.array).all())}
+    x64, k64, vals, b = _fem_f64(u2, lambda x: 1.0, f2, model._bcs)
+    rec.update({"f64_iterations": k64, "u_rel_diff_f64": rel_diff(u2.array, x64),
+                **_amg_probe(u2.system.amg, vals.float(), b.float())})
+    emit(rec)
+    out["c"] = rec
+    del model, u2, x64, vals, b
+    torch.cuda.empty_cache()
+
+    # (d) P2 elasticity on the beam box: the rigid modes beside the translations
+    box = create_box([[0, 0, 0], [BEAM_L, BEAM_W, BEAM_H]], list(beam_n))
+    C = hooke_tensor(3, lambda x, y: 1.0 + 0.5 * torch.sin(2 * torch.pi * x[0]),
+                     lambda x, y: 0.5)
+    fb = torch.tensor([0.0, 0.0, -0.05 * (BEAM_W / BEAM_L) ** 2], dtype=torch.float64)
+    model = LinearElasticityFEM(box, lambda x: C(x, x), lambda x: fb, degree=2,
+                                dtype=torch.float32, device=device)
+    clamp_x0(model)
+    ue, n_d = on_main_path(model.solve)
+    sys = ue.system
+    rec = {"phase": "amg_p2_elasticity", "dofs": sys.V.num_dofs, **ue.diagnostics,
+           "iterations": ue.solver_iterations, "residual": ue.solver_residual,
+           "macro_method": ue.macro_method, "dia_view": sys.dia is not None,
+           "near_kernel_columns": sys.amg.levels[0].p0_w.shape[1],
+           "launches": n_d,
+           "finite": bool(torch.isfinite(ue.array).all())}
+    _, _, vals, b = _fem_f64(ue, lambda x: C(x, x), lambda x: fb, model._bcs, solve=False)
+    trans = build_amg_structure(sys.pattern, 3)
+    xt, kt, _ = solvers.solve_ell(vals, sys.cols, b, model._options, dia=sys.dia, amg=trans)
+    x_dir = solvers.dense_solve_ell(vals, sys.cols, b)
+    rec.update({"translations_iterations": kt, "translations_levels": trans.level_sizes,
+                "u_rel_diff_direct_f64": rel_diff(ue.array, x_dir),
+                "translations_rel_diff_direct_f64": rel_diff(xt, x_dir),
+                **_amg_probe(sys.amg, vals, b)})
+    emit(rec)
+    out["d"] = rec
+    del model, ue, vals, b, xt, x_dir
+    torch.cuda.empty_cache()
+
+    # (e) the gradient through K1 and the AMG-CG, forward and adjoint
+    gmesh, _ = jittered_delaunay(grad_n)
+    micro_g = create_unit_square(grad_micro_n, grad_micro_n)
+    grad_opts = SolverOptions(rtol=1e-6, maxiter=20000)
+
+    def grad(dev, dtype):
+        holder = [1.0]
+        hmm = PoissonHMM(gmesh, _theta_flagship(holder), lambda x: 1.0, micro_g, 2**-5,
+                         grad_opts, dtype=dtype, device=dev, dedup_cells=False)
+        step, centers = hmm.build_pipeline()
+
+        def loss(th):
+            holder[0] = th
+            return (step(centers).double() ** 2).sum()
+
+        r = _grad_pass(loss, torch.tensor(1.0, dtype=dtype, device=dev, requires_grad=True))
+        r.update({"macro_iterations": list(step.macro_solve.iterations),
+                  "amg_levels": None if hmm._sys.amg is None else hmm._sys.amg.level_sizes})
+        return r
+
+    card, n_e = on_main_path(grad, device, torch.float32)
+    cpu = grad("cpu", torch.float64)
+    rec = {"phase": "amg_pipeline_grad", "macro_n": grad_n, "micro_n": grad_micro_n,
+           "dofs": (grad_n + 1) ** 2, "card": card, "cpu_f64": cpu, "launches": n_e,
+           "rel_err": _rel(card["derivative"], cpu["derivative"])}
+    emit(rec)
+    out["e"] = rec
+    a, b_, c, d, e = (out[k] for k in "abcde")
+    ok = (a["finite"] and a["vcycle_finite"] and a["nan_cells"] == 0 and a["diverged_cells"] == 0
+          and a["macro_method"] == "cg" and a["k1_launches"] > 0 and _cg_counts_ok(a)
+          and a["dia_view"] is not None and a["amg_levels"] == a["levels"]
+          and a["u_rel_diff_f64"] <= AMG_U_RTOL
+          and a["rel_l2_vs_structured"] <= AMG_STRUCTURED_RTOL
+          and AMG_JACOBI_FACTOR * a["macro_iterations"] <= a["jacobi_iterations"]
+          and a["macro_solves_bitwise_equal"]
+          and b_["finite"] and not b_["dia_view"] and b_["iterations"] < opts.maxiter
+          and b_["u_rel_diff_f64"] <= AMG_FEM_RTOL
+          and c["finite"] and c["iterations"] < opts.maxiter
+          and c["macro_amg_levels"] is not None and c["u_rel_diff_f64"] <= AMG_FEM_RTOL
+          and d["finite"] and d["macro_method"] == "cg" and d["near_kernel_columns"] == 6
+          and d["iterations"] < SolverOptions().maxiter
+          and d["u_rel_diff_direct_f64"] <= BEAM_CG_RTOL
+          and math.isfinite(e["card"]["derivative"]) and e["rel_err"] <= GRAD_F64_RTOL
+          and e["card"]["amg_levels"] is not None and len(e["card"]["macro_iterations"]) == 2
+          and e["card"]["backward_launches"]["stencil_pcg"] >= 1
+          and e["card"]["backward_launches"]["dia_spmv"] >= 1)
+    if not ok:
+        raise AssertionError(f"unstructured macro path failed its checks: {out}")
+    emit({"phase": "amg_main_path_launches", **main})
+    return main
+
+
 #: the phases of the periodic, FEM and per-cell slice, of differentiation,
-#: of the micro engine's other routes and of the FFT and P2 routes, in
-#: their order
+#: of the micro engine's other routes, of the FFT and P2 routes and of the
+#: unstructured macro path, in their order
 NEW_PHASES = (phase_fem_flagship, phase_golden_periodic_fem, phase_periodic_identity,
               phase_elasticity_periodic, phase_chol_batched, phase_kc_gather,
               phase_pipeline_grad, phase_pipeline_grad_elasticity, phase_fem_grad,
-              phase_micro_highres, phase_micro_routes, phase_micro_fft, phase_p2)
+              phase_micro_highres, phase_micro_routes, phase_micro_fft, phase_p2, phase_amg)
 
 
 def main(argv) -> int:

@@ -33,6 +33,8 @@ from hommx_tpu_torch.meshes import (
     create_rectangle,
     create_unit_cube,
     create_unit_square,
+    mesh_from_delaunay,
+    mesh_from_file,
     rescale_mesh,
     rescale_mesh_in_place,
 )
@@ -68,6 +70,8 @@ __all__ = [
     "create_rectangle",
     "create_unit_cube",
     "create_unit_square",
+    "mesh_from_delaunay",
+    "mesh_from_file",
     "rescale_mesh",
     "rescale_mesh_in_place",
     "helpers",

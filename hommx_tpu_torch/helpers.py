@@ -4,9 +4,8 @@ so its users can move their imports over:
 
     from hommx_tpu_torch.helpers import solve_diffusion_2d, rescale_mesh, PoissonFEM
 
-Left out: ``plot_fem_function`` (plotting, ROADMAP A13), ``mesh_from_file``
-and ``mesh_from_delaunay`` (unstructured meshes, ROADMAP A10).  The solves
-run on ``device`` (the card unless the caller passes "cpu").
+Left out: ``plot_fem_function`` (plotting, ROADMAP A13).  The solves run
+on ``device`` (the card unless the caller passes "cpu").
 """
 
 from __future__ import annotations
@@ -18,6 +17,8 @@ import numpy as np
 from hommx_tpu_torch.meshes.simplex import (  # noqa: F401
     create_interval,
     create_unit_square,
+    mesh_from_delaunay,
+    mesh_from_file,
     rescale_mesh,
     rescale_mesh_in_place,
 )
@@ -29,6 +30,8 @@ __all__ = [
     "solve_diffusion_2d",
     "rescale_mesh",
     "rescale_mesh_in_place",
+    "mesh_from_file",
+    "mesh_from_delaunay",
     "PoissonFEM",
     "fem_solve",
 ]

@@ -2,8 +2,9 @@
 ``hommx_tpu/meshes/simplex.py``.
 
 The mesh is host state (numpy); solvers move what they need to a torch
-device.  ``mesh_from_delaunay``/``mesh_from_file`` are not ported yet
-(ROADMAP A10).
+device.  ``mesh_from_delaunay``/``mesh_from_file`` make unstructured meshes
+(no ``BoxStructure``), whose CG macro solves take aggregation AMG
+(ops/amg.py).
 
 Replaces DOLFINx's C++ mesh stack (``mesh.create_unit_square/cube/rectangle/
 box``, ``helpers.py:125-209`` of the reference) with plain arrays:
@@ -36,6 +37,8 @@ __all__ = [
     "create_unit_square",
     "create_box",
     "create_unit_cube",
+    "mesh_from_delaunay",
+    "mesh_from_file",
     "rescale_mesh",
     "rescale_mesh_in_place",
 ]
@@ -271,6 +274,26 @@ def create_unit_cube(nx: int, ny: Optional[int] = None, nz: Optional[int] = None
     ny = nx if ny is None else ny
     nz = nx if nz is None else nz
     return create_box([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]], [nx, ny, nz])
+
+
+# ---------------------------------------------------------------------------
+# unstructured constructors (reference helpers.py:125-178)
+# ---------------------------------------------------------------------------
+
+
+def mesh_from_delaunay(points: np.ndarray, triangles: np.ndarray) -> SimplexMesh:
+    """Mesh from (N, 2) points and an (M, 3) triangle index array; a third
+    coordinate column of zeros is dropped."""
+    points = np.asarray(points, dtype=np.float64)
+    if points.shape[1] == 3 and np.allclose(points[:, 2], 0.0):
+        points = points[:, :2]
+    return SimplexMesh(points, np.asarray(triangles, dtype=np.int32))
+
+
+def mesh_from_file(filename: str) -> SimplexMesh:
+    """Load a ``.npz`` holding ``points`` and ``elements`` arrays."""
+    data = np.load(filename)
+    return mesh_from_delaunay(data["points"], data["elements"])
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,8 @@ Scalar (bs = 1) and vector (bs = d, elasticity) macro systems.  Only the
 native-float64 / pipeline-dtype assembly is ported; the reference's
 double-float32 route exists for the TPU's emulated float64 and is not
 ported (ROADMAP "Do not port").  ``MacroSystem.mg`` builds the geometric
-multigrid hierarchy of a structured mesh lazily; aggregation AMG waits for
-ROADMAP A10.
+multigrid hierarchy of a structured mesh lazily, ``MacroSystem.amg`` the
+aggregation-AMG hierarchy (ops/amg.py) of every other system.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from hommx_tpu_torch.config import as_device
+from hommx_tpu_torch.ops.amg import build_amg_structure
 from hommx_tpu_torch.ops.assembly import (
     GatherPlan,
     apply_dirichlet,
@@ -71,16 +72,16 @@ def assemble_macro_system(sys, A_star, b, mask, bvals, *, macro_f64: bool):
 def macro_precs(sys, options):
     """The (mg, amg) preconditioner structures of the iterative macro path:
     (None, None) when the solve is direct or the options exclude multigrid,
-    so the lazy hierarchy build never runs for solves that cannot use it;
-    else (sys.mg, None).  Float64 systems get the hierarchy too (elasticity
-    above the direct threshold runs a float64 V-cycle).  Aggregation AMG is
-    not ported (ROADMAP A10), so the second entry is always None."""
+    so the lazy hierarchy builds never run for solves that cannot use them;
+    else (sys.mg, sys.amg), of which at most one is not None.  Float64
+    systems get the hierarchies too (elasticity above the direct threshold
+    runs a float64 V-cycle)."""
     method = options.method
     if method == "auto":
         method = "direct" if sys.V.num_dofs <= options.direct_threshold else "cg"
     if method != "cg" or options.pc not in ("auto", "mg"):
         return None, None
-    return sys.mg, None
+    return sys.mg, sys.amg
 
 
 def probe_coeff_kind(coeff: Callable, dim: int, nargs: int = 2) -> str:
@@ -156,6 +157,7 @@ class MacroSystem:
             self.strain_P64 = strain_coefficients(self.grads64, V.bs)
             self.strain_P = self.strain_P64.to(dtype)  # (nc, nb, d²)
         self._mg = False  # lazily built (False = not yet, None = unavailable)
+        self._amg = False
         # fixed-order gather plans of the ELL assembly and of the load
         # vector for a CUDA system, built on the device: index_add_ there
         # adds colliding entries in the order its atomics land, so two
@@ -181,3 +183,41 @@ class MacroSystem:
                 else None
             )
         return self._mg
+
+    @property
+    def amg(self):
+        """Aggregation-AMG hierarchy (ops/amg.py), the preconditioner of the
+        systems the geometric hierarchy declines (Delaunay and file meshes,
+        P2 spaces), built on first use.  None where geometric multigrid
+        exists (it is stronger) or the system is at or below the bottom
+        size."""
+        if self._amg is False:
+            self._amg = (
+                None if self.mg is not None
+                else build_amg_structure(self.pattern, self.V.bs,
+                                         near_kernel=self._rigid_modes())
+            )
+        return self._amg
+
+    def _rigid_modes(self):
+        """The near-null space of the AMG tentative prolongation where the
+        block size equals the dimension (elasticity): the per-component
+        translations and the rotations of the dof coordinates, centred and
+        scaled so the rotations are O(1) like the translations (PETSc GAMG
+        given the rigid-body ``NearNullSpace``).  None for scalar systems,
+        which take the translations inside ``build_amg_structure``."""
+        bs, d = self.V.bs, self.V.dim
+        if bs != d or d < 2:
+            return None
+        x = np.asarray(self.V.tabulate_dof_coordinates(), dtype=np.float64)
+        x = x - x.mean(axis=0)
+        x = x / max(float(np.abs(x).max()), 1e-30)
+        n_nodes = x.shape[0]
+        m = bs + (d * (d - 1)) // 2
+        B = np.zeros((n_nodes * bs, m))
+        B[np.arange(n_nodes * bs), np.arange(n_nodes * bs) % bs] = 1.0
+        pairs = [(0, 1)] if d == 2 else [(0, 1), (0, 2), (1, 2)]
+        for k, (a, b) in enumerate(pairs):
+            B[np.arange(n_nodes) * bs + a, bs + k] = -x[:, b]
+            B[np.arange(n_nodes) * bs + b, bs + k] = x[:, a]
+        return B

@@ -8,7 +8,8 @@ points.  The system is assembled in float64 on every path, as the HMM's
 macro system is (models/common.py::assemble_macro_system): the direct
 solve and every vector system stay float64, a float32 scalar CG system is
 rounded to float32 once.  On a structured mesh the CG runs the geometric
-multigrid V-cycle and K2's DIA product, on the card by default.
+multigrid V-cycle and K2's DIA product, on the card by default; on any other
+mesh, and on a P2 space, the aggregation-AMG V-cycle (ops/amg.py).
 
 ``fem_solve_fn`` is the differentiable solve ``solve(theta) -> x``: its
 macro solve carries the implicit-function rule (ops/solvers.py::
@@ -17,9 +18,8 @@ options and kernels.
 
 P2 spaces (``degree=2``, ops/p2.py) take per-quadrature-point basis
 gradients, with the quadrature raised to degree 3.  They have no geometric
-multigrid hierarchy: above ``direct_threshold`` the CG runs with
-``pc='jacobi'``, and ``pc='auto'``/``'mg'`` raise naming ROADMAP A10 (the
-reference takes aggregation AMG there).
+multigrid hierarchy: above ``direct_threshold`` their CG takes aggregation
+AMG with ``pc='auto'``/``'mg'``, as the reference does.
 """
 
 from __future__ import annotations
@@ -162,6 +162,7 @@ def fem_solve(
     kind = probe_coeff_kind(coeff, V.mesh.dim, nargs=1)
     sys = MacroSystem(V, dtype, device)
     mask, bvals = merge_bcs(bcs, V.num_dofs, torch.float64, device)
+    mg, amg = macro_precs(sys, options)
     sync(device)
     t1 = time.perf_counter()
     vals_bc, b_bc = fem_system(sys, coeff, kind, f, mask, bvals, quad_degree, rhs_degree)
@@ -171,21 +172,23 @@ def fem_solve(
     if method != "direct" and V.bs == 1:
         # a scalar CG system runs in the pipeline dtype, rounded once
         vals_bc, b_bc = vals_bc.to(dtype), b_bc.to(dtype)
-    mg, _ = macro_precs(sys, options)
     sync(device)
     t2 = time.perf_counter()
     steps0 = STOP_TEST.steps
-    x, iters, res = solve_ell(vals_bc, sys.cols, b_bc, options, dia=sys.dia, mg=mg)
+    x, iters, res = solve_ell(vals_bc, sys.cols, b_bc, options, dia=sys.dia, mg=mg, amg=amg)
     fn = Function(V, x.to(dtype))
     fn.solver_iterations = int(iters)
     fn.solver_residual = float(res)  # the solve's closing host sync
     fn.macro_method = method
-    #: host seconds of the set-up (pattern, DIA view, gather tables), the
-    #: float64 assembly with its Dirichlet lifting, and the solve (its
-    #: multigrid set-up included); the CG's loop steps
+    #: host seconds of the set-up (pattern, DIA view, gather tables, the
+    #: host build of the multigrid or AMG hierarchy), the float64 assembly
+    #: with its Dirichlet lifting, and the solve (the per-operator
+    #: multigrid or AMG set-up included); the CG's loop steps; the AMG
+    #: hierarchy's level sizes (None off the AMG route)
     fn.diagnostics = {"setup_seconds": t1 - t0, "assembly_seconds": t2 - t1,
                       "solve_seconds": time.perf_counter() - t2,
-                      "macro_steps": STOP_TEST.steps - steps0}
+                      "macro_steps": STOP_TEST.steps - steps0,
+                      "macro_amg_levels": None if amg is None else amg.level_sizes}
     fn.system = sys
     return fn
 
@@ -229,8 +232,8 @@ def fem_solve_fn(
     method = options.method
     if method == "auto":
         method = "direct" if V.num_dofs <= options.direct_threshold else "cg"
-    mg, _ = macro_precs(sys, options)
-    macro_solve = make_implicit_solver(sys.cols, options, dia=sys.dia, mg=mg)
+    mg, amg = macro_precs(sys, options)
+    macro_solve = make_implicit_solver(sys.cols, options, dia=sys.dia, mg=mg, amg=amg)
 
     def solve(theta):
         c = lambda x: coeff(theta, x)  # noqa: E731

@@ -20,11 +20,10 @@ geometric multigrid V-cycle (the default ``SolverOptions()``), in float32
 for a float32 Poisson system and in float64 for every elasticity system.
 Every macro system is assembled in float64; a float32 Poisson CG system is
 rounded to float32 once, after its assembly (a divergence from the
-reference, which accumulates it in float32; ROADMAP C).  Both option levels take
-``SolverOptions`` or PETSc-style dicts.  Divergences from the reference
-(ROADMAP C): a CG macro solve with ``pc`` 'auto'/'mg' on a mesh without a
-geometric hierarchy raises (aggregation AMG, ROADMAP A10); ``shard_mesh``
-raises (ROADMAP A12).
+reference, which accumulates it in float32; ROADMAP C).  On a mesh without a
+geometric hierarchy (a Delaunay or file mesh) the CG takes the aggregation-AMG
+V-cycle (ops/amg.py).  Both option levels take ``SolverOptions`` or PETSc-style
+dicts.  ``shard_mesh`` raises (ROADMAP A12).
 
 ``build_pipeline()`` returns the whole solve as a function of the cell
 centers, differentiable end to end: every cell solve and the macro solve
@@ -411,8 +410,8 @@ class BaseHMM:
         rhs_degree, macro_f64 = self._quad_degree_rhs, self._macro_f64
         mask, bvals = merge_bcs(self._bcs, self._V_macro.num_dofs, torch.float64, self._device)
         options = self._options_global
-        mg, _ = macro_precs(sys, options)
-        macro_solve = make_implicit_solver(sys.cols, options, dia=sys.dia, mg=mg)
+        mg, amg = macro_precs(sys, options)
+        macro_solve = make_implicit_solver(sys.cols, options, dia=sys.dia, mg=mg, amg=amg)
 
         def step(centers):
             A_star = engine.tensors_for_centers(coeff, centers, G_fn=G_fn, chunk=chunk)
@@ -517,10 +516,10 @@ class BaseHMM:
         vals_bc, b_bc = assemble_macro_system(
             sys, A_star, self._b_load, mask, bvals, macro_f64=self._macro_f64
         )
-        mg, _ = macro_precs(sys, self._options_global)
+        mg, amg = macro_precs(sys, self._options_global)
         steps0 = STOP_TEST.steps
         x, iters, res = solve_ell(
-            vals_bc, sys.cols, b_bc, self._options_global, dia=sys.dia, mg=mg
+            vals_bc, sys.cols, b_bc, self._options_global, dia=sys.dia, mg=mg, amg=amg
         )
         res = float(res)  # the solve's closing host sync
         t_macro = time.perf_counter() - t0
@@ -538,6 +537,8 @@ class BaseHMM:
             # CG loop bodies, the frozen ones after the stop included
             "macro_steps": STOP_TEST.steps - steps0,
             "macro_residual": res,
+            # the AMG hierarchy's level sizes (None off the AMG route)
+            "macro_amg_levels": None if amg is None else amg.level_sizes,
             "nan_cells": nan_cells,
             "diverged_cells": diverged_cells,
             "fallback_cells": fallback_cells,

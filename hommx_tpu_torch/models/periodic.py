@@ -184,10 +184,10 @@ class BasePeriodicHMM:
             sys, A.expand(sys.centers.shape[0], *A.shape), b, mask, bvals,
             macro_f64=method == "direct" or V.bs > 1,
         )
-        mg, _ = macro_precs(sys, self._options_global)
+        mg, amg = macro_precs(sys, self._options_global)
         steps0 = STOP_TEST.steps
         x, iters, res = solve_ell(vals_bc, sys.cols, b_bc, self._options_global, dia=sys.dia,
-                                  mg=mg)
+                                  mg=mg, amg=amg)
         res = float(res)
         self._last_vals_bc = vals_bc
         self.diagnostics = {
@@ -197,6 +197,7 @@ class BasePeriodicHMM:
             "macro_iterations": int(iters),
             "macro_steps": STOP_TEST.steps - steps0,
             "macro_residual": res,
+            "macro_amg_levels": None if amg is None else amg.level_sizes,
         }
         self._u = Function(V, x.to(self._dtype))
         self._u.solver_iterations = int(iters)

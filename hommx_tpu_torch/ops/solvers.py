@@ -11,9 +11,11 @@ DIA SpMV, one ``DIAOperator`` (ops/dia.py) per solve: the hand-written CUDA
 kernel for a CUDA system (float32 and float64 instances) and the plain
 version on the CPU.  With a multigrid hierarchy (``mg``) and ``pc``
 'auto'/'mg', CG is preconditioned by the geometric-multigrid V-cycle
-(ops/multigrid.py) in the system's own dtype; ``pc='jacobi'`` takes the
-diagonal.  Aggregation AMG, the reference's preconditioner where no
-geometric hierarchy exists, is not ported (ROADMAP A10): that case raises.
+(ops/multigrid.py) in the system's own dtype; without one, by the
+aggregation-AMG V-cycle (``amg``, ops/amg.py), whose outer matvec is the
+DIA product where the system has a DIA view and the ELL gather
+otherwise; with neither (a system at or below the AMG bottom size), and
+for ``pc='jacobi'``, by the diagonal.
 
 Differentiation: :func:`implicit_linear_solve` is the port's counterpart of
 ``lax.custom_linear_solve`` — a solve whose backward pass is the adjoint
@@ -142,12 +144,14 @@ def dense_solve_ell(vals, cols, b):
     return x.to(b.dtype)
 
 
-def solve_ell(vals, cols, b, options, dia=None, mg=None):
+def solve_ell(vals, cols, b, options, dia=None, mg=None, amg=None):
     """Dispatch on SolverOptions: 'direct', 'cg', or 'auto' (direct up to
-    ``direct_threshold`` unknowns).  With a DIAPattern (``dia``) the CG
-    matvec is the DIA SpMV; with an MGStructure (``mg``) and ``pc``
-    'auto'/'mg' the preconditioner is the multigrid V-cycle.  Returns (x,
-    iterations, residual)."""
+    ``direct_threshold`` unknowns).  With ``pc`` 'auto'/'mg' the CG is
+    preconditioned by the geometric-multigrid V-cycle of an MGStructure
+    (``mg``), else by the aggregation-AMG V-cycle of an AMGStructure
+    (``amg``), else (and for ``pc='jacobi'``) by the diagonal.  With a
+    DIAPattern (``dia``) the CG matvec is the DIA SpMV on every route.
+    Returns (x, iterations, residual)."""
     method = options.method
     if method == "auto":
         method = "direct" if b.shape[0] <= options.direct_threshold else "cg"
@@ -156,29 +160,35 @@ def solve_ell(vals, cols, b, options, dia=None, mg=None):
         return x, 0, torch.zeros((), dtype=b.dtype, device=b.device)
     stop = dict(atol=options.atol, rtol=options.rtol, maxiter=options.maxiter)
     use_mg = options.pc in ("auto", "mg")
-    if use_mg and mg is None:
-        raise NotImplementedError(
-            f"macro CG with pc={options.pc!r} on a system without a geometric "
-            "multigrid hierarchy (unstructured mesh, or a grid that does not "
-            "coarsen): the reference takes aggregation AMG there, not ported "
-            "yet (ROADMAP A10); pass SolverOptions(pc='jacobi')"
-        )
+    if use_mg and mg is None and amg is not None:
+        from hommx_tpu_torch.ops.amg import amg_setup, amg_vcycle
+
+        matvec = _dia_matvec(dia, vals)[0] if dia is not None else (
+            lambda v: spmv(vals, cols, v))
+        state = amg_setup(amg, vals)
+        return pcg_prec(matvec, lambda r: amg_vcycle(amg, state, r), b, **stop)
     if dia is None:
         return cg_ell(vals, cols, b, **stop)
-    from hommx_tpu_torch.ops import dia as dia_ops
-
-    dvals = dia_ops.ell_vals_to_dia(dia, vals)
-    op = dia_ops.DIAOperator(dvals, dia.offsets)
-    # one buffer for every product: pcg_prec keeps no A·p across
-    # iterations, and on the card the stream orders each overwrite after
-    # the reads of the one before
-    matvec = lambda v: op(v, out=op.out)  # noqa: E731
-    if use_mg:
+    matvec, dvals = _dia_matvec(dia, vals)
+    if use_mg and mg is not None:
         from hommx_tpu_torch.ops.multigrid import mg_setup, mg_vcycle
 
         state = mg_setup(mg, dvals)
         return pcg_prec(matvec, lambda r: mg_vcycle(mg, state, r), b, **stop)
     return cg_matfree(matvec, _ell_diag(vals, cols), b, **stop)
+
+
+def _dia_matvec(dia, vals):
+    """(matvec, DIA values): the CG's DIA product over ``dia``'s offsets,
+    one ``DIAOperator`` (K2 on the card, its plain version on the CPU) with
+    one output buffer for every product (``pcg_prec`` keeps no A·p across
+    iterations, and on the card the stream orders each overwrite after the
+    reads of the one before)."""
+    from hommx_tpu_torch.ops import dia as dia_ops
+
+    dvals = dia_ops.ell_vals_to_dia(dia, vals)
+    op = dia_ops.DIAOperator(dvals, dia.offsets)
+    return (lambda v: op(v, out=op.out)), dvals
 
 
 class _ImplicitSolve(torch.autograd.Function):
@@ -227,17 +237,17 @@ def implicit_linear_solve(matvec, params, F, raw):
     return _ImplicitSolve.apply(matvec, raw, F, *params)
 
 
-def make_implicit_solver(cols, options, dia=None, mg=None):
+def make_implicit_solver(cols, options, dia=None, mg=None, amg=None):
     """The differentiable macro solve ``solve(vals, b) -> x``: :func:`solve_ell`
     with the static assembly context (cols, options, DIA pattern, multigrid
-    structure) closed over, under the implicit-function rule.  The adjoint
-    is one more solve with the same options, pattern, preconditioner and
-    kernels.  ``solve.iterations`` lists the iteration count of every solve
+    or AMG structure) closed over, under the implicit-function rule.  The
+    adjoint is one more solve with the same options, pattern,
+    preconditioner and kernels.  ``solve.iterations`` lists the iteration count of every solve
     it ran, forward and adjoint, in order."""
     iterations = []
 
     def solve_fn(vals, b):
-        x, k, _ = solve_ell(vals, cols, b, options, dia=dia, mg=mg)
+        x, k, _ = solve_ell(vals, cols, b, options, dia=dia, mg=mg, amg=amg)
         iterations.append(int(k))
         return x
 

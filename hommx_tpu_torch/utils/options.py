@@ -28,9 +28,9 @@ class SolverOptions:
         atol, rtol, maxiter: CG stopping criteria.
         direct_threshold: size cutoff for the 'auto' dense path.
         pc: CG preconditioner — 'auto' and 'mg' take the geometric
-            multigrid V-cycle on structured meshes (a mesh without a
-            hierarchy raises: aggregation AMG is ROADMAP A10), 'jacobi' the
-            diagonal.
+            multigrid V-cycle on structured meshes and the aggregation-AMG
+            V-cycle on the others (the diagonal at or below its 1500-unknown
+            bottom size), 'jacobi' the diagonal.
         dtype: kept for API parity with the reference.
     """
 

@@ -176,8 +176,9 @@ def test_fem_unported_parts_raise():
     """P2 spaces now run: PoissonFEM(degree=2) gives the reference's
     solution (1e-10) on a direct solve; a P2 system above
     ``direct_threshold`` has no geometric hierarchy, so its CG with
-    pc='auto' raises naming A10 (the reference takes aggregation AMG) and
-    with pc='jacobi' runs.  Plotting still names A13."""
+    pc='auto' takes Jacobi below the AMG bottom size, as the reference
+    does (1e-9, the same iterations), and with pc='jacobi' runs.  Plotting
+    still names A13."""
     jm = hx.create_unit_square(4)
     msh = port_mesh(jm)
     f = lambda x: 1.0 + x[0]  # noqa: E731
@@ -185,9 +186,13 @@ def test_fem_unported_parts_raise():
     ref = hx.PoissonFEM(jm, lambda x: 1.0, f, degree=2).solve()
     assert u.function_space.degree == 2 and u.macro_method == "direct"
     assert _rel(u.array.numpy(), ref.array) < 1e-10
-    small = ht.SolverOptions(method="auto", direct_threshold=16)
-    with pytest.raises(NotImplementedError, match="A10"):
-        ht.PoissonFEM(msh, lambda x: 1.0, f, small, degree=2, device="cpu").solve()
+    small = dict(method="auto", direct_threshold=16, rtol=1e-12)
+    u_auto = ht.PoissonFEM(msh, lambda x: 1.0, f, ht.SolverOptions(**small), degree=2,
+                           device="cpu").solve()
+    ref_auto = hx.PoissonFEM(jm, lambda x: 1.0, f, hx.SolverOptions(**small), degree=2).solve()
+    assert u_auto.macro_method == "cg" and u_auto.diagnostics["macro_amg_levels"] is None
+    assert u_auto.solver_iterations == int(ref_auto.solver_iterations) > 0
+    assert _rel(u_auto.array.numpy(), ref.array) < 1e-9
     jac = ht.SolverOptions(method="auto", direct_threshold=16, pc="jacobi", rtol=1e-12)
     u_cg = ht.PoissonFEM(msh, lambda x: 1.0, f, jac, degree=2, device="cpu").solve()
     assert u_cg.macro_method == "cg" and _rel(u_cg.array.numpy(), ref.array) < 1e-9

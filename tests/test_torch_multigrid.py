@@ -331,19 +331,37 @@ def test_solve_ell_auto_takes_mg_above_threshold():
 
 
 def test_solve_ell_without_hierarchy_raises_a10():
-    """Where the reference would take aggregation AMG (no geometric
-    hierarchy), the port raises naming A10 instead of running Jacobi."""
+    """With no geometric hierarchy and no AMG hierarchy, ``pc`` 'auto'/'mg'
+    take Jacobi CG, as the reference does (this case raised before the
+    aggregation AMG was ported): the same x to 1e-10 and the same
+    iterations on the 64² system's DIA view; and an unstructured 4² HMM
+    (25 dofs, below the AMG bottom size) with method='cg' solves to the
+    reference's u (1e-10) in its iterations."""
     V, sys, vals_bc, b_bc = _poisson64()
     tp = build_ell_pattern(V.cell_dofs_unrolled(), V.num_dofs)
     cols, td = T(tp.cols.astype(np.int64)), build_dia_from_ell(tp)
     for pc in ("auto", "mg"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            tsolvers.solve_ell(T(vals_bc), cols, T(b_bc), ht.SolverOptions(pc=pc), dia=td)
-    um = _unstructured(port_mesh(hx.create_unit_square(4)))
-    hmm = ht.PoissonHMM(um, lambda x, y: 1.0 + 0.0 * y[0], 1.0, ht.create_unit_square(4), 0.1,
-                        ht.SolverOptions(method="cg"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        hmm.solve()
+        opts = dict(method="cg", pc=pc, rtol=1e-10, atol=0.0)
+        x, k, _ = tsolvers.solve_ell(T(vals_bc), cols, T(b_bc), ht.SolverOptions(**opts), dia=td)
+        x_ref, k_ref, _ = jax_solve_ell(vals_bc, sys.cols, b_bc, hx.SolverOptions(**opts),
+                                        dia=sys.dia)
+        assert k == int(k_ref) and k > 20
+        np.testing.assert_allclose(x.numpy(), np.asarray(x_ref), rtol=0,
+                                   atol=1e-10 * np.abs(np.asarray(x_ref)).max())
+    jm = hx.create_unit_square(4)
+    jm = hx.SimplexMesh(jm.vertices, jm.cells, None)
+    opts = dict(method="cg", rtol=1e-12, atol=0.0)
+    hmm = ht.PoissonHMM(_unstructured(port_mesh(jm)), lambda x, y: 1.0 + 0.5 * x[0] + 0.0 * y[0],
+                        1.0, ht.create_unit_square(4), 0.1, ht.SolverOptions(**opts),
+                        device="cpu")
+    u = hmm.solve()
+    ref = hx.PoissonHMM(jm, lambda x, y: 1.0 + 0.5 * x[0] + 0.0 * y[0], lambda x: 1.0,
+                        hx.create_unit_square(4), 0.1, hx.SolverOptions(**opts))
+    u_ref = np.asarray(ref.solve().array)
+    assert hmm._sys.mg is None and hmm._sys.amg is None
+    assert hmm.diagnostics["macro_iterations"] == ref.diagnostics["macro_iterations"] > 0
+    assert hmm.diagnostics["macro_amg_levels"] is None
+    np.testing.assert_allclose(u.array.numpy(), u_ref, rtol=0, atol=1e-10 * np.abs(u_ref).max())
 
 
 # -- end to end -------------------------------------------------------------

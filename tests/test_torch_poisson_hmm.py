@@ -106,16 +106,22 @@ def test_error_probes():
         ht.PoissonHMM(ht.create_unit_square(4), TORCH_A, 1.0, ht.create_unit_cube(2), 0.1,
                       device="cpu")
     # multigrid CG runs ('mg' and the default 'auto'); on a mesh without a
-    # geometric hierarchy it raises at the solve, naming AMG's item A10
+    # geometric hierarchy, below the AMG bottom size, it takes Jacobi CG
+    # and gives the reference's u (1e-10)
     for pc in ("mg", "auto"):
         h = _tiny(options_global_solve=ht.SolverOptions(method="cg", pc=pc))
         assert np.isfinite(h.solve().array.numpy()).all() and h._sys.mg is not None
         assert h.diagnostics["macro_iterations"] > 0
-    m = ht.create_unit_square(4)
+    m = hx.create_unit_square(4)
+    opts = dict(method="cg", rtol=1e-12, atol=0.0)
     h = ht.PoissonHMM(ht.SimplexMesh(m.vertices, m.cells), TORCH_A, 1.0, ht.create_unit_square(4),
-                      0.1, ht.SolverOptions(method="cg"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        h.solve()
+                      0.1, ht.SolverOptions(**opts), device="cpu")
+    u = h.solve().array.numpy()
+    ref = hx.PoissonHMM(hx.SimplexMesh(m.vertices, m.cells, None), JAX_A, lambda x: 1.0,
+                        hx.create_unit_square(4), 0.1, hx.SolverOptions(**opts))
+    u_ref = np.asarray(ref.solve().array)
+    assert h._sys.mg is None and h._sys.amg is None and h.diagnostics["macro_iterations"] > 0
+    np.testing.assert_allclose(u, u_ref, rtol=0, atol=1e-10 * np.abs(u_ref).max())
     # cell dedup is on by default, as in the reference; multi-device
     # solves are what the constructor still refuses, naming A12
     assert _tiny()._dedup_cells and not _tiny(dedup_cells=False)._dedup_cells

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the hommx_tpu_torch slice goes, on one NVIDIA GPU.
 
-    python3 tools/profile_slice.py [--mode poisson|elasticity|micro16|routes] [--macro 512]
-                                   [--micro 16] [--pc auto|jacobi] [--out FILE]
+    python3 tools/profile_slice.py [--mode poisson|elasticity|micro16|routes|amg]
+                                   [--macro 512] [--micro 16] [--pc auto|jacobi] [--out FILE]
 
 Run from the repository root on a machine with one CUDA card; it fails
 without one.  It prints one JSON line per measurement; the full records,
@@ -56,6 +56,16 @@ dedup off, float32, chunk 2048) on three routes, one warm-up model first
 for each: ``k1`` (16² micro, K1), ``fft`` (16² micro, ``cell_prec='fft'``:
 the chunk PCG in plain torch with cuFFT) and ``p2`` (8² micro,
 ``micro_degree=2``: the matrix-free gather with K0⁻¹).
+
+``--mode amg`` profiles the unstructured macro stage of ``chip_smoke.py``'s
+``amg`` phase: ``examples/diffusion/unstructured.py``'s jittered Delaunay
+mesh at ``--macro``² (PoissonHMM, 16² micro, float32, CG to rtol 1e-5
+preconditioned by the aggregation-AMG V-cycle, one warm-up solve first,
+so the micro stage is cached): ``amg_build`` (the host build's seconds and
+the levels), then ``torch.profiler`` over the macro stage (a solve:
+guard, assembly, ``amg_setup``, the CG), over ``amg_setup`` alone and
+over 10 V-cycles (``launches_per_vcycle``: device events over 10), each
+with device busy and idle share and the top kernels.
 """
 
 from __future__ import annotations
@@ -263,9 +273,40 @@ def routes(args, device, keep, kernels):
               **profiled(f"micro_{route}", hmm.homogenized_tensors, kernels)})
 
 
+def amg(args, device, keep, kernels):
+    import torch
+
+    from chip_smoke import flagship, jittered_delaunay
+    from hommx_tpu_torch import PoissonHMM, SolverOptions, create_unit_square
+    from hommx_tpu_torch.ops.amg import amg_setup, amg_vcycle
+
+    mesh, t_del = jittered_delaunay(args.macro)
+    hmm = PoissonHMM(mesh, flagship, 1.0, create_unit_square(args.micro, args.micro), 2**-5,
+                     SolverOptions(rtol=1e-5, maxiter=20000), dtype=torch.float32,
+                     device=device, chunk=2048)
+    t0 = time.perf_counter()
+    struct = hmm._sys.amg
+    keep({"tag": "amg_build", "delaunay_s": t_del, "build_s": time.perf_counter() - t0,
+          "timings": dict(struct.timings), "levels": struct.level_sizes,
+          "dofs": hmm.function_space.num_dofs})
+    hmm.solve()  # warm-up: the micro stage (then cached) and the device tables
+    rec = profiled("macro_amg", hmm.solve, kernels)
+    dg = hmm.diagnostics
+    keep({"tag": "stage", **rec, "macro_seconds": dg["macro_seconds"],
+          "macro_iterations": dg["macro_iterations"], "macro_steps": dg["macro_steps"]})
+    vals, b = hmm._last_vals_bc, torch.ones(hmm.function_space.num_dofs, device=device)
+    keep({"tag": "stage", **profiled("amg_setup", lambda: amg_setup(struct, vals), kernels)})
+    state = amg_setup(struct, vals)
+    reps = 10
+    rec = profiled("vcycle", lambda: [amg_vcycle(struct, state, b) for _ in range(reps)],
+                   kernels)
+    keep({"tag": "stage", **rec, "launches_per_vcycle": rec["n_device_events"] / reps,
+          "ms_per_vcycle": rec["wall_s"] / reps * 1e3})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("poisson", "elasticity", "micro16", "routes"),
+    ap.add_argument("--mode", choices=("poisson", "elasticity", "micro16", "routes", "amg"),
                     default="poisson")
     ap.add_argument("--macro", type=int, default=512)
     ap.add_argument("--micro", type=int, default=16)
@@ -303,6 +344,8 @@ def main() -> int:
         micro16(device, keep, kernels)
     elif args.mode == "routes":
         routes(args, device, keep, kernels)
+    elif args.mode == "amg":
+        amg(args, device, keep, kernels)
     else:
         make = (poisson if args.mode == "poisson" else elasticity)(args, device, keep, kernels)
     if make is not None:
