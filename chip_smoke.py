@@ -18,7 +18,10 @@ prints no result line):
                L2 (flushed by a write, and by a read); then K2's float64
                instance the same way on the 512x512 pattern and on the
                40x12x12 elasticity pattern (bs = 3), against the float64
-               CSR product
+               CSR product; and K2 at a shard's shape of the 4-shard CG,
+               float32 on the 512x512 pattern (``shard512``) and float64 on
+               the beam's (``beam40x12x12_f64_shard``), against its plain
+               version and the whole system's plain product
 4. stencil     K1 vs its plain version at the kernel's block size on one
                2048-cell chunk of the 16x16 micro engine (flagship
                coefficient), on a ragged 37-cell chunk and on a 1000-cell
@@ -162,6 +165,25 @@ prints no result line):
                build_pipeline's dJ/dθ on a 64² jittered mesh through K1 and
                the AMG-CG against the CPU's float64 gradient
 
+15. multi-device solves, on ``ShardMesh(["cuda:0"] * 4)``: four
+   logical shards on the one card, each with its own K1/K3 block and K2
+   launch; float32 unless stated:
+   sharded     (a) the 512² slice (16² micro, slice_mg's options, dedup
+               off) sharded against unsharded, each solved twice: A*, u
+               against the float64 solve of its own system, iterations,
+               K2 launches = 4 × the CG's products (its loop steps and
+               each solve's initial residual), K1's launches; the
+               same on ``device_mesh()`` (one card) bitwise equal to the
+               unsharded u.  (b) build_pipeline's dJ/dθ at 64² in 'auto'
+               mode against the unsharded gradient; the 512² forward in
+               'shard_map' mode against 'auto'.  (c) the 40x12x12 beam's
+               float64 multigrid CG sharded (K3 per shard, K2 f64 per
+               shard) against the unsharded u.  (d)
+               ``dryrun_multichip(4)``, whose launches count nowhere: each
+               of its checks also runs the unsharded pipeline.  Phase dia
+               holds K2 at a shard's shapes (``shard512``,
+               ``beam40x12x12_f64_shard``).
+
 Phases 1-9 pass ``dedup_cells=False`` and so solve every cell, as before
 the models' default became dedup.  ``--only fem_flagship,kc_gather`` runs
 the named phases of parts 11 to 14 alone (after the build) and prints no
@@ -228,6 +250,8 @@ AMG_STRUCTURED_RTOL = 5e-2  # unstructured u vs the structured u at its nodes (t
 AMG_JACOBI_FACTOR = 3  # Jacobi CG takes at least this many times AMG-CG's iterations
 AMG_FEM_RTOL = 1e-3  # float32 AMG-CG FEM u vs the float64 solve of its system
 AMG_OPTIONS = {"rtol": 1e-5, "maxiter": 20000}  # the float32 CG runs (as slice_default)
+SHARD_GRAD_RTOL = 1e-3  # float32 dJ/dθ, sharded pipeline vs unsharded
+SHARD_MODES_RTOL = 1e-6  # float32 u, the 'shard_map' forward vs the 'auto' one
 
 # NVIDIA H100 SXM peaks (data sheet, dense): float32 outside the tensor
 # cores and device memory bandwidth, for each kernel's least time
@@ -503,12 +527,17 @@ def _graph_us(op, x, launches: int = 200):
     return statistics.median(times), buf
 
 
-def _k2_case(name, mesh, device, seed, dtype=None, bs=1):
+def _k2_case(name, mesh, device, seed, dtype=None, bs=1, shard=None):
     """K2 on the macro DIA pattern of ``mesh`` (block size ``bs``) with
     seeded random values in ``dtype`` (float32 by default): against its
     plain version and against a cuSPARSE CSR product of the same matrix,
-    with its single-call, back-to-back, graph and cold-L2 times."""
+    with its single-call, back-to-back, graph and cold-L2 times.  With
+    ``shard = (i, n)`` the operator is shard i of n of the sharded macro
+    CG (parallel/macro.py): the shard's rows of the values zero-extended by
+    the halo on each side, applied to the extended vector; its middle rows
+    are also held against the plain product of the whole system."""
     import torch
+    import torch.nn.functional as F
 
     from hommx_tpu_torch import FunctionSpace
     from hommx_tpu_torch.ops.dia import DIAOperator, build_dia_from_ell, dia_spmv, dia_spmv_cuda
@@ -521,6 +550,16 @@ def _k2_case(name, mesh, device, seed, dtype=None, bs=1):
     g = torch.Generator(device=device).manual_seed(seed)
     vals = torch.randn((nd, N), generator=g, device=device, dtype=dtype)
     x = torch.randn((N,), generator=g, device=device, dtype=dtype)
+    if shard is not None:
+        i, n_sh = shard
+        halo = max(abs(o) for o in dia.offsets)
+        block = -(-N // n_sh)
+        y_rows = dia_spmv(vals, dia.offsets, x)[i * block:(i + 1) * block]
+        vals = F.pad(F.pad(vals, (0, block * n_sh - N))[:, i * block:(i + 1) * block],
+                     (halo, halo)).contiguous()
+        x = F.pad(x, (halo, block * n_sh - N + halo))[i * block:(i + 1) * block + 2 * halo]
+        x = x.contiguous()
+        N = block + 2 * halo
     op = DIAOperator(vals, dia.offsets)  # as the macro CG makes it, once per solve
     y_k = op(x).clone()
     y_w = dia_spmv_cuda(vals, dia.offsets, x)
@@ -560,10 +599,16 @@ def _k2_case(name, mesh, device, seed, dtype=None, bs=1):
            "cold_l2_clean_us": _cold_l2_us(kernel_call, device, clean=True),
            "library_cold_l2_us": _cold_l2_us(lambda: csr @ x, device),
            "bound_ms": bound_ms, "bound_by": bound_by}
-    emit(rec)
     tol = K2_F64_RTOL if f64 else K2_RTOL
+    shard_ok = True
+    if shard is not None:
+        rows = y_k[halo:halo + y_rows.shape[0]]
+        rec.update({"shard": list(shard), "halo": halo, "block": block,
+                    "shard_rel_err": float((rows - y_rows).abs().max()) / float(y_rows.abs().max())})
+        shard_ok = rec["shard_rel_err"] < tol
+    emit(rec)
     ok = (rec["rel_err"] < tol and rec["wrapper_rel_err"] < tol
-          and rec["library_rel_err"] < tol and rec["graph_equal"])
+          and rec["library_rel_err"] < tol and rec["graph_equal"] and shard_ok)
     return rec, ok
 
 
@@ -573,21 +618,28 @@ def phase_dia(device):
     Delaunay mesh of phase amg (263,169 dofs, its irregular offsets: the
     AMG-CG's outer product, through the kernel's run-time diagonal count);
     its float64 instance on the 512x512 pattern and on the elasticity
-    pattern of the 40x12x12 beam (20,787 dofs, bs = 3, the float64 CG's).
-    Returns the float32 2d512 record and the float64 beam record."""
+    pattern of the 40x12x12 beam (20,787 dofs, bs = 3, the float64 CG's);
+    ``shard512``: shard 1 of the 4-shard CG on the 512x512 pattern (65,793
+    rows, halo 514: the operator over 66,821 rows), and
+    ``beam40x12x12_f64_shard``, shard 1 of the beam's 4-shard float64 CG,
+    each against its plain version and the plain product of the whole
+    system.  Returns the float32 2d512 record and the
+    float64 beam record."""
     import torch
 
     from hommx_tpu_torch import create_box, create_unit_cube, create_unit_square
 
     beam = create_box([[0, 0, 0], [BEAM_L, BEAM_W, BEAM_H]], [40, 12, 12])
-    cases = [("2d512", create_unit_square(512, 512), 2, torch.float32, 1),
-             ("3d62", create_unit_cube(62), 3, torch.float32, 1),
-             ("jittered512", jittered_delaunay(512)[0], 6, torch.float32, 1),
-             ("2d512_f64", create_unit_square(512, 512), 4, torch.float64, 1),
-             ("beam40x12x12_f64", beam, 5, torch.float64, 3)]
+    cases = [("2d512", create_unit_square(512, 512), 2, torch.float32, 1, None),
+             ("3d62", create_unit_cube(62), 3, torch.float32, 1, None),
+             ("jittered512", jittered_delaunay(512)[0], 6, torch.float32, 1, None),
+             ("2d512_f64", create_unit_square(512, 512), 4, torch.float64, 1, None),
+             ("beam40x12x12_f64", beam, 5, torch.float64, 3, None),
+             ("shard512", create_unit_square(512, 512), 7, torch.float32, 1, (1, 4)),
+             ("beam40x12x12_f64_shard", beam, 8, torch.float64, 3, (1, 4))]
     recs, failed = {}, []
-    for name, mesh, seed, dtype, bs in cases:
-        recs[name], ok = _k2_case(name, mesh, device, seed, dtype, bs)
+    for name, mesh, seed, dtype, bs, shard in cases:
+        recs[name], ok = _k2_case(name, mesh, device, seed, dtype, bs, shard)
         if not ok:
             failed.append(name)
     if failed:
@@ -3256,13 +3308,188 @@ def phase_amg(device, n: int = 512, micro_n: int = 16, rand_n: int = 512, p2_n: 
     return main
 
 
+def phase_sharded(device, macro_n: int = 512, micro_n: int = 16, grad_n: int = 64,
+                  beam_n=(40, 12, 12), shards: int = 4):
+    """Multi-device solves on ``ShardMesh([device] * shards)``: every shard
+    on this card, so each shard's K1/K3 block, K2 launch, halo copy and dot
+    runs here.  (a) The slice at macro_n² (16² micro, slice_mg's options,
+    dedup off), sharded against unsharded, each solved twice (the second
+    with A* cached: the macro stage alone): A*, u against the float64
+    solve of its own system, the multigrid CG's iterations, K1's and K2's
+    launches (one K2 launch a shard a product: each loop step and each
+    solve's initial residual);
+    the same solve on ``device_mesh()`` (one card: the replicated route)
+    bitwise equal to the unsharded one.  (b) build_pipeline's dJ/dθ at
+    grad_n² in 'auto' mode against the unsharded gradient; the macro_n²
+    forward in 'shard_map' mode against 'auto'.  (c) The beam on a
+    beam_n box (K3 per shard, the float64 multigrid CG through K2's
+    float64 instance per shard) against the unsharded u.  (d)
+    ``dryrun_multichip(shards)``.  Only the sharded runs of (a)-(c) count
+    their launches; (d)'s count nowhere, since each of its checks also runs
+    the unsharded pipeline it is held against."""
+    import torch
+
+    from hommx_tpu_torch import (PoissonHMM, ShardMesh, SolverOptions, create_unit_square,
+                                 device_mesh, dryrun_multichip)
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.ops import chol_kernel, dia
+
+    t_phase = time.perf_counter()
+    mesh = ShardMesh([device] * shards)
+    main = {"stencil_pcg": 0, "dia_spmv": 0, "chol_solve": 0, "dia_spmv_f64": 0}
+
+    def on_main_path(fn, *args):
+        # the counts of one main-path run, set to 0 just before it and
+        # read just after: the unsharded runs beside it count nowhere
+        for k in (stencil_pcg.KERNEL, dia.KERNEL, chol_kernel.KERNEL):
+            k.reset_counts()
+        result = fn(*args)
+        torch.cuda.synchronize()
+        n = {"stencil_pcg": stencil_pcg.KERNEL.launches,
+             "dia_spmv": dia.KERNEL.counts["hommx_dia_spmv_f32"],
+             "chol_solve": chol_kernel.KERNEL.launches,
+             "dia_spmv_f64": dia.KERNEL.counts["hommx_dia_spmv_f64"]}
+        for key in main:
+            main[key] += n[key]
+        return result, n
+
+    out = {}
+    # (a) the slice, sharded against unsharded
+    opts = SolverOptions(rtol=1e-5, maxiter=20000)
+    macro, micro = create_unit_square(macro_n, macro_n), create_unit_square(micro_n, micro_n)
+
+    def model(shard):
+        return PoissonHMM(macro, flagship, 1.0, micro, 2**-5, opts, dtype=torch.float32,
+                          device=device, chunk=2048, dedup_cells=False, shard_mesh=shard)
+
+    def two_solves(hmm):
+        runs = []
+        for _ in range(2):
+            u = hmm.solve().array
+            dg = hmm.diagnostics
+            runs.append({k: dg[k] for k in ("micro_seconds", "macro_seconds",
+                                              "macro_iterations", "macro_steps")})
+        return runs, u
+
+    hmm_u = model(None)
+    runs_u, u_u = two_solves(hmm_u)
+    hmm_s = model(mesh)
+    (runs_s, u_s), n_a = on_main_path(two_solves, hmm_s)
+    steps = sum(r["macro_steps"] for r in runs_s)
+    hmm_1 = model(device_mesh())
+    (u_1, n_1) = on_main_path(lambda: hmm_1.solve().array)
+    rec = {"phase": "sharded_slice", "shards": shards, "macro_n": macro_n, "micro_n": micro_n,
+           "cells": int(hmm_s._sys.centers.shape[0]), "dofs": hmm_s.function_space.num_dofs,
+           "sharded_macro": hmm_s._use_sharded_macro(), "unsharded": runs_u, "sharded": runs_s,
+           "launches": n_a, "k2_launches_expected": shards * (steps + len(runs_s)),
+           "astar_rel_diff": rel_diff(hmm_s.homogenized_tensors(), hmm_u.homogenized_tensors()),
+           "u_rel_diff_to_unsharded": rel_diff(u_s, u_u),
+           "u_rel_diff_own_system_f64": rel_diff(u_s, _own_system_f64(hmm_s)),
+           "device_mesh_size": hmm_1._shard_mesh.size, "device_mesh_launches": n_1,
+           "device_mesh_bitwise_equal": bool(torch.equal(u_1, u_u)),
+           "finite": bool(torch.isfinite(u_s).all())}
+    emit(rec)
+    out["a"] = rec
+    del hmm_u, hmm_1, u_u, u_1
+    torch.cuda.empty_cache()
+
+    # (b) the gradient in 'auto' mode, and the 'shard_map' forward
+    grad_opts = SolverOptions(rtol=1e-5, maxiter=20000)
+
+    def grad(shard):
+        holder = [1.0]
+        h = PoissonHMM(create_unit_square(grad_n, grad_n), _theta_flagship(holder),
+                       lambda x: 1.0, micro, 2**-5, grad_opts, dtype=torch.float32,
+                       device=device, dedup_cells=False)
+        step, centers = h.build_pipeline(shard_mesh=shard, shard_mode="auto")
+
+        def loss(th):
+            holder[0] = th
+            return (step(centers).double() ** 2).sum()
+
+        r = _grad_pass(loss, torch.tensor(1.0, device=device, requires_grad=True))
+        r["macro_iterations"] = list(step.macro_solve.iterations)
+        r["sharded_macro"] = hasattr(step.macro_solve, "full")
+        return r
+
+    g_u = grad(None)
+    g_s, n_b = on_main_path(grad, mesh)
+
+    def forwards():
+        with torch.no_grad():
+            return {mode: hmm_s.build_pipeline(shard_mode=mode)[0](hmm_s._sys.centers)
+                    for mode in ("auto", "shard_map")}
+
+    u_modes, n_f = on_main_path(forwards)
+    rec = {"phase": "sharded_pipeline", "grad_n": grad_n, "unsharded": g_u, "sharded": g_s,
+           "grad_rel_err": _rel(g_s["derivative"], g_u["derivative"]), "launches": n_b,
+           "forward_launches": n_f,
+           "shard_map_rel_diff_to_auto": rel_diff(u_modes["shard_map"], u_modes["auto"]),
+           "auto_rel_diff_to_solve": rel_diff(u_modes["auto"], u_s)}
+    emit(rec)
+    out["b"] = rec
+    del hmm_s, u_s, u_modes
+    torch.cuda.empty_cache()
+
+    # (c) the beam's float64 multigrid CG, sharded
+    keys = ("micro_seconds", "macro_seconds", "macro_iterations", "macro_steps")
+    beam_u = make_beam(device, beam_n)
+    u_b = beam_u.solve().array
+    beam_s = make_beam(device, beam_n, shard_mesh=mesh)
+    ub_s, n_c = on_main_path(lambda: beam_s.solve().array)
+    dg = beam_s.diagnostics
+    rec = {"phase": "sharded_beam", "macro_n": list(beam_n), "dofs": beam_s.function_space.num_dofs,
+           "sharded_macro": beam_s._use_sharded_macro(), "macro_f64": beam_s._macro_f64,
+           **{k: dg[k] for k in keys}, "unsharded": {k: beam_u.diagnostics[k] for k in keys},
+           "launches": n_c, "u_rel_diff_to_unsharded": rel_diff(ub_s, u_b),
+           "finite": bool(torch.isfinite(ub_s).all())}
+    emit(rec)
+    out["c"] = rec
+    del beam_u, beam_s, u_b, ub_s
+    torch.cuda.empty_cache()
+
+    # (d) the six checks of dryrun_multichip (off the count: each runs the
+    # unsharded pipeline beside the sharded one)
+    t0 = time.perf_counter()
+    errs = dryrun_multichip(shards, device)
+    rec = {"phase": "sharded_dryrun", "shards": shards, "errors": errs,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    out["d"] = rec
+    a, b, c, d = (out[k] for k in "abcd")
+    iters_u = [r["macro_iterations"] for r in a["unsharded"]]
+    iters_s = [r["macro_iterations"] for r in a["sharded"]]
+    ok = (a["finite"] and a["sharded_macro"] and a["astar_rel_diff"] <= SLICE_ASTAR_RTOL
+          and a["u_rel_diff_own_system_f64"] <= SLICE_MG_RTOL
+          and all(abs(i - j) <= 1 for i, j in zip(iters_s, iters_u))
+          and a["launches"]["dia_spmv"] == a["k2_launches_expected"]
+          and a["launches"]["stencil_pcg"] >= shards
+          and a["device_mesh_size"] == torch.cuda.device_count()
+          and (a["device_mesh_size"] > 1 or a["device_mesh_bitwise_equal"])
+          and b["grad_rel_err"] <= SHARD_GRAD_RTOL and b["sharded"]["sharded_macro"]
+          and len(b["sharded"]["macro_iterations"]) == 2
+          and b["sharded"]["backward_launches"]["stencil_pcg"] >= shards
+          and b["sharded"]["backward_launches"]["dia_spmv"] >= shards
+          and b["shard_map_rel_diff_to_auto"] <= SHARD_MODES_RTOL
+          and c["finite"] and c["sharded_macro"] and c["macro_f64"]
+          and c["launches"]["dia_spmv_f64"] == shards * (c["macro_steps"] + 1)
+          and c["launches"]["chol_solve"] >= shards and c["launches"]["dia_spmv"] == 0
+          and c["u_rel_diff_to_unsharded"] <= BEAM_CG_RTOL and len(d["errors"]) == 10)
+    if not ok:
+        raise AssertionError(f"sharded solves failed their checks: {out}")
+    emit({"phase": "sharded_main_path_launches", **main,
+          "seconds": time.perf_counter() - t_phase})
+    return main
+
+
 #: the phases of the periodic, FEM and per-cell slice, of differentiation,
-#: of the micro engine's other routes, of the FFT and P2 routes and of the
-#: unstructured macro path, in their order
+#: of the micro engine's other routes, of the FFT and P2 routes, of the
+#: unstructured macro path and of multi-device solves, in their order
 NEW_PHASES = (phase_fem_flagship, phase_golden_periodic_fem, phase_periodic_identity,
               phase_elasticity_periodic, phase_chol_batched, phase_kc_gather,
               phase_pipeline_grad, phase_pipeline_grad_elasticity, phase_fem_grad,
-              phase_micro_highres, phase_micro_routes, phase_micro_fft, phase_p2, phase_amg)
+              phase_micro_highres, phase_micro_routes, phase_micro_fft, phase_p2, phase_amg,
+              phase_sharded)
 
 
 def main(argv) -> int:

@@ -15,6 +15,9 @@ single-scale P1 and P2 FEM (``fem_solve``, ``PoissonFEM``,
 problems) and ``helpers``.  Every model takes the reference's constructor arguments and
 defaults: cell dedup on (``dedup_cells``, ``dedup_verify``),
 ``SolverOptions`` or PETSc-style dicts for both solve levels.
+Multi-device solves (``ShardMesh``, ``device_mesh``, ``shard_cells``,
+``make_sharded_solver``, ``dryrun_multichip``) shard the micro stage over
+the macro cells and the macro CG over the rows, from one process.
 The solve is differentiable end to end: ``BaseHMM.build_pipeline``,
 ``fem_solve_fn`` and ``entry`` (the flagship's pipeline) carry the
 implicit-function rule through every cell solve and the macro solve.
@@ -60,8 +63,9 @@ from hommx_tpu_torch.ops.function_space import (
     functionspace,
     locate_dofs_geometrical,
 )
+from hommx_tpu_torch.parallel import ShardMesh, device_mesh, make_sharded_solver, shard_cells
 from hommx_tpu_torch.utils.options import SolverOptions
-from hommx_tpu_torch.entry import entry
+from hommx_tpu_torch.entry import dryrun_multichip, entry
 
 __all__ = [
     "SimplexMesh",
@@ -89,6 +93,11 @@ __all__ = [
     "fem_solve",
     "fem_solve_fn",
     "entry",
+    "dryrun_multichip",
+    "ShardMesh",
+    "device_mesh",
+    "shard_cells",
+    "make_sharded_solver",
     "DirichletBC",
     "Function",
     "FunctionSpace",

@@ -19,11 +19,23 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["default_dtype", "as_device", "sync"]
+__all__ = ["default_dtype", "as_device", "same_device", "sync"]
 
 
 def as_device(device) -> torch.device:
     return device if isinstance(device, torch.device) else torch.device(device)
+
+
+def same_device(a, b) -> bool:
+    """Whether two devices are one: a CUDA device without an index is the
+    current one."""
+    a, b = as_device(a), as_device(b)
+    if a.type != b.type:
+        return False
+    if a.type == "cuda" and (a.index is None) != (b.index is None):
+        cur = torch.cuda.current_device()
+        return (cur if a.index is None else a.index) == (cur if b.index is None else b.index)
+    return a.index == b.index
 
 
 def default_dtype(device) -> torch.dtype:

@@ -44,7 +44,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from hommx_tpu_torch.config import as_device, default_dtype
+from hommx_tpu_torch.config import as_device, default_dtype, same_device
 from hommx_tpu_torch.meshes.simplex import SimplexMesh
 from hommx_tpu_torch.micro.krylov import _map_chunked
 from hommx_tpu_torch.micro.periodic import build_periodic_map, build_periodic_map_points
@@ -145,6 +145,9 @@ class MicroEngine:
         chol_backend: str = "auto",
         mg_nu: int = 0,
     ):
+        # the constructor's arguments, for the replicas on other devices
+        self._ctor = {k: v for k, v in locals().items() if k != "self"}
+        self._replicas: dict = {}
         d = micro_mesh.dim
         bs = int(bs)
         if bs not in (1, d):
@@ -237,6 +240,20 @@ class MicroEngine:
         from hommx_tpu_torch.micro.percell import build_operators
 
         build_operators(self)
+
+    def replica(self, device) -> "MicroEngine":
+        """This engine on ``device``: itself where ``device`` is its own,
+        else an engine built with the same arguments there, once per
+        device (a shard of a multi-device solve holds its own copy of the
+        operators, the stencil weights and the gather tables)."""
+        device = as_device(device)
+        if same_device(device, self.device):
+            return self
+        key = str(device)
+        if key not in self._replicas:
+            self._replicas[key] = MicroEngine(**{**self._ctor, "device": device,
+                                                 "dtype": self.dtype})
+        return self._replicas[key]
 
     # -- routes ----------------------------------------------------------------
     def _use_chunk(self) -> bool:
@@ -494,7 +511,8 @@ class MicroEngine:
         vector problems on ``solver='cholesky'`` (with
         ``HOMMX_CHOL_SOLVE_BATCH=1``, one solve over the whole batch), the
         chunk PCG where :meth:`_use_chunk` says so, the per-cell route for
-        the rest.
+        the rest.  Centers on another device of the engine's device type (a
+        shard's block) are solved there, by :meth:`replica`.
 
         The result is differentiable in every tensor the coefficient (or
         ``G_fn``) closes over, and in ``centers``.  The chunk routes' solves
@@ -510,6 +528,11 @@ class MicroEngine:
         )
         from hommx_tpu_torch.micro.percell import tensors_percell
 
+        if (isinstance(centers, torch.Tensor) and centers.device.type == self.device.type
+                and not same_device(centers.device, self.device)):
+            # a shard's block runs on the block's own device
+            return self.replica(centers.device).tensors_for_centers(
+                coeff, centers, G_fn, chunk, with_correctors, implicit_diff)
         centers = torch.as_tensor(centers, device=self.device).to(self.dtype)
         nc = centers.shape[0]
         chunk = chunk or self._auto_chunk(nc)

@@ -23,7 +23,8 @@ rounded to float32 once, after its assembly (a divergence from the
 reference, which accumulates it in float32; ROADMAP C).  On a mesh without a
 geometric hierarchy (a Delaunay or file mesh) the CG takes the aggregation-AMG
 V-cycle (ops/amg.py).  Both option levels take ``SolverOptions`` or PETSc-style
-dicts.  ``shard_mesh`` raises (ROADMAP A12).
+dicts.  With a ``shard_mesh`` (parallel/sharding.py) the micro stage runs
+shard by shard and a CG macro solve row-sharded (parallel/macro.py).
 
 ``build_pipeline()`` returns the whole solve as a function of the cell
 centers, differentiable end to end: every cell solve and the macro solve
@@ -63,6 +64,12 @@ from hommx_tpu_torch.ops.function_space import (
 )
 from hommx_tpu_torch.ops.solvers import STOP_TEST, make_implicit_solver, solve_ell
 from hommx_tpu_torch.ops.sparse import ell_to_dense
+from hommx_tpu_torch.parallel.macro import (
+    can_shard_macro,
+    can_shard_macro_ell,
+    make_sharded_solver,
+)
+from hommx_tpu_torch.parallel.sharding import ShardMesh, shard_cells
 from hommx_tpu_torch.utils.options import SolverOptions, cell_problem_engine_kwargs
 
 __all__ = [
@@ -101,8 +108,12 @@ class BaseHMM:
         chunk: cells per micro chunk (0 = auto).
         engine_kwargs: extra MicroEngine options (``pcg_tol``, ...); they
             win over ``options_cell_problem``.
-        shard_mesh: multi-device solves are not ported (ROADMAP A12); only
-            None is accepted.
+        shard_mesh: optional ShardMesh (parallel/sharding.py): ``solve()``
+            then runs the micro stage shard by shard over the macro-cell
+            batch (the deduplicated representatives, or every cell) and a
+            CG macro solve row-sharded (parallel/macro.py), one DIA product
+            per shard per step.  Its first device should be ``device``,
+            where the shards' results are gathered.
         dedup_cells: solve one representative per class of identical cell
             problems.  Two macro cells whose solve inputs — the reduced
             coefficient A(c_T, y_q) and the stratified map Dθᵀ(c_T) — are
@@ -151,8 +162,7 @@ class BaseHMM:
             raise ValueError("Topology should be 3D or 2D")
         if msh.dim != msh_micro.dim:
             raise ValueError("Micro and macro mesh should have the same dimensionality.")
-        if shard_mesh is not None:
-            raise NotImplementedError("multi-device solves are not ported yet (ROADMAP A12)")
+        self._shard_mesh = _check_mesh(shard_mesh)
         self._msh = msh
         self._cell_mesh = msh_micro
         self._coeff = A
@@ -235,14 +245,19 @@ class BaseHMM:
         self._b_load = None
 
     def _micro(self, centers: torch.Tensor) -> torch.Tensor:
-        return self._engine.tensors_for_centers(
-            self._coeff, centers, G_fn=self._G_fn(), chunk=self._chunk
+        fn = lambda cs: self._engine.tensors_for_centers(  # noqa: E731
+            self._coeff, cs, G_fn=self._G_fn(), chunk=self._chunk
         )
+        if self._shard_mesh is None:
+            return fn(centers)
+        return shard_cells(self._shard_mesh, fn, centers).to(self._device)
 
     def homogenized_tensors(self) -> torch.Tensor:
         """A*(c_T) per macro cell, (nc, s, s) — the micro stage output,
         cached across solves.  With ``dedup_cells`` one representative per
-        class is solved and its tensor scattered to the class."""
+        class is solved and its tensor scattered to the class; the classes
+        come from the whole batch, and with a ``shard_mesh`` the solved
+        batch is split over the shards."""
         if self._A_star is None:
             centers = self._sys.centers
             classes = self._dedup_classes(centers) if self._dedup_cells else None
@@ -395,26 +410,48 @@ class BaseHMM:
         macro solves' iteration counts, forward and adjoint, in order.
 
         The pipeline does not deduplicate cell problems, as in the
-        reference: every cell is solved on every call.  A ``shard_mesh``
-        (the reference's sharded pipeline, ``shard_mode`` 'auto' or
-        'shard_map') is not ported and raises naming ROADMAP A12.
+        reference: every cell is solved on every call.
+
+        Args:
+            shard_mesh: optional ShardMesh (default: the constructor's).  The
+                micro stage then runs shard by shard (parallel/sharding.py::
+                shard_cells), and a CG macro solve that can be row-sharded
+                runs row-sharded (parallel/macro.py), with its implicit rule.
+            shard_mode: ``'auto'``: the shards' cell solves keep the
+                implicit rule, so the sharded pipeline is differentiable
+                like the unsharded one.  ``'shard_map'``: the reference's
+                explicit per-shard blocks, whose cell solves drop the rule
+                (``implicit_diff=False``; primal only); the macro solve
+                keeps its rule in both modes.  Without a mesh both modes
+                are the unsharded pipeline.
 
         Returns: (step, centers), the centers of the macro cells (nc, d).
         """
         if shard_mode not in ("auto", "shard_map"):
             raise ValueError("shard_mode must be 'auto' or 'shard_map'")
-        if shard_mesh is not None:
-            raise NotImplementedError("the sharded pipeline is not ported yet (ROADMAP A12)")
+        shard_mesh = self._shard_mesh if shard_mesh is None else _check_mesh(shard_mesh)
         engine, sys, coeff, G_fn = self._engine, self._sys, self._coeff, self._G_fn()
         f_fn, bs, chunk, dtype = self._f_fn, self._V_macro.bs, self._chunk, self._dtype
         rhs_degree, macro_f64 = self._quad_degree_rhs, self._macro_f64
         mask, bvals = merge_bcs(self._bcs, self._V_macro.num_dofs, torch.float64, self._device)
         options = self._options_global
         mg, amg = macro_precs(sys, options)
-        macro_solve = make_implicit_solver(sys.cols, options, dia=sys.dia, mg=mg, amg=amg)
+        if self._shards_macro(shard_mesh):
+            macro_solve = make_sharded_solver(shard_mesh, sys.dia, sys.cols, options, mg=mg, amg=amg)
+        else:
+            macro_solve = make_implicit_solver(sys.cols, options, dia=sys.dia, mg=mg, amg=amg)
+        # as the reference: only the sharded explicit blocks drop the rule
+        implicit_diff = shard_mesh is None or shard_mode == "auto"
+
+        def micro_stage(cs):
+            return engine.tensors_for_centers(coeff, cs, G_fn=G_fn, chunk=chunk,
+                                              implicit_diff=implicit_diff)
 
         def step(centers):
-            A_star = engine.tensors_for_centers(coeff, centers, G_fn=G_fn, chunk=chunk)
+            if shard_mesh is None:
+                A_star = micro_stage(centers)
+            else:
+                A_star = shard_cells(shard_mesh, micro_stage, centers).to(centers.device)
             b = assemble_load_vector(sys.verts64, sys.cells, f_fn, bs=bs, degree=rhs_degree,
                                      gather=sys.load_gather)
             vals_bc, b_bc = assemble_macro_system(sys, A_star, b, mask, bvals,
@@ -423,6 +460,32 @@ class BaseHMM:
 
         step.macro_solve = macro_solve
         return step, sys.centers
+
+    def _shards_macro(self, mesh) -> bool:
+        """Whether the macro solve runs row-sharded over ``mesh``: a CG
+        solve (the direct path's small systems stay replicated) whose rows
+        can be split, with halo copies where there is a DIA view and the
+        gathered ELL product otherwise."""
+        if mesh is None or self._macro_method != "cg":
+            return False
+        if can_shard_macro(self._sys.dia, mesh.size):
+            return True
+        return self._sys.dia is None and can_shard_macro_ell(self._V_macro.num_dofs, mesh.size)
+
+    def _use_sharded_macro(self) -> bool:
+        """Whether ``solve()`` runs the row-sharded macro CG."""
+        return self._shards_macro(self._shard_mesh)
+
+    def _macro_solve(self, vals_bc, b_bc, mg, amg):
+        """(x, iterations, residual) of the macro system: the row-sharded CG
+        when :meth:`_use_sharded_macro`, else ``solve_ell``."""
+        sys = self._sys
+        if self._use_sharded_macro():
+            solver = make_sharded_solver(self._shard_mesh, sys.dia, sys.cols,
+                                         self._options_global, mg=mg, amg=amg)
+            return solver.full(vals_bc, b_bc)
+        return solve_ell(vals_bc, sys.cols, b_bc, self._options_global, dia=sys.dia,
+                         mg=mg, amg=amg)
 
     def matrix_dense(self) -> np.ndarray:
         """The BC-applied macro matrix of the last solve as dense numpy
@@ -518,9 +581,7 @@ class BaseHMM:
         )
         mg, amg = macro_precs(sys, self._options_global)
         steps0 = STOP_TEST.steps
-        x, iters, res = solve_ell(
-            vals_bc, sys.cols, b_bc, self._options_global, dia=sys.dia, mg=mg, amg=amg
-        )
+        x, iters, res = self._macro_solve(vals_bc, b_bc, mg, amg)
         res = float(res)  # the solve's closing host sync
         t_macro = time.perf_counter() - t0
         if iters >= self._options_global.maxiter:
@@ -605,6 +666,12 @@ class LinearElasticityStratifiedHMM(LinearElasticityHMM):
 
     def _G_fn(self):
         return self._Dtheta_t
+
+
+def _check_mesh(mesh):
+    if mesh is not None and not isinstance(mesh, ShardMesh):
+        raise TypeError(f"shard_mesh must be a ShardMesh or None, not {type(mesh).__name__}")
+    return mesh
 
 
 def _box_boundary_zero_bc(V: FunctionSpace) -> DirichletBC:

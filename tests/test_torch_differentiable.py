@@ -130,8 +130,9 @@ def test_grad_through_full_pipeline(name):
 
 def test_pipeline_matches_solve_and_reference():
     """step(centers) is solve() with dedup off (the same operations: 1e-12)
-    and the reference's step(centers) (1e-8); the shard_mesh and
-    shard_mode arguments raise as the port's multi-device gap says."""
+    and the reference's step(centers) (1e-8); a shard_mesh that is not a
+    ShardMesh is a TypeError, an unknown shard_mode a ValueError, and the
+    pipeline on two CPU shards equals the unsharded one (1e-12)."""
     hmm = _port_model(1.0, dedup_cells=False)
     step, centers = hmm.build_pipeline()
     u = step(centers)
@@ -144,8 +145,11 @@ def test_pipeline_matches_solve_and_reference():
     np.testing.assert_allclose(centers.numpy(), np.asarray(jcenters), rtol=0, atol=1e-15)
     ref = np.asarray(jstep(jcenters))
     assert np.abs(u.numpy() - ref).max() / np.abs(ref).max() < 1e-8
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         hmm.build_pipeline(shard_mesh=object())
+    for mode in ("auto", "shard_map"):
+        step2, _ = hmm.build_pipeline(shard_mesh=ht.ShardMesh(["cpu"] * 2), shard_mode=mode)
+        assert float((step2(centers) - u).abs().max()) <= 1e-12 * float(u.abs().max())
     with pytest.raises(ValueError, match="shard_mode"):
         hmm.build_pipeline(shard_mode="pmap")
 
@@ -276,6 +280,25 @@ def test_opaque_k1_route_second_derivative(monkeypatch):
     control = _scalar_micro_loss(te, centers, implicit_diff=False)
     _close(_grad(control, 1.0), _grad(loss, 1.0), 1e-8)
     assert abs(_grad(control, 1.0, order=2) - got) > 5e-3 * abs(got)
+
+
+def test_shard_map_without_mesh_keeps_gradient(monkeypatch):
+    """Without a mesh, shard_mode='shard_map' is the unsharded pipeline, as
+    in the reference: the cell solves keep their implicit rule.  With the
+    micro solves detached (as a kernel launch returns them), d²J/dθ²
+    equals the 'auto' mode's (1e-8); without the rule it would miss by
+    more than 0.5% (test_opaque_k1_route_second_derivative's control)."""
+
+    def loss(mode):
+        def J(theta):
+            step, centers = _port_model(theta).build_pipeline(shard_mode=mode)
+            return (step(centers) ** 2).sum()
+
+        return J
+
+    monkeypatch.setattr(chunk, "stencil_pcg", _detached(chunk.stencil_pcg))
+    monkeypatch.setattr(chunk, "fused_chol_solve", _detached(chunk.fused_chol_solve))
+    _close(_grad(loss("shard_map"), 1.0, order=2), _grad(loss("auto"), 1.0, order=2), 1e-8)
 
 
 def test_correctors_gradient():

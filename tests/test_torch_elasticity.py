@@ -335,18 +335,29 @@ def test_golden_elasticity_f64(name):
 
 
 def test_elasticity_error_probes():
-    """What the port lacks raises instead of running: multi-device solves
-    and a scalar coefficient on a vector problem.  The elasticity CG macro
-    solve runs (float64 assembly, float64 multigrid CG), and so do the
-    routes this test once pinned as unported: the block FFT cell
-    preconditioner and P2 micro elements give the reference's A* (1e-10)."""
+    """What the port lacks raises instead of running: a scalar coefficient
+    on a vector problem; a shard_mesh that is not a ShardMesh is a
+    TypeError.  The elasticity CG macro solve runs (float64 assembly,
+    float64 multigrid CG), on two CPU shards too, where it equals the
+    unsharded solve; and so do the routes this test once pinned as
+    unported: the block FFT cell preconditioner and P2 micro elements give
+    the reference's A* (1e-10)."""
     args = (ht.create_rectangle([[0.0, 0.0], [1.0, 0.25]], [4, 2]), TORCH_A2, [0.0, -0.01],
             ht.create_unit_square(4), 0.1)
-    h = ht.LinearElasticityHMM(*args, options_global_solve=ht.SolverOptions(method="cg"),
-                               device="cpu")
+    cg = ht.SolverOptions(method="cg", rtol=1e-12, atol=0.0)
+    h = ht.LinearElasticityHMM(*args, options_global_solve=cg, device="cpu")
     assert h._macro_method == "cg" and h._macro_f64 and h._sys.mg is not None
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         ht.LinearElasticityHMM(*args, shard_mesh=object(), device="cpu")
+    hs = ht.LinearElasticityHMM(*args, options_global_solve=cg, device="cpu",
+                                shard_mesh=ht.ShardMesh(["cpu"] * 2))
+    for m in (h, hs):
+        V = m.function_space
+        m.set_boundary_conditions(ht.dirichletbc(
+            np.zeros(2), boundary_dofs(V, lambda x: np.isclose(x[0], 0.0)), V))
+    u = h.solve().array
+    assert hs._use_sharded_macro()
+    assert float((hs.solve().array - u).abs().max()) <= 1e-10 * float(u.abs().max())
     jm = hx.create_unit_square(4)
     c = np.random.default_rng(5).uniform(0, 1, (4, 2))
     for kw in (dict(solver="pcg", cell_prec="fft"), dict(micro_degree=2)):

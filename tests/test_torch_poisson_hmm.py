@@ -122,11 +122,17 @@ def test_error_probes():
     u_ref = np.asarray(ref.solve().array)
     assert h._sys.mg is None and h._sys.amg is None and h.diagnostics["macro_iterations"] > 0
     np.testing.assert_allclose(u, u_ref, rtol=0, atol=1e-10 * np.abs(u_ref).max())
-    # cell dedup is on by default, as in the reference; multi-device
-    # solves are what the constructor still refuses, naming A12
+    # cell dedup is on by default, as in the reference; shard_mesh takes a
+    # ShardMesh (anything else is a TypeError), whose solve on two CPU
+    # shards equals the unsharded one on the direct and the sharded CG path
     assert _tiny()._dedup_cells and not _tiny(dedup_cells=False)._dedup_cells
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         _tiny(shard_mesh=object())
+    for kw in ({}, {"options_global_solve": ht.SolverOptions(**opts)}):
+        u1 = _tiny(**kw).solve().array
+        h = _tiny(shard_mesh=ht.ShardMesh(["cpu"] * 2), **kw)
+        assert h._use_sharded_macro() == bool(kw)
+        np.testing.assert_allclose(h.solve().array, u1, rtol=0, atol=1e-12 * float(u1.abs().max()))
     # the default method="auto" keeps the direct solve up to 4096 dofs
     h = _tiny()
     assert h._macro_method == "direct"

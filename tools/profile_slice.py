@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the hommx_tpu_torch slice goes, on one NVIDIA GPU.
 
-    python3 tools/profile_slice.py [--mode poisson|elasticity|micro16|routes|amg]
+    python3 tools/profile_slice.py [--mode poisson|elasticity|micro16|routes|amg|sharded]
                                    [--macro 512] [--micro 16] [--pc auto|jacobi] [--out FILE]
 
 Run from the repository root on a machine with one CUDA card; it fails
@@ -66,6 +66,14 @@ the levels), then ``torch.profiler`` over the macro stage (a solve:
 guard, assembly, ``amg_setup``, the CG), over ``amg_setup`` alone and
 over 10 V-cycles (``launches_per_vcycle``: device events over 10), each
 with device busy and idle share and the top kernels.
+
+``--mode sharded`` profiles the Poisson slice (``--macro``², 16² micro,
+float32, dedup off, multigrid CG to rtol 1e-5) unsharded and on
+``ShardMesh(["cuda:0"] * 4)``, one warm-up solve each (the micro
+stage then cached): the micro stage of a fresh model of each, then the
+macro stage (a solve: guard, assembly, the CG) in the order unsharded,
+sharded, sharded, unsharded, each with its ``diagnostics``, K2's launches,
+device busy and idle share and the top kernels.
 """
 
 from __future__ import annotations
@@ -304,10 +312,42 @@ def amg(args, device, keep, kernels):
           "ms_per_vcycle": rec["wall_s"] / reps * 1e3})
 
 
+def sharded(args, device, keep, kernels):
+    import torch
+
+    from chip_smoke import flagship
+    from hommx_tpu_torch import PoissonHMM, ShardMesh, SolverOptions, create_unit_square
+
+    shards = 4  # chip_smoke.py's sharded phase
+    mesh = ShardMesh([device] * shards)
+
+    def make(shard):
+        return PoissonHMM(create_unit_square(args.macro, args.macro), flagship, 1.0,
+                          create_unit_square(args.micro, args.micro), 2**-5,
+                          SolverOptions(rtol=1e-5, maxiter=20000), dtype=torch.float32,
+                          device=device, chunk=2048, dedup_cells=False, shard_mesh=shard)
+
+    models = {}
+    for label, shard in (("unsharded", None), ("sharded", mesh)):
+        make(shard).homogenized_tensors()  # warm-up
+        hmm = make(shard)
+        keep({"tag": "micro", "run": label, **profiled(f"micro_{label}",
+                                                        hmm.homogenized_tensors, kernels)})
+        hmm.solve()  # warm-up of the macro stage
+        models[label] = hmm
+    for label in ("unsharded", "sharded", "sharded", "unsharded"):
+        hmm = models[label]
+        rec = profiled(f"macro_{label}", hmm.solve, kernels)
+        dg = hmm.diagnostics
+        keep({"tag": "macro", "run": label, "shards": shards if label == "sharded" else 1,
+              **rec, "macro_seconds": dg["macro_seconds"],
+              "macro_iterations": dg["macro_iterations"], "macro_steps": dg["macro_steps"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("poisson", "elasticity", "micro16", "routes", "amg"),
-                    default="poisson")
+    ap.add_argument("--mode", choices=("poisson", "elasticity", "micro16", "routes", "amg",
+                                       "sharded"), default="poisson")
     ap.add_argument("--macro", type=int, default=512)
     ap.add_argument("--micro", type=int, default=16)
     ap.add_argument("--pc", choices=("auto", "jacobi"), default="auto")
@@ -346,6 +386,8 @@ def main() -> int:
         routes(args, device, keep, kernels)
     elif args.mode == "amg":
         amg(args, device, keep, kernels)
+    elif args.mode == "sharded":
+        sharded(args, device, keep, kernels)
     else:
         make = (poisson if args.mode == "poisson" else elasticity)(args, device, keep, kernels)
     if make is not None:
