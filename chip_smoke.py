@@ -184,9 +184,23 @@ prints no result line):
                holds K2 at a shard's shapes (``shard512``,
                ``beam40x12x12_f64_shard``).
 
+16. the native host runtime and the utilities:
+   host_native  on the card machine's CPU, each native route against its
+               numpy version, three times each in turns, outputs equal:
+               the ELL pattern of the 512² slice and of the 1024² FEM, the
+               periodic map of the 30² micro mesh and of a P2 point set,
+               the aggregation of phase amg's jittered 512² mesh, the
+               location of 10⁴ seeded points on it; the slice's and the
+               FEM's MacroSystem with and without HOMMX_TPU_NO_NATIVE=1
+   utils       a traced, timed 512² solve (slice_mg's options) whose
+               trace file names K1's and K2's launches; the checkpoint
+               saved and loaded into a fresh solver: 0 K1 launches, u
+               bitwise equal; a 256² solver refuses it; plot_solution
+               PNGs of the 512² u and of the warped 20x6x6 beam (K3)
+
 Phases 1-9 pass ``dedup_cells=False`` and so solve every cell, as before
 the models' default became dedup.  ``--only fem_flagship,kc_gather`` runs
-the named phases of parts 11 to 14 alone (after the build) and prints no
+the named phases of parts 11 to 16 alone (after the build) and prints no
 result line.  The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -3482,14 +3496,334 @@ def phase_sharded(device, macro_n: int = 512, micro_n: int = 16, grad_n: int = 6
     return main
 
 
+def _card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def _no_native():
+    """``HOMMX_TPU_NO_NATIVE=1`` inside the block: the setup's numpy routes."""
+    from unittest import mock
+
+    return mock.patch.dict(os.environ, {"HOMMX_TPU_NO_NATIVE": "1"})
+
+
+def _in_turns(native_fn, numpy_fn, same, reps: int = 3) -> dict:
+    """Both routes of a setup hot path, native then numpy, ``reps`` times in
+    turns: their host seconds, each route's calls (from ``native.calls``),
+    and whether every pair of outputs is equal (``same``)."""
+    from hommx_tpu_torch import native
+
+    secs = {"native": [], "numpy": []}
+    equal = True
+    native.reset_calls()
+    for _ in range(reps):
+        outs = {}
+        for route, fn in (("native", native_fn), ("numpy", numpy_fn)):
+            t0 = time.perf_counter()
+            outs[route] = fn()
+            secs[route].append(time.perf_counter() - t0)
+        equal = equal and bool(same(outs["native"], outs["numpy"]))
+    calls = {route: sum(c[route] for c in native.calls.values()) for route in secs}
+    return {"native_seconds": secs["native"], "numpy_seconds": secs["numpy"],
+            "speedup_median": statistics.median(secs["numpy"]) / statistics.median(secs["native"]),
+            "calls": calls, "equal": equal}
+
+
+def phase_host_native(device, macro_n: int = 512, fem_n: int = 1024, micro_n: int = 30,
+                      p2_micro_n: int = 8, amg_n: int = 512, points: int = 10_000):
+    """The native C++ host runtime (``hommx_tpu_torch/native``) on the card
+    machine's CPU, against the numpy routes, in turns (three times each),
+    with outputs compared: the ELL pattern of the macro_n² slice's dofmap
+    and of the fem_n² FEM rectangle's; the periodic map of the micro_n²
+    micro mesh (slice_stratified's) and of a p2_micro_n² P2 point set; the
+    greedy aggregation of the jittered amg_n² Delaunay mesh (phase amg's)
+    with its singleton merge; the binned location of ``points`` seeded
+    interior points on that mesh (indices equal, or both cells containing
+    the point).  Then the slice's and the FEM's MacroSystem built with the
+    native routes and with HOMMX_TPU_NO_NATIVE=1, in turns: A15's first
+    split of the setup.  Every native route must run (``native.calls``).
+    Host-clock seconds on the card machine's CPU; no kernel runs."""
+    import numpy as np
+    import torch
+
+    from hommx_tpu_torch import FunctionSpace, create_rectangle, create_unit_square, native
+    from hommx_tpu_torch.micro import periodic
+    from hommx_tpu_torch.models.common import MacroSystem
+    from hommx_tpu_torch.ops import amg, interpolation, sparse
+
+    t_phase = time.perf_counter()
+    if not native.available:
+        raise AssertionError(f"the native host runtime did not build: {native.build_error}")
+    rec = {"phase": "host_native", "card": _card_line(), "clock": "host CPU of the card machine",
+           "cpu_count": os.cpu_count(), "build_seconds": native.build_seconds,
+           "library": native.library_path().name}
+
+    def ell_same(a, b):
+        return (a.row_width == b.row_width and np.array_equal(a.cols, b.cols)
+                and np.array_equal(a.slots, b.slots)
+                and np.array_equal(a.diag_slots, b.diag_slots))
+
+    meshes = {"slice": create_unit_square(macro_n, macro_n),
+              "fem": create_rectangle([[0, 0], [5, 5]], [fem_n, fem_n])}
+    for key, m in meshes.items():
+        rec[f"ell_{key}"] = {"cells": int(m.num_cells), "dofs": int(m.num_vertices), **_in_turns(
+            lambda m=m: sparse.build_ell_pattern(m.cells, m.num_vertices),
+            lambda m=m: sparse.build_ell_pattern_numpy(m.cells, m.num_vertices), ell_same)}
+
+    def map_same(a, b):
+        return (a.n_reduced == b.n_reduced and np.array_equal(a.masters, b.masters)
+                and np.array_equal(a.is_slave, b.is_slave)
+                and np.array_equal(a.reduced_index, b.reduced_index))
+
+    point_sets = {
+        "micro": create_unit_square(micro_n, micro_n).vertices,
+        "p2_micro": FunctionSpace(create_unit_square(p2_micro_n, p2_micro_n), 1,
+                                  degree=2).tabulate_dof_coordinates(),
+    }
+    for key, pts in point_sets.items():
+        rec[f"periodic_{key}"] = {"points": int(pts.shape[0]), **_in_turns(
+            lambda pts=pts: periodic.build_periodic_map_points(pts),
+            lambda pts=pts: periodic.build_periodic_map_points_numpy(pts), map_same)}
+
+    dmesh, t_delaunay = jittered_delaunay(amg_n)
+    pat = sparse.build_ell_pattern(dmesh.cells, dmesh.num_vertices)
+    N, K = pat.num_dofs, pat.row_width
+    real = np.zeros(N * K, dtype=bool)
+    real[pat.slots.reshape(-1)] = True
+    slot = np.nonzero(real)[0]
+    rows_n, cols_n = slot // K, pat.cols.reshape(-1)[slot].astype(np.int64)
+
+    def aggregate():
+        return amg._greedy_aggregate(rows_n, cols_n, N)
+
+    def aggregate_numpy():
+        with _no_native():
+            return amg._greedy_aggregate(rows_n, cols_n, N)
+
+    rec["aggregate"] = {"nodes": int(N), "edges": int(rows_n.size),
+                        "delaunay_seconds": t_delaunay, **_in_turns(
+                            aggregate, aggregate_numpy,
+                            lambda a, b: a[1] == b[1] and np.array_equal(a[0], b[0]))}
+    rec["aggregate"]["aggregates"] = int(aggregate()[1])
+
+    q = np.random.default_rng(17).uniform(0.01, 0.99, (points, 2))
+
+    def located_same(a, b):
+        diff = np.nonzero(a != b)[0]
+        rec["locate_differing"] = int(diff.size)
+        inside = [min(interpolation._barycentric(dmesh.vertices[dmesh.cells[c]], q[i]).min()
+                      for c in (a[i], b[i])) >= -1e-8 for i in diff]
+        return all(inside)
+
+    rec["locate"] = {"points": points, "cells": int(dmesh.num_cells), **_in_turns(
+        lambda: interpolation._locate_binned(dmesh, q),
+        lambda: interpolation._locate_binned_numpy(dmesh, q), located_same)}
+    rec["locate"]["differing"] = rec.pop("locate_differing")
+
+    # the MacroSystem setup of the slice and of the FEM flagship, in turns
+    for key, m in meshes.items():
+        V = FunctionSpace(m, 1)
+        secs = {"native": [], "numpy": []}
+        routes = {"native": {}, "numpy": {}}
+        for _ in range(3):
+            for route in ("native", "numpy"):
+                native.reset_calls()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if route == "numpy":
+                    with _no_native():
+                        MacroSystem(V, torch.float32, device)
+                else:
+                    MacroSystem(V, torch.float32, device)
+                torch.cuda.synchronize()
+                secs[route].append(time.perf_counter() - t0)
+                routes[route] = dict(native.calls["ell_pattern"])
+            torch.cuda.empty_cache()
+        rec[f"macro_system_{key}"] = {
+            "native_seconds": secs["native"], "numpy_seconds": secs["numpy"],
+            "saved_seconds_median": statistics.median(secs["numpy"])
+            - statistics.median(secs["native"]),
+            "ell_calls": routes}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    cases = [rec[k] for k in ("ell_slice", "ell_fem", "periodic_micro", "periodic_p2_micro",
+                              "aggregate", "locate")]
+    ok = (all(c["equal"] and c["calls"]["native"] >= 3 and c["calls"]["numpy"] >= 3
+              for c in cases)
+          and all(rec[f"macro_system_{k}"]["ell_calls"]["native"] == {"native": 1, "numpy": 0}
+                  and rec[f"macro_system_{k}"]["ell_calls"]["numpy"] == {"native": 0, "numpy": 1}
+                  for k in meshes))
+    if not ok:
+        raise AssertionError(f"native host runtime failed its checks: {rec}")
+    return {}
+
+
+def _plot_record(model, png, **kw) -> dict:
+    """``model.plot_solution`` into ``png``: its seconds, the file's size,
+    whether it is a PNG, and the backend (matplotlib where it is installed,
+    else the numpy raster)."""
+    t0 = time.perf_counter()
+    out = model.plot_solution(filename=png, **kw)
+    secs = time.perf_counter() - t0
+    backend = "matplotlib" if hasattr(out, "savefig") else "raster"
+    if backend == "matplotlib":
+        import matplotlib.pyplot as plt
+
+        plt.close(out)
+    with open(png, "rb") as fh:
+        magic = fh.read(8)
+    return {"seconds": secs, "bytes": os.path.getsize(png), "backend": backend,
+            "png": magic == b"\x89PNG\r\n\x1a\n"}
+
+
+def phase_utils(device, macro_n: int = 512, micro_n: int = 16, small_n: int = 256,
+                beam_n=(20, 6, 6)):
+    """The utilities on the macro_n² flagship (slice_mg's solver: multigrid
+    CG through K2, dedup off): a warm solve (after a cold one) inside
+    ``PhaseTimer`` and ``trace``, whose trace file must name K1's and K2's
+    launches, as many as their counts; ``save_hmm_state``, then
+    ``load_hmm_state`` into a fresh PoissonHMM on the same mesh, whose solve
+    launches K1 0 times and gives a u bitwise equal to the original's (the
+    load's seconds beside the micro stage's); a small_n² solver must refuse
+    the checkpoint (ValueError); ``plot_solution`` writes a PNG of the
+    macro_n² u and a warped PNG of the beam_n beam (K3).  Every setup of
+    the phase must take the native host runtime (``native.calls``)."""
+    import tempfile
+
+    import torch
+
+    from hommx_tpu_torch import PoissonHMM, SolverOptions, create_unit_square, native
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.ops import chol_kernel, dia
+    from hommx_tpu_torch.utils.io import load_hmm_state, save_hmm_state
+    from hommx_tpu_torch.utils.profiling import PhaseTimer, trace
+
+    t_phase = time.perf_counter()
+    native.reset_calls()
+    main = {"stencil_pcg": 0, "dia_spmv": 0, "chol_solve": 0, "dia_spmv_f64": 0}
+
+    def on_main_path(fn, *args):
+        for k in (stencil_pcg.KERNEL, dia.KERNEL, chol_kernel.KERNEL):
+            k.reset_counts()
+        result = fn(*args)
+        torch.cuda.synchronize()
+        n = {"stencil_pcg": stencil_pcg.KERNEL.launches,
+             "dia_spmv": dia.KERNEL.counts["hommx_dia_spmv_f32"],
+             "chol_solve": chol_kernel.KERNEL.launches,
+             "dia_spmv_f64": dia.KERNEL.counts["hommx_dia_spmv_f64"]}
+        for key in main:
+            main[key] += n[key]
+        return result, n
+
+    opts = SolverOptions(rtol=1e-5, maxiter=20000)
+    micro = create_unit_square(micro_n, micro_n)
+
+    def model(n):
+        return PoissonHMM(create_unit_square(n, n), flagship, 1.0, micro, 2**-5, opts,
+                          dtype=torch.float32, device=device, chunk=2048, dedup_cells=False)
+
+    rec = {"phase": "utils", "card": _card_line(), "macro_n": macro_n, "micro_n": micro_n}
+    with tempfile.TemporaryDirectory() as tmp:
+        _, rec["cold_launches"] = on_main_path(lambda: model(macro_n).solve())
+        timer = PhaseTimer()
+        with timer.phase("setup"):
+            hmm = model(macro_n)
+        trace_dir = os.path.join(tmp, "trace")
+
+        def traced():
+            with trace(trace_dir), timer.phase("solve"):
+                return hmm.solve().array
+
+        u, n_traced = on_main_path(traced)
+        files = os.listdir(trace_dir)
+        path = os.path.join(trace_dir, files[0])
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernel_events = {"stencil_pcg": 0, "dia_spmv": 0}
+        for e in events:
+            if e.get("cat") == "kernel":
+                for key in kernel_events:
+                    if f"{key}_kernel" in e.get("name", ""):
+                        kernel_events[key] += 1
+        rec.update({"timer": dict(timer.totals), "timer_summary": timer.summary(),
+                    "trace_files": len(files), "trace_bytes": os.path.getsize(path),
+                    "trace_events": len(events), "trace_kernel_events": kernel_events,
+                    "traced_launches": n_traced,
+                    "micro_seconds": hmm.diagnostics["micro_seconds"],
+                    "macro_seconds": hmm.diagnostics["macro_seconds"]})
+        del events
+
+        ckpt = os.path.join(tmp, "state.npz")
+        t0 = time.perf_counter()
+        save_hmm_state(ckpt, hmm)
+        rec["save_seconds"] = time.perf_counter() - t0
+        rec["checkpoint_bytes"] = os.path.getsize(ckpt)
+        t0 = time.perf_counter()
+        loaded = model(macro_n)
+        rec["reload_setup_seconds"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_hmm_state(ckpt, loaded)
+        torch.cuda.synchronize()
+        rec["load_seconds"] = time.perf_counter() - t0
+        u_loaded, rec["reload_launches"] = on_main_path(lambda: loaded.solve().array)
+        rec.update({"reload_micro_seconds": loaded.diagnostics["micro_seconds"],
+                    "reload_macro_seconds": loaded.diagnostics["macro_seconds"],
+                    "reload_bitwise_equal": bool(torch.equal(u_loaded, u)),
+                    "reload_max_abs_diff": float((u_loaded - u).abs().max()),
+                    "finite": bool(torch.isfinite(u).all())})
+        try:
+            load_hmm_state(ckpt, model(small_n))
+            rec["small_mesh_refused"] = False
+        except ValueError as e:
+            rec["small_mesh_refused"] = "mesh" in str(e)
+
+        png = os.path.join(tmp, "u512.png")
+        rec["plot_u"] = _plot_record(hmm, png, title=f"u, {macro_n}² flagship")
+        beam = make_beam(device, beam_n)
+        u_beam, rec["beam_launches"] = on_main_path(lambda: beam.solve().array)
+        warp = 0.1 * BEAM_L / float(u_beam.abs().max())
+        png = os.path.join(tmp, "beam.png")
+        rec["plot_beam"] = {**_plot_record(beam, png, warp=warp, title="rotated-fibre beam"),
+                            "warp": warp, "max_abs_u": float(u_beam.abs().max())}
+    del hmm, loaded, beam, u, u_loaded
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    # every setup of this phase (five solvers, their micro meshes) took the
+    # native host runtime
+    rec["native_calls"] = {site: dict(c) for site, c in native.calls.items()}
+    emit(rec)
+    t, r, nc = rec["traced_launches"], rec["reload_launches"], rec["native_calls"]
+    ok = (all(c["numpy"] == 0 for c in nc.values()) and nc["ell_pattern"]["native"] >= 5
+          and nc["periodic_match"]["native"] >= 1
+          and rec["finite"] and rec["trace_files"] == 1
+          and set(rec["timer"]) == {"setup", "solve"}
+          and t["stencil_pcg"] >= 1 and t["dia_spmv"] >= 1
+          and rec["trace_kernel_events"]["stencil_pcg"] == t["stencil_pcg"]
+          and rec["trace_kernel_events"]["dia_spmv"] == t["dia_spmv"]
+          and r["stencil_pcg"] == 0 and r["dia_spmv"] >= 1 and rec["reload_bitwise_equal"]
+          and rec["small_mesh_refused"] and rec["plot_u"]["png"] and rec["plot_beam"]["png"]
+          and rec["plot_u"]["bytes"] > 10_000 and rec["plot_beam"]["bytes"] > 10_000
+          and rec["beam_launches"]["chol_solve"] >= 1)
+    if not ok:
+        raise AssertionError(f"utilities failed their checks: {rec}")
+    emit({"phase": "utils_main_path_launches", **main})
+    return main
+
+
 #: the phases of the periodic, FEM and per-cell slice, of differentiation,
 #: of the micro engine's other routes, of the FFT and P2 routes, of the
-#: unstructured macro path and of multi-device solves, in their order
+#: unstructured macro path, of multi-device solves and of the native host
+#: runtime and the utilities, in their order
 NEW_PHASES = (phase_fem_flagship, phase_golden_periodic_fem, phase_periodic_identity,
               phase_elasticity_periodic, phase_chol_batched, phase_kc_gather,
               phase_pipeline_grad, phase_pipeline_grad_elasticity, phase_fem_grad,
               phase_micro_highres, phase_micro_routes, phase_micro_fft, phase_p2, phase_amg,
-              phase_sharded)
+              phase_sharded, phase_host_native, phase_utils)
 
 
 def main(argv) -> int:

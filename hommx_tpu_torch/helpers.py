@@ -4,8 +4,7 @@ so its users can move their imports over:
 
     from hommx_tpu_torch.helpers import solve_diffusion_2d, rescale_mesh, PoissonFEM
 
-Left out: ``plot_fem_function`` (plotting, ROADMAP A13).  The solves run
-on ``device`` (the card unless the caller passes "cpu").
+The solves run on ``device`` (the card unless the caller passes "cpu").
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ from hommx_tpu_torch.meshes.simplex import (  # noqa: F401
 )
 from hommx_tpu_torch.models.fem import PoissonFEM, fem_solve  # noqa: F401
 from hommx_tpu_torch.ops.function_space import FunctionSpace, boundary_dofs, dirichletbc
+from hommx_tpu_torch.utils.plotting import plot_fem_function  # noqa: F401
 
 __all__ = [
     "solve_diffusion_1d",
@@ -34,6 +34,7 @@ __all__ = [
     "mesh_from_delaunay",
     "PoissonFEM",
     "fem_solve",
+    "plot_fem_function",
 ]
 
 

@@ -1,6 +1,6 @@
-"""Periodic boundary identification on box micro meshes — numpy copy of
-``hommx_tpu/micro/periodic.py`` (the numpy matcher; the port has no native
-host runtime yet, ROADMAP A13).
+"""Periodic boundary identification on box micro meshes — port of
+``hommx_tpu/micro/periodic.py`` (the matcher in the native host runtime,
+``hommx_tpu_torch/native``, with the numpy matcher beside it).
 
 Replaces dolfinx_mpc's MultiPointConstraint construction (reference
 ``cell_problem.py:16-300``).  The reference builds the slave→master map with
@@ -23,9 +23,15 @@ import dataclasses
 
 import numpy as np
 
+from hommx_tpu_torch import native
 from hommx_tpu_torch.meshes.simplex import SimplexMesh
 
-__all__ = ["PeriodicMap", "build_periodic_map", "build_periodic_map_points"]
+__all__ = [
+    "PeriodicMap",
+    "build_periodic_map",
+    "build_periodic_map_points",
+    "build_periodic_map_points_numpy",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,8 +79,24 @@ def build_periodic_map_points(
     an edge midpoint on a "hi" face folds to the matching "lo"-face midpoint
     by exactly the vertex rule, so higher-order periodic spaces need no new
     constraint machinery (contrast the reference's per-entity dolfinx_mpc
-    call hierarchy, ``cell_problem.py:16-300``).
+    call hierarchy, ``cell_problem.py:16-300``).  The native host runtime
+    matches where it is built and not switched off, else
+    :func:`build_periodic_map_points_numpy`; an unmatched slave raises
+    ``ValueError`` on both routes.
     """
+    points = np.asarray(points, dtype=np.float64)
+    res = native.periodic_match_native(points, rtol, atol)
+    if res is not None:
+        masters, is_slave = res
+        return _finalize(points.shape[0], masters, is_slave)
+    return build_periodic_map_points_numpy(points, rtol, atol)
+
+
+def build_periodic_map_points_numpy(
+    points: np.ndarray, rtol: float = 1e-5, atol: float = 1e-8
+) -> PeriodicMap:
+    """The numpy matcher: a dict over quantized coordinates."""
+    native.note("periodic_match", "numpy")
     points = np.asarray(points, dtype=np.float64)
     n = points.shape[0]
     x = points

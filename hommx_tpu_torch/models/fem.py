@@ -295,7 +295,15 @@ class PoissonFEM:
         return self._u
 
     def plot_solution(self, u: Optional[Function] = None, **kw):
-        raise NotImplementedError("plotting is ROADMAP A13")
+        """Plot ``u`` (the last solution by default) with
+        :func:`hommx_tpu_torch.utils.plotting.plot_fem_function`; ``kw``
+        are its options (``filename``, ``title``, ``cmap``, ``show``,
+        ``warp``).  Returns the figure."""
+        from hommx_tpu_torch.utils.plotting import plot_fem_function
+
+        if u is None and self._u is None:
+            raise RuntimeError("call solve() first")
+        return plot_fem_function(self._V, u if u is not None else self._u, **kw)
 
 
 class LinearElasticityFEM(PoissonFEM):

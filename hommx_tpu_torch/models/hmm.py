@@ -494,6 +494,17 @@ class BaseHMM:
             raise RuntimeError("call solve() first")
         return ell_to_dense(self._last_vals_bc, self._sys.cols).cpu().numpy()
 
+    def plot_solution(self, u: Optional[Function] = None, **kw):
+        """Plot ``u`` (the last solution by default) with
+        :func:`hommx_tpu_torch.utils.plotting.plot_fem_function`; ``kw``
+        are its options (``filename``, ``title``, ``cmap``, ``show``,
+        ``warp``).  Returns the figure."""
+        from hommx_tpu_torch.utils.plotting import plot_fem_function
+
+        if u is None and self._u is None:
+            raise RuntimeError("call solve() first")
+        return plot_fem_function(self._V_macro, u if u is not None else self._u, **kw)
+
     def _guard(self, A_star):
         """Divergence and zero-corrector-fallback masks (nc,) and the max
         coefficient contrast, on the device.  Energy minimization bounds

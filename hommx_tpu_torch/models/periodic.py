@@ -13,7 +13,6 @@ route, the same per-cell stiffness formula.  ``ElasticityPeriodicHMM``
 does the same for Hooke tensors (d(d+1)/2 generator problems).
 
 ``A_hom`` is a torch tensor on the model's device, (d, d) or (d, d, d, d).
-``plot_solution`` raises (plotting is ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -211,7 +210,15 @@ class BasePeriodicHMM:
         return ell_to_dense(self._last_vals_bc, self._sys.cols).cpu().numpy()
 
     def plot_solution(self, u: Optional[Function] = None, **kw):
-        raise NotImplementedError("plotting is ROADMAP A13")
+        """Plot ``u`` (the last solution by default) with
+        :func:`hommx_tpu_torch.utils.plotting.plot_fem_function`; ``kw``
+        are its options (``filename``, ``title``, ``cmap``, ``show``,
+        ``warp``).  Returns the figure."""
+        from hommx_tpu_torch.utils.plotting import plot_fem_function
+
+        if u is None and self._u is None:
+            raise RuntimeError("call solve() first")
+        return plot_fem_function(self._V_macro, u if u is not None else self._u, **kw)
 
 
 class PoissonPeriodicHMM(BasePeriodicHMM):

@@ -7,8 +7,8 @@ stands in for PETSc GAMG, which the reference's users run on any mesh.
 
 * **The hierarchy is host numpy, built once per mesh** and copied from the
   reference array for array (the same constants and the same seeded power
-  vectors): greedy aggregation on the ELL adjacency graph (the Python
-  sweep; the reference's native C++ sweep gives the same output), a
+  vectors): greedy aggregation on the ELL adjacency graph (the native
+  host runtime's sweep, or the Python one: the same output), a
   singleton merge, and for the smoothed hierarchy (the default) the static
   patterns of P, AP and PᵀAP with their contributor tables.
 * **Smoothed aggregation with static sparsity.**  P's pattern does not
@@ -52,6 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from hommx_tpu_torch import native
 from hommx_tpu_torch.ops.assembly import GatherPlan, gather_sum, invert_scatter
 from hommx_tpu_torch.ops.multigrid import _cheby, _cheby_from
 from hommx_tpu_torch.ops.sparse import ell_to_dense, spmv
@@ -257,9 +258,22 @@ def _greedy_aggregate(adj_rows, adj_cols, n_nodes: int):
     """Greedy aggregation: every unaggregated node in turn seeds an
     aggregate of itself and its unaggregated neighbours (plain aggregation;
     one pass covers every node), then :func:`_merge_singletons`.  Input:
-    the node adjacency as COO arrays."""
+    the node adjacency as COO arrays.  The sweep runs in the native host
+    runtime where it is built and not switched off, else
+    :func:`_greedy_sweep_numpy` (the same aggregation); the merge runs on
+    either's output."""
     order = np.argsort(adj_rows, kind="stable")
     rows_s, cols_s = adj_rows[order], adj_cols[order]
+    starts = np.searchsorted(rows_s, np.arange(n_nodes + 1))
+    res = native.greedy_aggregate_native(rows_s, cols_s, n_nodes)
+    agg, na = res if res is not None else _greedy_sweep_numpy(rows_s, cols_s, n_nodes)
+    return _merge_singletons(agg, na, cols_s, starts)
+
+
+def _greedy_sweep_numpy(rows_s, cols_s, n_nodes: int):
+    """The sweep as a Python loop over the row-sorted COO adjacency;
+    returns (agg, n_aggregates)."""
+    native.note("greedy_aggregate", "numpy")
     starts = np.searchsorted(rows_s, np.arange(n_nodes + 1))
     agg = np.full(n_nodes, -1, dtype=np.int64)
     na = 0
@@ -271,7 +285,7 @@ def _greedy_aggregate(adj_rows, adj_cols, n_nodes: int):
             if agg[j] < 0:
                 agg[j] = na
         na += 1
-    return _merge_singletons(agg, na, cols_s, starts)
+    return agg, na
 
 
 def _merge_singletons(agg, na, cols_s, starts):

@@ -3,8 +3,8 @@ port of ``hommx_tpu/ops/interpolation.py``).
 
 Point → cell location is analytic on structured box meshes (the grid box
 and the simplex within it follow from local coordinates); unstructured
-meshes take a host-side uniform-grid binning search.  The reference's
-native C++ locator is not ported (ROADMAP A13).  Host numpy throughout.
+meshes take a host-side uniform-grid binning search, in the native host
+runtime (``hommx_tpu_torch/native``) or in numpy.  Host arrays throughout.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import itertools
 import numpy as np
 import torch
 
+from hommx_tpu_torch import native
 from hommx_tpu_torch.meshes.simplex import _KUHN_PERMS, SimplexMesh
 
 __all__ = ["locate_cells", "eval_p1", "interpolate_nonmatching"]
@@ -60,8 +61,19 @@ def _barycentric(cell_pts: np.ndarray, pt: np.ndarray) -> np.ndarray:
 
 def _locate_binned(mesh: SimplexMesh, points: np.ndarray) -> np.ndarray:
     """Uniform-grid binning point location for unstructured meshes: the
-    cell of the point's bin whose barycentric coordinates are least
-    negative."""
+    native host runtime where it is built and not switched off, else
+    :func:`_locate_binned_numpy`.  The two bin the cells differently, so a
+    point on a face shared by two cells may be given either."""
+    res = native.locate_cells_native(mesh.vertices, mesh.cells, points)
+    if res is not None:
+        return res
+    return _locate_binned_numpy(mesh, points)
+
+
+def _locate_binned_numpy(mesh: SimplexMesh, points: np.ndarray) -> np.ndarray:
+    """The cell of the point's bin whose barycentric coordinates are least
+    negative (every cell where the bin is empty)."""
+    native.note("locate_cells", "numpy")
     d = mesh.dim
     lo, hi = mesh.bounding_box()
     span = np.where(hi - lo > 0, hi - lo, 1.0)

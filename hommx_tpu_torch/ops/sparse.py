@@ -1,7 +1,8 @@
 """ELL sparse matrices (torch port of ``hommx_tpu/ops/sparse.py``).
 
-The sparsity pattern is built once on the host from the cell dofmap
-(numpy); SpMV is one gather, a multiply and a row sum on the device.
+The sparsity pattern is built once on the host from the cell dofmap (the
+native C++ host runtime, or numpy); SpMV is one gather, a multiply and a
+row sum on the device.
 """
 
 from __future__ import annotations
@@ -11,7 +12,9 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["ELLPattern", "build_ell_pattern", "spmv", "ell_to_dense"]
+from hommx_tpu_torch import native
+
+__all__ = ["ELLPattern", "build_ell_pattern", "build_ell_pattern_numpy", "spmv", "ell_to_dense"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +39,19 @@ class ELLPattern:
 
 
 def build_ell_pattern(cell_dofs: np.ndarray, num_dofs: int) -> ELLPattern:
-    """Host-side pattern construction from the (num_cells, nb) dofmap."""
+    """Host-side pattern construction from the (num_cells, nb) dofmap: the
+    native host runtime where it is built and not switched off, else
+    :func:`build_ell_pattern_numpy` (the same arrays)."""
+    res = native.build_ell_pattern_native(cell_dofs, num_dofs)
+    if res is not None:
+        cols, slots, diag, K = res
+        return ELLPattern(num_dofs, K, cols, slots, diag)
+    return build_ell_pattern_numpy(cell_dofs, num_dofs)
+
+
+def build_ell_pattern_numpy(cell_dofs: np.ndarray, num_dofs: int) -> ELLPattern:
+    """The pattern by ``np.unique`` over the cells' (row, column) keys."""
+    native.note("ell_pattern", "numpy")
     nc, nb = cell_dofs.shape
     rows = np.repeat(cell_dofs, nb, axis=1).reshape(-1)
     cols = np.tile(cell_dofs, (1, nb)).reshape(-1)

@@ -178,7 +178,7 @@ def test_fem_unported_parts_raise():
     ``direct_threshold`` has no geometric hierarchy, so its CG with
     pc='auto' takes Jacobi below the AMG bottom size, as the reference
     does (1e-9, the same iterations), and with pc='jacobi' runs.  Plotting
-    still names A13."""
+    now runs: before a solve it raises, after one it draws the solution."""
     jm = hx.create_unit_square(4)
     msh = port_mesh(jm)
     f = lambda x: 1.0 + x[0]  # noqa: E731
@@ -196,5 +196,12 @@ def test_fem_unported_parts_raise():
     jac = ht.SolverOptions(method="auto", direct_threshold=16, pc="jacobi", rtol=1e-12)
     u_cg = ht.PoissonFEM(msh, lambda x: 1.0, f, jac, degree=2, device="cpu").solve()
     assert u_cg.macro_method == "cg" and _rel(u_cg.array.numpy(), ref.array) < 1e-9
-    with pytest.raises(NotImplementedError, match="A13"):
-        ht.PoissonFEM(msh, lambda x: 1.0, 1.0, device="cpu").plot_solution()
+    fem = ht.PoissonFEM(msh, lambda x: 1.0, 1.0, device="cpu")
+    with pytest.raises(RuntimeError, match="solve"):
+        fem.plot_solution()
+    fem.solve()
+    fig = fem.plot_solution()
+    assert len(fig.axes) == 2  # the contour plot and its colorbar
+    import matplotlib.pyplot as plt
+
+    plt.close(fig)

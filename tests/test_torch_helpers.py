@@ -89,7 +89,7 @@ def test_exports_mirror_the_reference():
     for name in ported | {"fem_solve", "helpers"}:
         assert hasattr(ht, name), name
     for name in ("solve_diffusion_1d", "solve_diffusion_2d", "rescale_mesh",
-                 "rescale_mesh_in_place", "PoissonFEM"):
+                 "rescale_mesh_in_place", "PoissonFEM", "plot_fem_function"):
         assert name in helpers.__all__ and name in jhelpers.__all__
     from hommx_tpu_torch import models
 

@@ -139,13 +139,13 @@ def test_periodic_solve_matches_reference(kind):
 
 
 def test_periodic_errors_and_unported_parts():
-    """The reference's constructor checks, matrix_dense before solve, and
-    plotting (ROADMAP A13)."""
+    """The reference's constructor checks, and matrix_dense and
+    plot_solution before a solve."""
     sq = ht.create_unit_square(4)
     with pytest.raises(ValueError):
         ht.PoissonPeriodicHMM(sq, torch_lam, 1.0, ht.create_interval(4), device="cpu")
     per = ht.PoissonPeriodicHMM(sq, torch_lam, 1.0, ht.create_unit_square(4), device="cpu")
     with pytest.raises(RuntimeError):
         per.matrix_dense()
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(RuntimeError, match="solve"):
         per.plot_solution()
