@@ -198,6 +198,16 @@ prints no result line):
                bitwise equal; a 256² solver refuses it; plot_solution
                PNGs of the 512² u and of the warped 20x6x6 beam (K3)
 
+17. K1's large instance (n above the small one's reach, up to 4096):
+   k1_large    (a) K1 against its plain version at the kernel's block size
+               on an auto-sized chunk of the 33², 48², 64², 10³, 12³ and
+               16³ micro meshes and a ragged chunk of 64², 33², 64² and
+               16³ timed; (b) PoissonHMM, 128² macro, 64² micro, float32,
+               dedup off: large launches = chunks, A* of 256 cells against
+               a float64 engine, u against the float64 solve of its own
+               system, the micro stage beside cell_prec='mg' on the same
+               cells; (c) the same on the 6³ cube with a 16³ micro cube
+
 Phases 1-9 pass ``dedup_cells=False`` and so solve every cell, as before
 the models' default became dedup.  ``--only fem_flagship,kc_gather`` runs
 the named phases of parts 11 to 16 alone (after the build) and prints no
@@ -265,6 +275,9 @@ AMG_JACOBI_FACTOR = 3  # Jacobi CG takes at least this many times AMG-CG's itera
 AMG_FEM_RTOL = 1e-3  # float32 AMG-CG FEM u vs the float64 solve of its system
 AMG_OPTIONS = {"rtol": 1e-5, "maxiter": 20000}  # the float32 CG runs (as slice_default)
 SHARD_GRAD_RTOL = 1e-3  # float32 dJ/dθ, sharded pipeline vs unsharded
+# K1's large instance (n above the small instance's reach, up to 4096)
+K1_LARGE_ASTAR_RTOL = 1e-4  # float32 A* of sampled cells vs the float64 engine
+K1_LARGE_U_RTOL = 1e-4  # float32 u vs the float64 solve of its own system
 SHARD_MODES_RTOL = 1e-6  # float32 u, the 'shard_map' forward vs the 'auto' one
 
 # NVIDIA H100 SXM peaks (data sheet, dense): float32 outside the tensor
@@ -679,7 +692,7 @@ def _k1_case(eng, centers, timed):
     ws_s, Fs = cs.scaled()
     args = (ws_s, Fs, cs.Minv, cs.st.shape, cs.st.offsets, eng.pcg_tol, eng.pcg_maxiter)
     n, s, C, K = eng.n_reduced, eng.s, centers.shape[0], len(cs.st.offsets)
-    cfg = launch_config(n, s)
+    cfg = launch_config(n, s, C)
     Yk, itk = stencil_pcg_cuda(*args, per_block=True)
     Yp, itp = stencil_pcg_plain(*args, block=cfg.cells_per_block, per_block=True)
     itk = [int(k) for k in itk.cpu()]
@@ -690,6 +703,7 @@ def _k1_case(eng, centers, timed):
     rec = {"cells": C, "dim": eng.d, "n": n, "K": K, "s": s,
            "cells_per_block": cfg.cells_per_block, "threads": cfg.threads,
            "rows_per_thread": cfg.rows_per_thread, "smem_bytes": cfg.smem_bytes,
+           "cluster": cfg.cluster, "stages": cfg.stages,
            "iters_kernel": max(itk), "iters_plain": max(itp),
            "iters_per_block": [list(p) for p in zip(itk, itp)],
            "iters_max_block_diff": slack, "max_abs_err": abs_err,
@@ -2561,9 +2575,10 @@ def phase_micro_routes(device):
     per-cell route), the vector per-cell densek PCG at 4³, the matrix-free
     gather (HOMMX_MICRO_MATVEC=matfree), the MG route at 4³ elasticity
     (also against the K3 route at 4³), and the scalar MG route on a 64²
-    micro mesh (n = 4096, past K1's limit) over 256 fresh cells, timed, and
-    on a contrast-100 inclusion beside the plain K0⁻¹ route.  Then K1's
-    limit: a 40² k0inv float32 engine raises naming B7."""
+    micro mesh (n = 4096) over 256 fresh cells, timed, and on a
+    contrast-100 inclusion beside the plain K0⁻¹ route.  Then K1's limit:
+    a 64² k0inv float32 engine (n = 4096) is built, a 65² one raises
+    naming B7."""
     import numpy as np
     import torch
 
@@ -2650,16 +2665,18 @@ def phase_micro_routes(device):
             os.environ.pop("HOMMX_MICRO_MATVEC", None)
         else:
             os.environ["HOMMX_MICRO_MATVEC"] = saved
+    fits = MicroEngine(create_unit_square(64), dtype=torch.float32, device=device)._k1_route()
     try:
-        MicroEngine(create_unit_square(40), dtype=torch.float32, device=device)
+        MicroEngine(create_unit_square(65), dtype=torch.float32, device=device)
         b7 = "did not raise"
     except NotImplementedError as err:
         b7 = str(err)
-    emit({"phase": "micro_routes", "cases": out, "k1_limit_40x40": b7[:160]})
+    emit({"phase": "micro_routes", "cases": out, "k1_route_64x64": fits,
+          "k1_limit_65x65": b7[:160]})
     ok = all(r["finite"] and r["f32_rel_diff_to_f64"] <= r["bar"] and not r["k1_route"]
              for r in out)
     ok = ok and out[4]["rel_diff_to_k3_route"] <= GOLDEN_ELASTICITY_RTOL
-    ok = ok and not out[3]["stencil"] and "B7" in b7 and k3 >= 1
+    ok = ok and not out[3]["stencil"] and fits and "B7" in b7 and k3 >= 1
     ok = ok and (out[5]["contrast100_mg_rel_diff"]
                  <= 2.0 * out[5]["contrast100_k0inv_rel_diff"] + 1e-6)
     if not ok:
@@ -3815,15 +3832,138 @@ def phase_utils(device, macro_n: int = 512, micro_n: int = 16, small_n: int = 25
     return main
 
 
+#: the record of K1's large instance at the 64² chunk (phase k1_large), for
+#: the kernels line
+K1_LARGE = {}
+
+
+def phase_k1_large(device, sizes2=(33, 48, 64), sizes3=(10, 12, 16),
+                   timed=("2d33", "2d64", "3d16"), macro_n: int = 128, micro_n: int = 64,
+                   cube_n: int = 6, micro3_n: int = 16, sampled: int = 256, mg_cells=None):
+    """K1's large instance (n above the small instance's reach, up to 4096):
+    (a) K1 against its plain version at the kernel's block size on one
+    auto-sized chunk of the 33², 48², 64², 10³, 12³ and 16³ micro meshes and
+    on a ragged 37-cell chunk of 64² (flagship coefficient), the iterations
+    of each block side by side; 33², 64² and 16³ timed, with the bound and
+    the float32 Minv product as yardstick.  (b) PoissonHMM with the
+    flagship coefficient on a 128² macro mesh and a 64² micro mesh (n =
+    4096, s = 2), float32, dedup off: K1's large launches equal to the
+    micro stage's chunks, A* of ``sampled`` cells against a float64 engine
+    on the card, u against the float64 solve of its own system, and the
+    micro stage beside the same cells on cell_prec='mg' (``mg_cells`` of
+    them where given), the route such cells took before.  (c) The same on
+    create_unit_cube(6) with a 16³ micro cube (n = 4096, s = 3)."""
+    import numpy as np
+    import torch
+
+    from hommx_tpu_torch import (MicroEngine, PoissonHMM, SolverOptions, create_unit_cube,
+                                 create_unit_square)
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.ops import dia
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(17)
+    large = "hommx_stencil_pcg_large_f32"
+    failed = []
+    # (a) the kernel against its plain version
+    meshes = ([(f"2d{m}", lambda m=m: create_unit_square(m, m)) for m in sizes2]
+              + [(f"3d{m}", lambda m=m: create_unit_cube(m)) for m in sizes3])
+    for name, make in meshes:
+        eng = MicroEngine(make(), device=device, dtype=torch.float32)
+        cases = [(name, eng._auto_chunk(1 << 20))]
+        if name == f"2d{max(sizes2)}":
+            cases.append((f"{name}_C37", 37))
+        for tag, C in cases:
+            centers = torch.as_tensor(rng.uniform(0, 1, (C, eng.d)), dtype=torch.float32,
+                                      device=device)
+            before = stencil_pcg.KERNEL.counts[large]
+            rec, ok = _k1_case(eng, centers, timed=tag in timed)
+            rec = {"phase": "k1_large", "case": tag, "card": _card_line(),
+                   "large_launches": stencil_pcg.KERNEL.counts[large] - before, **rec}
+            if "ms" in rec:
+                rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+            emit(rec)
+            if tag == "2d64":
+                K1_LARGE.update(rec)
+            if not (ok and rec["stages"] > 0 and rec["large_launches"] >= 1):
+                failed.append(tag)
+        del eng
+        torch.cuda.empty_cache()
+
+    # (b), (c) through the entry points
+    main = {"stencil_pcg": 0, "stencil_pcg_large": 0, "dia_spmv": 0, "dia_spmv_f64": 0}
+    opts = SolverOptions(rtol=1e-5, maxiter=20000)
+    runs = (("hmm_2d64", lambda: create_unit_square(macro_n, macro_n),
+             create_unit_square(micro_n, micro_n)),
+            ("hmm_3d16", lambda: create_unit_cube(cube_n), create_unit_cube(micro3_n)))
+    for tag, make_macro, micro in runs:
+        t0 = time.perf_counter()
+        hmm = PoissonHMM(make_macro(), flagship, 1.0, micro, 2**-5, opts, dtype=torch.float32,
+                         device=device, dedup_cells=False)
+        t_setup = time.perf_counter() - t0
+        for kern in (stencil_pcg.KERNEL, dia.KERNEL):
+            kern.reset_counts()
+        rec, u = _solve_record(tag, hmm, t_setup)
+        counts = {"stencil_pcg": stencil_pcg.KERNEL.counts["hommx_stencil_pcg_f32"],
+                  "stencil_pcg_large": stencil_pcg.KERNEL.counts[large],
+                  "dia_spmv": dia.KERNEL.counts["hommx_dia_spmv_f32"],
+                  "dia_spmv_f64": dia.KERNEL.counts["hommx_dia_spmv_f64"]}
+        for key in main:
+            main[key] += counts[key]
+        eng = hmm._engine
+        nc = rec["num_cells"]
+        chunk = min(hmm._chunk or eng._auto_chunk(nc), nc)
+        cfg = stencil_pcg.launch_config(eng.n_reduced, eng.s, chunk)
+        rec.update({"card": _card_line(), "n": eng.n_reduced, "s": eng.s, "chunk": chunk,
+                    "chunks": -(-nc // chunk), "launches": counts,
+                    "cells_per_block": cfg.cells_per_block, "cluster": cfg.cluster,
+                    "cell_solves_per_s": nc * eng.s / rec["micro_seconds"]})
+        # A* of sampled cells against a float64 engine on the card
+        A32 = hmm.homogenized_tensors()
+        idx = torch.as_tensor(np.sort(rng.choice(nc, min(sampled, nc), replace=False)),
+                              device=device)
+        A64 = _f64_astar(micro, flagship, hmm._sys.centers[idx])
+        rec["astar_cells"] = int(idx.numel())
+        rec["astar_rel_err"] = float((A32[idx].double() - A64).abs().max() / A64.abs().max())
+        rec["u_rel_err_own_f64"] = rel_diff(u, _own_system_f64(hmm))
+        # the same cells' micro stage on K1's route and on cell_prec='mg'
+        centers = hmm._sys.centers if mg_cells is None else hmm._sys.centers[:mg_cells]
+        eng_mg = MicroEngine(**{**eng._ctor, "cell_prec": "mg", "dtype": eng.dtype})
+        for route, e in (("k1", eng), ("mg", eng_mg)):
+            before = stencil_pcg.KERNEL.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                e.tensors_for_centers(hmm._coeff, centers, G_fn=hmm._G_fn(), chunk=hmm._chunk)
+            torch.cuda.synchronize()
+            rec[f"{route}_route_seconds"] = time.perf_counter() - t0
+            rec[f"{route}_route_k1_launches"] = stencil_pcg.KERNEL.launches - before
+        rec["route_cells"] = int(centers.shape[0])
+        rec["mg_over_k1"] = rec["mg_route_seconds"] / rec["k1_route_seconds"]
+        emit(rec)
+        if not (_run_ok(rec) and counts["stencil_pcg_large"] == rec["chunks"]
+                and counts["stencil_pcg"] == 0 and rec["astar_rel_err"] < K1_LARGE_ASTAR_RTOL
+                and rec["u_rel_err_own_f64"] < K1_LARGE_U_RTOL
+                and rec["k1_route_k1_launches"] >= 1 and rec["mg_route_k1_launches"] == 0):
+            failed.append(tag)
+        del hmm, eng, eng_mg, A32, A64, u
+        torch.cuda.empty_cache()
+    emit({"phase": "k1_large_summary", "seconds": time.perf_counter() - t_phase,
+          "failed": failed, **main})
+    if failed:
+        raise AssertionError(f"K1's large instance failed its checks: {failed}")
+    return main
+
+
 #: the phases of the periodic, FEM and per-cell slice, of differentiation,
 #: of the micro engine's other routes, of the FFT and P2 routes, of the
-#: unstructured macro path, of multi-device solves and of the native host
-#: runtime and the utilities, in their order
+#: unstructured macro path, of multi-device solves, of the native host
+#: runtime and the utilities, and of K1's large instance, in their order
 NEW_PHASES = (phase_fem_flagship, phase_golden_periodic_fem, phase_periodic_identity,
               phase_elasticity_periodic, phase_chol_batched, phase_kc_gather,
               phase_pipeline_grad, phase_pipeline_grad_elasticity, phase_fem_grad,
               phase_micro_highres, phase_micro_routes, phase_micro_fft, phase_p2, phase_amg,
-              phase_sharded, phase_host_native, phase_utils)
+              phase_sharded, phase_host_native, phase_utils, phase_k1_large)
 
 
 def main(argv) -> int:
@@ -3891,6 +4031,11 @@ def main(argv) -> int:
          "replaces": "hommx_tpu/ops/dia.py:145",
          "launches": launches["dia_spmv_f64"], **{k: k2_f64[k] for k in keys},
          "library_ms": k2_f64["library_ms"]},
+        {"name": "stencil_pcg_large", "route": "cuda",
+         "source": "hommx_tpu_torch/micro/csrc/stencil_pcg.cu",
+         "replaces": "hommx_tpu/micro/stencil_pcg.py:81",
+         "launches": launches["stencil_pcg_large"], **{k: K1_LARGE[k] for k in keys},
+         "library_ms": None},
     ]
     print(smi, flush=True)
     emit({"kernels": kernels})

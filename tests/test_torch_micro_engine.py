@@ -118,14 +118,17 @@ def test_unported_routes_raise(kwargs):
 
 
 def test_k1_limit_checked_at_construction():
-    """K1's shared-memory limit is checked when a float32 CUDA engine on
-    K1's route is built: the check itself, called with n = 1025 and s = 2,
-    raises NotImplementedError naming ROADMAP B7 (n = 1024 fits)."""
+    """K1's size limit is checked when a float32 CUDA engine on K1's route
+    is built: the check itself takes n = 4096 (the 64² square, the 16³
+    cube) at every s and raises NotImplementedError naming ROADMAP B7 and
+    the limit at n = 4097."""
     from hommx_tpu_torch.micro.stencil_pcg import check_k1_fits
 
-    assert check_k1_fits(1024, 2).cells_per_block >= 4
-    with pytest.raises(NotImplementedError, match="B7"):
-        check_k1_fits(1025, 2)
+    for s in (1, 2, 3):
+        assert check_k1_fits(4096, s).large
+        with pytest.raises(NotImplementedError) as err:
+            check_k1_fits(4097, s)
+        assert "B7" in str(err.value) and "4096" in str(err.value)
     # the engine's rule for which routes launch K1: not the multigrid one
     eng = ht.MicroEngine(ht.create_unit_square(4), dtype=torch.float32, device="cpu")
     assert eng._k1_route()
@@ -178,3 +181,21 @@ def test_scaling_variants_match(engines, variant):
         other = ht.MicroEngine(mesh, diag_scale=False, device="cpu", solver="pcg")
     np.testing.assert_allclose(other.tensors_for_centers(TORCH_A, c).numpy(), A_ref.numpy(),
                                rtol=1e-9, atol=0)
+
+
+@pytest.mark.parametrize("name", ["square33", "cube10"])
+def test_large_cells_match_reference(name):
+    """Cells above the small K1 instance's reach (33²: n = 1089; 10³: n =
+    1000), which the large instance takes on the card: the port's chunk
+    route (its plain PCG on the CPU) against the reference's, 4 cells,
+    float64, to 1e-9 of max |A*| (the 3D tensor's off-diagonal entries are
+    zero up to rounding)."""
+    jm = hx.create_unit_square(33) if name == "square33" else hx.create_unit_cube(10)
+    je = JaxEngine(jm, dtype=jnp.float64, solver="pcg")
+    te = ht.MicroEngine(port_mesh(jm), device="cpu", solver="pcg")
+    assert te._k1_route() and te.n_reduced in (1089, 1000)
+    centers = np.random.default_rng(23).uniform(0, 1, (4, te.d))
+    A_ref = np.asarray(je.tensors_for_centers(JAX_A, jnp.asarray(centers)))
+    A = te.tensors_for_centers(TORCH_A, torch.as_tensor(centers)).numpy()
+    assert A.shape == A_ref.shape == (4, te.d, te.d)
+    assert np.abs(A - A_ref).max() / np.abs(A_ref).max() < 1e-9

@@ -169,12 +169,141 @@ def test_launch_config_matches_hand_count(n, s, K, want):
     assert cfg.smem_bytes <= 227 * 1024
 
 
-@pytest.mark.parametrize("n, s, limit", [(256, 4, "s = 4"), (1000, 3, "shared memory")])
+@pytest.mark.parametrize(
+    "n, s, limit", [(256, 4, "s = 4"), (4097, 1, "n <= 4096"), (4097, 3, "n <= 4096")]
+)
 def test_launch_config_raises_above_its_limit(n, s, limit):
-    """Four right-hand sides, or R, P and the Minv slabs past 227 KB at the
-    narrowest block, raise and name the limit; no other route is taken."""
-    with pytest.raises(ValueError, match=limit):
+    """Four right-hand sides, or more than 4096 unknowns (the 64² square,
+    the 16³ cube), raise and name the limit and ROADMAP B7; no other route
+    is taken."""
+    with pytest.raises(ValueError, match=limit) as err:
         k1.launch_config(n, s)
+    assert "B7" in str(err.value) or s == 4
+
+
+def _warp_cols(cg):
+    return next(w for w in (8, 4, 2, 1) if cg % w == 0)
+
+
+def _hand_smem(n, s, cfg):
+    """The shared memory each instance's launcher counts, by hand: the
+    small one's R (n padded to 16), P, two Minv slabs of n rows of 20
+    floats and the column sums; the large one's ring (a 4096-float tile
+    and bk rows of R each) and the column sums."""
+    if not cfg.large:
+        nc = s * cfg.cells_per_block
+        red = (cfg.threads // 32) * _warp_cols(nc // 4) * 8
+        return 4 * (-(-n // 16) * 16 * nc + n * nc + 2 * n * 20 + red)
+    nc = s * cfg.cells_per_block
+    bk = 16 if nc >= 12 else nc
+    red = ((cfg.threads - 32) // 32) * _warp_cols(nc // 4) * 8
+    return 4 * (cfg.stages * (4096 + bk * nc) + red)
+
+
+@pytest.mark.parametrize("s", [1, 2, 3])
+def test_launch_config_covers_every_cell_up_to_4096(s):
+    """Every n from 1 to 4096 has a configuration within the shared memory
+    a block may take, counted as the launcher counts it; above the small
+    instance's reach the large one, 16 columns a block (12 at s = 3), and
+    at every chunk size each CTA of the cluster owns rows."""
+    last_small = {1: 1198, 2: 1024, 3: 896}[s]
+    for n in range(1, 4097):
+        cfg = k1.launch_config(n, s)
+        assert cfg.smem_bytes <= k1.SMEM_LIMIT
+        assert cfg.smem_bytes == _hand_smem(n, s, cfg)
+        assert cfg.large == (n > last_small)
+        if cfg.large:
+            assert s * cfg.cells_per_block == (12 if s == 3 else 16)
+            for cells in (1, 37, 442, 2048):
+                c = k1.launch_config(n, s, cells)
+                rows = k1._rows_split(n, s * c.cells_per_block, c.cluster)
+                assert rows * (c.cluster - 1) < n and c.cells_per_block == cfg.cells_per_block
+
+
+@pytest.mark.parametrize(
+    "n, s, want",
+    [
+        (256, 2, (16, 512, 4, 110592)),  # the main path's 16² torus
+        (512, 3, (8, 384, 8, 180992)),  # the 8³ mesh
+        (1198, 1, (4, 256, 8, 230304)),  # the small instance's edges
+        (1024, 2, (4, 512, 4, 230400)),
+        (896, 3, (4, 384, 8, 229760)),
+    ],
+)
+def test_small_instance_configurations_are_kept(n, s, want):
+    """Where the small instance had a configuration it keeps it, whatever
+    the chunk's size: the same K1Config, the same launch."""
+    for cells in (0, 37, 2048):
+        cfg = k1.launch_config(n, s, cells)
+        assert cfg == k1.K1Config(*want) and not cfg.large
+
+
+@pytest.mark.parametrize(
+    "n, s, cells, want",
+    [
+        # 33²: 8 cells (16 columns) a block, 256 + 32 threads, 4 buffers of
+        # a 256 x 16 tile and 16 rows of R, the column sums of 8 warps of 4
+        # groups; 1665 cells give 209 blocks, more than the 132 SMs: no split
+        (1089, 2, 1665, (8, 288, 4, 4 * (4 * (4096 + 16 * 16) + 8 * 4 * 8), 1, 4)),
+        # 16³: 4 cells (12 columns) a block, 192 + 32 threads, 4 buffers of
+        # a 256 x 16 tile and 16 rows of R; 73 cells give 19 blocks, split
+        # over 8 CTAs (152 CTAs; 512 rows each)
+        (4096, 3, 73, (4, 224, 4, 4 * (4 * (4096 + 16 * 12) + 6 * 1 * 8), 8, 4)),
+        # 64²: 442 cells give 56 blocks, split over 4 CTAs (224 CTAs, 1.5 an SM)
+        (4096, 2, 442, (8, 288, 4, 4 * (4 * (4096 + 16 * 16) + 8 * 4 * 8), 4, 4)),
+        # 12³: 44 blocks; 8 CTAs of 256 rows would leave the last none
+        (1728, 3, 173, (4, 224, 4, 4 * (4 * (4096 + 16 * 12) + 6 * 1 * 8), 4, 4)),
+    ],
+)
+def test_large_launch_config_matches_hand_count(n, s, cells, want):
+    assert k1.launch_config(n, s, cells) == k1.K1Config(*want)
+
+
+def test_tiled_minv_layout():
+    """The large instance's Minv: [row tile][k tile][k // 4][row][k % 4]
+    with tiles of 4096 / bk rows and bk columns, zero past n."""
+    import itertools
+
+    n = 1100
+    M = torch.as_tensor(np.random.default_rng(5).standard_normal((n, n)))
+    for bk in (4, 8, 16):
+        Mt = k1._tiled(M, bk)
+        bm = 4096 // bk
+        assert Mt.shape == (-(-n // bm), -(-n // bk), bk // 4, bm, 4)
+        for pt, kt, q, r, e in itertools.product(
+            range(Mt.shape[0]), (0, 7, Mt.shape[1] - 1), range(bk // 4), (0, 13, bm - 1), range(4)
+        ):
+            row, col = pt * bm + r, kt * bk + 4 * q + e
+            assert Mt[pt, kt, q, r, e] == (M[row, col] if row < n and col < n else 0.0)
+
+
+def test_plain_large_block_on_33x33_chunk():
+    """The large instance's block size on a 33² chunk (n = 1089, 8 cells a
+    block): the plain version is ``_chunk_pcg_raw`` run on each block
+    alone, bitwise, and its A* lies within 5e-5 of the unblocked loop's."""
+    from hommx_tpu_torch.micro.chunk import chunk_system
+    from hommx_tpu_torch.micro.krylov import _chunk_pcg_raw, shared_prec
+    from hommx_tpu_torch.micro.stencil import torus_matvec
+
+    te = ht.MicroEngine(ht.create_unit_square(33, 33), device="cpu", solver="pcg")
+    block = k1.launch_config(te.n_reduced, te.s).cells_per_block
+    assert te.n_reduced == 1089 and block == 8
+    A = lambda x, y: 1.5 + x[0] + torch.sin(2 * torch.pi * y[0]) * torch.cos(2 * torch.pi * y[1])
+    centers = torch.as_tensor(np.random.default_rng(21).uniform(0, 1, (12, 2)))
+    cs = chunk_system(te, A, centers)
+    ws, F = cs.scaled()
+    st, tol, maxiter = cs.st, te.pcg_tol, te.pcg_maxiter
+    X, its = k1.stencil_pcg_plain(ws, F, cs.Minv, st.shape, st.offsets, tol, maxiter,
+                                  block=block, per_block=True)
+    for b, a in enumerate(range(0, 12, block)):
+        cols = slice(a, min(a + block, 12))
+        wb = [w[:, cols] for w in ws]
+        Xb, kb = _chunk_pcg_raw(lambda P: torus_matvec(st.shape, st.offsets, wb, P),
+                                lambda R: shared_prec(cs.Minv, R), F[:, :, cols], tol, maxiter)
+        assert kb == its[b] and torch.equal(Xb, X[:, :, cols])
+    X1, it1 = k1.stencil_pcg_plain(ws, F, cs.Minv, st.shape, st.offsets, tol, maxiter)
+    A_blocked, A_whole = cs.astar(te, X, max(its)), cs.astar(te, X1, it1)
+    assert float((A_blocked - A_whole).abs().max() / A_whole.abs().max()) < 5e-5
 
 
 def test_neighbour_table_is_the_torus_roll():

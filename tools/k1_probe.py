@@ -17,6 +17,12 @@ a 1000-cell chunk of the 8³ mesh it prints one JSON line per measurement:
   ``clock64`` cycles in the preconditioner products, in the stencil
   matvecs and in all; the median and the maximum over blocks.
 
+With ``--large`` it probes the large instance instead (n above the small
+one's reach): on one auto-sized chunk of the 33², 64², 10³ and 16³ micro
+meshes, K1 at cluster sizes 1, 2 and 4 against the per-block plain version,
+with its single-call time, the bound and the float32 ``torch.matmul`` of
+Minv by the chunk's loads.
+
 With ``--out FILE`` all records also go there.
 """
 
@@ -103,7 +109,7 @@ def _sweep(k1, n, s, C, args, variants, chosen, lib_us, keep):
         cfg = k1.K1Config(cb, threads, tm, k1._smem_bytes(n, s, cb, threads))
         if cfg.smem_bytes > k1.SMEM_LIMIT:
             continue
-        k1.launch_config = lambda n_, s_, cfg=cfg: cfg
+        k1.launch_config = lambda n_, s_, c_=0, cfg=cfg: cfg
         Y, its = k1.stencil_pcg_cuda(*args, per_block=True)
         Yp, itp = k1.stencil_pcg_plain(*args, block=cb, per_block=True)
         keep({"tag": "sweep", "n": n, "s": s, "cells": C, **cfg.__dict__,
@@ -115,9 +121,120 @@ def _sweep(k1, n, s, C, args, variants, chosen, lib_us, keep):
               "prec_library_us": lib_us})
 
 
+def sweep_large(k1, device, keep, clusters=(1, 2, 4, 8)):
+    """The large instance on one auto-sized chunk of each mesh: its
+    launch_config, then each cluster size with 4, 6 and 12 ring buffers, and
+    half its cells a block."""
+    import numpy as np
+    import torch
+    from chip_smoke import K1_RTOL, bound, time_ms
+
+    from hommx_tpu_torch import MicroEngine, create_unit_cube, create_unit_square
+
+    rng = np.random.default_rng(0)
+    orig = k1.launch_config
+    try:
+        for name, mesh in (("2d33", create_unit_square(33, 33)), ("2d64", create_unit_square(64, 64)),
+                           ("3d10", create_unit_cube(10)), ("3d16", create_unit_cube(16))):
+            eng = MicroEngine(mesh, device=device, dtype=torch.float32)
+            n, s = eng.n_reduced, eng.s
+            C = eng._auto_chunk(1 << 20)
+            cs, args = chunk_args(eng, C, rng, device)
+            K = len(cs.st.offsets)
+            R2 = args[1].reshape(n, s * C).contiguous()
+            torch.backends.cuda.matmul.allow_tf32 = False
+            lib_us = 1e3 * time_ms(lambda: torch.matmul(cs.Minv, R2), reps=20)
+            chosen = orig(n, s, C)
+            variants = [chosen]
+            shapes = [(chosen.cells_per_block, cl, st) for cl in clusters for st in (4, 6, 12)]
+            for cb, cl, st in shapes + [(chosen.cells_per_block // 2, chosen.cluster, 6)]:
+                cfg = k1.large_candidate(n, s, cb, cl, st) if cb else None
+                if cfg is not None and cfg not in variants:
+                    variants.append(cfg)
+            for cfg in variants:
+                k1.launch_config = lambda n_, s_, c_=0, cfg=cfg: cfg
+                Y, its = k1.stencil_pcg_cuda(*args, per_block=True)
+                its = [int(v) for v in its.cpu()]
+                Yp, itp = k1.stencil_pcg_plain(*args, block=cfg.cells_per_block, per_block=True)
+                Ak, Ap = cs.astar(eng, Y, max(its)), cs.astar(eng, Yp, max(itp))
+                rel = float((Ak - Ap).abs().max() / Ap.abs().max())
+                ms = time_ms(lambda: k1.stencil_pcg_cuda(*args), reps=5, warmup=1)
+                b = cfg.cells_per_block
+                flops = sum(min(b, C - i * b) * ((it + 2) * 2.0 * n * n * s
+                                                 + (it + 1) * 2.0 * K * n * s)
+                            for i, it in enumerate(its))
+                bound_ms, by = bound(flops, 4.0 * (K * n * C + 2 * n * s * C + n * n))
+                keep({"tag": "large", "case": name, "n": n, "s": s, "cells": C, **cfg.__dict__,
+                      "chosen": cfg == chosen, "ms": ms, "bound_ms": bound_ms, "bound_by": by,
+                      "share_of_bound": bound_ms / ms, "iters_max": max(its),
+                      "iters_plain_max": max(itp),
+                      "iters_max_block_diff": max(abs(a - c) for a, c in zip(its, itp)),
+                      "astar_rel_err": rel, "ok": rel < K1_RTOL, "prec_library_us": lib_us})
+            del eng, cs, args
+            torch.cuda.empty_cache()
+    finally:
+        k1.launch_config = orig
+
+
+LARGE_PHASES = ("prec", "prec_wait", "producer", "producer_wait", "stencil", "total", "applies")
+
+
+def large_phases(k1, device, keep):
+    """The large instance's cycle split, from instrumented copies
+    (``K1L_PROBE`` defined; ``K1L_MIN_BLOCKS`` 1 and 2, the least CTAs an SM
+    that ``__launch_bounds__`` asks of the registers; ``K1L_NO_FMA``, the
+    product's arithmetic left out, so only its cycles mean anything), at its
+    launch configuration on the 64² and 16³ chunks (the median and the
+    maximum over CTAs)."""
+    import numpy as np
+    import torch
+    from chip_smoke import time_ms
+
+    from hommx_tpu_torch import MicroEngine, create_unit_cube, create_unit_square
+    from hommx_tpu_torch._cuda import CudaKernel
+
+    rng = np.random.default_rng(0)
+    build = ROOT / "hommx_tpu_torch" / "_build" / "k1_large_phases"
+    build.mkdir(parents=True, exist_ok=True)
+    sig = dict(k1.KERNEL.signatures)
+    sig["hommx_k1l_phases"] = [ctypes.c_void_p]
+    kernels = {}
+    variants = {"b1": "#define K1L_MIN_BLOCKS 1\n", "b2": "", "b2_nofma": "#define K1L_NO_FMA\n"}
+    for tag, head in variants.items():
+        src = build / f"stencil_pcg_{tag}.cu"
+        src.write_text("#define K1L_PROBE\n" + head + k1.KERNEL.source.read_text())
+        kernels[tag] = CudaKernel(src, sig)
+    orig = k1.KERNEL
+    try:
+        for name, mesh in (("2d64", create_unit_square(64, 64)), ("3d16", create_unit_cube(16))):
+            eng = MicroEngine(mesh, device=device, dtype=torch.float32)
+            C = eng._auto_chunk(1 << 20)
+            _, args = chunk_args(eng, C, rng, device)
+            cfg = k1.launch_config(eng.n_reduced, eng.s, C)
+            for tag, kern in kernels.items():
+                k1.KERNEL = kern
+                ms = time_ms(lambda: k1.stencil_pcg_cuda(*args), reps=5, warmup=1)
+                buf = torch.zeros(8192 * 8, dtype=torch.int64, device=device)
+                kern.launch("hommx_k1l_phases", device.index, buf.data_ptr())
+                torch.cuda.synchronize()
+                nb = -(-C // cfg.cells_per_block) * cfg.cluster
+                ph = buf[: nb * 8].reshape(nb, 8)[:, : len(LARGE_PHASES)].double()
+                keep({"tag": "large_phases", "case": name, "build": tag, **cfg.__dict__,
+                      "instrumented_ms": ms, "ptxas": [ln.strip() for ln in kern.build_log.splitlines()
+                                                       if "large" in ln or "registers" in ln][-6:],
+                      "cycles_median": dict(zip(LARGE_PHASES,
+                                                ph.median(dim=0).values.tolist())),
+                      "cycles_max": dict(zip(LARGE_PHASES, ph.max(dim=0).values.tolist()))})
+            del eng, args
+            torch.cuda.empty_cache()
+    finally:
+        k1.KERNEL = orig
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--large", action="store_true")
     args_ns = ap.parse_args()
 
     import numpy as np
@@ -127,7 +244,7 @@ def main() -> int:
         print("k1_probe: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import emit, phase_device, time_ms
+    from chip_smoke import emit, phase_build, phase_device, time_ms
 
     from hommx_tpu_torch import MicroEngine, create_unit_cube, create_unit_square
     from hommx_tpu_torch._cuda import CudaKernel
@@ -142,6 +259,11 @@ def main() -> int:
         records.append(rec)
 
     phase_device()
+    if args_ns.large:
+        phase_build()
+        sweep_large(k1, device, keep)
+        large_phases(k1, device, keep)
+        return _write(records, args_ns.out)
     rng = np.random.default_rng(0)
     cases = (
         (create_unit_square(16, 16), 2048,
@@ -177,9 +299,13 @@ def main() -> int:
               "cycles_median": {"prec": med[0], "matvec": med[1], "total": med[2]},
               "cycles_max": {"prec": mx[0], "matvec": mx[1], "total": mx[2]}})
 
-    if args_ns.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args_ns.out)), exist_ok=True)
-        with open(args_ns.out, "w") as fh:
+    return _write(records, args_ns.out)
+
+
+def _write(records, out) -> int:
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as fh:
             json.dump(records, fh, indent=1)
     return 0
 
