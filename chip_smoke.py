@@ -38,8 +38,14 @@ prints no result line):
                (d) a batch with one indefinite cell, (e) a well-conditioned
                random SPD batch at n = 192, s = 6, (f) the refinement sweep
                against its float64 model, with the unrefined plain version
-               as the control that must fail, and (g) a well-conditioned
-               SPD batch at the kernel's largest n (max_kernel_n(6) = 288)
+               as the control that must fail, (g) a well-conditioned SPD
+               batch at the small instance's largest n (max_small_n(6) =
+               288), and (h) the large instance (n above 288): SPD batches
+               at n = 289, 512 (s = 3), 648, 1536 and 3000, the beam's
+               cells on the 5³, 6³ and 8³ cubes and the 2D inclusion's on
+               the 16² square at their chunks (timed, with the bound, the
+               workspace's traffic and torch.linalg.solve), a ragged 37
+               cells, an indefinite cell at n = 648
 6. golden      PoissonHMM golden configuration (8x8 macro, 8x8 micro) in
                float32 through K1 and the direct macro solve, vs the frozen
                float64 functionals
@@ -208,9 +214,21 @@ prints no result line):
                system, the micro stage beside cell_prec='mg' on the same
                cells; (c) the same on the 6³ cube with a 16³ micro cube
 
+18. K3's large instance (n above 288) on the main path:
+   k3_large    (a) the rotated-fibre beam at 20x6x6 with 6³ micro cubes (n
+               = 648, 4320 cells) and (b) LinearElasticityHMM on a 32²
+               macro with 16² micro squares (n = 512, s = 3), float32,
+               dedup off: large launches = chunks, no small one, A* of 256
+               cells against a float64 engine (and the plain float32
+               route's distance beside it), u against the float64 solve of
+               its own system; (c) MicroEngine with default arguments on
+               the 5³, 6³, 8³ cubes and 13², 16² squares, 8 cells each;
+               (d) build_pipeline's dJ/dθ on the 10x3x3 beam with 6³ cells
+               against the CPU's float64 gradient
+
 Phases 1-9 pass ``dedup_cells=False`` and so solve every cell, as before
 the models' default became dedup.  ``--only fem_flagship,kc_gather`` runs
-the named phases of parts 11 to 16 alone (after the build) and prints no
+the named phases of parts 11 to 18 alone (after the build) and prints no
 result line.  The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -278,6 +296,9 @@ SHARD_GRAD_RTOL = 1e-3  # float32 dJ/dθ, sharded pipeline vs unsharded
 # K1's large instance (n above the small instance's reach, up to 4096)
 K1_LARGE_ASTAR_RTOL = 1e-4  # float32 A* of sampled cells vs the float64 engine
 K1_LARGE_U_RTOL = 1e-4  # float32 u vs the float64 solve of its own system
+K3_LARGE_ASTAR_RTOL = 1e-4  # float32 A* of sampled cells vs the float64 engine
+K3_LARGE_ASTAR_SLACK = 1e-6  # ... and at most 2x the plain float32 route's distance + this
+K3_LARGE_U_RTOL = 1e-6  # float32 u vs the float64 solve of its own (direct) system
 SHARD_MODES_RTOL = 1e-6  # float32 u, the 'shard_map' forward vs the 'auto' one
 
 # NVIDIA H100 SXM peaks (data sheet, dense): float32 outside the tensor
@@ -339,6 +360,17 @@ def fibre(a, b):
     da = torch.arccos(torch.cos(2 * torch.pi * (a - 0.5)))
     db = torch.arccos(torch.cos(2 * torch.pi * (b - 0.5)))
     return (da**2 + db**2) < ((2 * torch.pi) ** 2 / 16)
+
+
+def inclusion_mu(x, y):
+    """Shear modulus of the 2D inclusion cell (tests/test_chol_kernel.py's):
+    50(1 + 0.2x₀) inside a disc of radius 0.3, 0.5 + 0.3 sin 2πy₁ outside."""
+    import torch
+
+    one = torch.ones((), dtype=y.dtype, device=y.device)
+    inc = (y[0] - 0.5) ** 2 + (y[1] - 0.5) ** 2 < 0.09
+    return torch.where(inc, 50.0 * (1.0 + 0.2 * x[0]) * one,
+                       0.5 + 0.3 * torch.sin(2 * torch.pi * y[1]))
 
 
 def beam_coeff(x_dependent: bool):
@@ -903,7 +935,8 @@ def phase_chol(device, chunk: int = 1080):
     """K3 at the beam's chunk (timed), on a ragged chunk of the 3³ cube, on
     the 2D 4² square, on a batch with one indefinite cell, on a
     well-conditioned random batch at the beam's n and s, against the
-    float64 model of its refinement sweep, and at its largest n."""
+    float64 model of its refinement sweep, at the small instance's largest
+    n, and the large instance's cases (:func:`_k3_large_cases`)."""
     import numpy as np
     import torch
 
@@ -952,15 +985,9 @@ def phase_chol(device, chunk: int = 1080):
                                   centers_of(37, 3, 5), beam_rotation)
     cases = [("b_cube3_C37", Ks, Fs, None, astar, False)]
     # (c) 2D elasticity on the 4² micro square (n = 32, s = 3)
-
-    def mu2(x, y):
-        one = torch.ones((), dtype=y.dtype, device=y.device)
-        inc = (y[0] - 0.5) ** 2 + (y[1] - 0.5) ** 2 < 0.09
-        return torch.where(inc, 50.0 * (1.0 + 0.2 * x[0]) * one,
-                           0.5 + 0.3 * torch.sin(2 * torch.pi * y[1]))
-
     Ks2, Fs2, astar2 = _cell_systems(engine(create_unit_square(4)),
-                                     hooke_tensor(2, mu2, lambda x, y: 1.0), centers_of(200, 2, 6))
+                                     hooke_tensor(2, inclusion_mu, lambda x, y: 1.0),
+                                     centers_of(200, 2, 6))
     cases.append(("c_square4_C200", Ks2, Fs2, None, astar2, False))
     # (d) case (b) with the last pivot of cell 3 made negative
     Kd = Ks.clone()
@@ -970,8 +997,8 @@ def phase_chol(device, chunk: int = 1080):
     # (e) well-conditioned SPD batch at the beam's n and s: X itself agrees
     Ke, Fe = _spd_batch(device, 256, n, s, 7)
     cases.append((f"e_spd_C256_n{n}", Ke, Fe, None, None, True))
-    # (g) the same at the kernel's largest n: the limit runs
-    n_max = chol_kernel.max_kernel_n(s)
+    # (g) the same at the small instance's largest n
+    n_max = chol_kernel.max_small_n(s)
     Kg, Fg = _spd_batch(device, 264, n_max, s, 8)
     cases.append((f"g_spd_C264_n{n_max}", Kg, Fg, None, None, True))
     for name, K, F, ok_cells, amap, strict in cases:
@@ -985,9 +1012,114 @@ def phase_chol(device, chunk: int = 1080):
     emit(rec)
     if not ok:
         failed.append(rec["case"])
+    # (h) the large instance
+    failed += _k3_large_cases(device)
     if failed:
         raise AssertionError(f"Cholesky kernel disagrees with its plain version: {failed}")
     return main
+
+
+#: the record of K3's large instance at the 6³ beam chunk (phase 5 (h)), for
+#: the kernels line
+K3_LARGE = {}
+
+
+def _k3_workspace_rmw_bytes(C: int, n: int) -> int:
+    """Bytes the large instance moves through its workspace in the
+    trailing updates: every lower tile (i, j), p < j <= i, read and
+    written once a panel p, 8 KB a tile, C cells."""
+    P = -(-n // 32)
+    return C * sum((P - 1 - p) * (P - p) // 2 for p in range(P)) * 8192
+
+
+def _k3_large_cases(device, sizes=((5, 720), (6, 309), (8, 76)), square=(16, 683),
+                    spd=((289, 6, 64), (512, 3, 128), (648, 6, 64), (1536, 6, 16),
+                         (3000, 6, 4)), checked: int = 32) -> list:
+    """K3's large instance against its plain version at the K3 bar (the
+    residual, A*, the float64 distance; X too on the well-conditioned
+    batches): (h1) well-conditioned SPD batches at n = 289 (ragged), 512 (s
+    = 3), 648, 1536 and 3000; (h2) the beam's equilibrated cell systems on
+    the 5³, 6³ and 8³ cubes (n = 375, 648, 1536) at the chunks a 4320-cell
+    beam gives them, and the 2D inclusion's on the 16² square (n = 512, s =
+    3) at the 2048-cell run's chunk, timed (the kernel, its plain version,
+    torch.linalg.solve, the bound, the workspace's traffic), the float64
+    checks on ``checked`` of their cells; (h3) a ragged 37 cells of the 5³
+    cube (four CTAs a cell); (h4) 16 cells of the 6³ cube with cell 3's
+    last pivot made negative.  Returns the failed cases."""
+    import numpy as np
+    import torch
+
+    from hommx_tpu_torch import MicroEngine, create_box, create_unit_cube, create_unit_square
+    from hommx_tpu_torch.ops import chol_kernel
+    from hommx_tpu_torch.ops.chol_kernel import fused_chol_solve_cuda, fused_chol_solve_plain
+    from hommx_tpu_torch.utils.validation import hooke_tensor
+
+    failed = []
+    macro = create_box([[0, 0, 0], [BEAM_L, BEAM_W, BEAM_H]], [20, 6, 6])
+    beam_centers = torch.as_tensor(macro.vertices[macro.cells].mean(axis=1), dtype=torch.float32,
+                                   device=device)
+
+    def engine(mesh):
+        return MicroEngine(mesh, bs=mesh.dim, coeff_kind="tensor4", dtype=torch.float32,
+                           device=device)
+
+    def check(name, K, F, ok_cells=None, astar=None, strict=False, timed=False):
+        C, n, s = K.shape[0], K.shape[1], F.shape[1]
+        cfg = chol_kernel.chol_launch_config(n, s, C)
+        if ok_cells is None and C > checked:
+            ok_cells = np.linspace(0, C - 1, checked).round().astype(int).tolist()
+        rec, ok = _k3_compare(K, F, ok_cells, astar, strict)
+        rec = {"phase": "chol_solve", "case": name, "cells": C, "n": n, "s": s,
+               "large": cfg.large, "panels": cfg.panels, "cluster": cfg.cluster,
+               "workspace_bytes": cfg.workspace_bytes,
+               "checked_cells": C if ok_cells is None else len(ok_cells), **rec}
+        if timed:
+            Fb = F.permute(2, 0, 1).contiguous()
+            flops = C * (n**3 / 3 + 4.0 * n * n * s + 2.0 * n * n * s)
+            bound_ms, bound_by = bound(flops, 4.0 * C * (n * n + 2 * n * s))
+            rmw = _k3_workspace_rmw_bytes(C, n)
+            rec.update({"card": _card_line(), "smem_bytes": cfg.smem_bytes,
+                        "occupancy": list(chol_kernel.large_occupancy(cfg)),
+                        "ms": time_ms(lambda: fused_chol_solve_cuda(K, F), reps=10),
+                        "plain_ms": time_ms(lambda: fused_chol_solve_plain(K, F), reps=3,
+                                            warmup=1),
+                        "library_ms": time_ms(lambda: torch.linalg.solve(K, Fb), reps=5),
+                        "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+                        "workspace_rmw_gb": rmw / 1e9,
+                        "workspace_rmw_hbm_ms": rmw / PEAK_BYTES_PER_S * 1e3})
+            rec["share_of_bound"] = bound_ms / rec["ms"]
+        emit(rec)
+        if not (ok and cfg.large):
+            failed.append(name)
+        return rec
+
+    for n, s, C in spd:  # (h1)
+        K, F = _spd_batch(device, C, n, s, 20 + n)
+        check(f"h1_spd_C{C}_n{n}_s{s}", K, F, strict=True)
+        del K, F
+    for m, C in sizes:  # (h2) the beam's cells on the m³ cube
+        eng = engine(create_unit_cube(m))
+        K, F, astar = _cell_systems(eng, beam_coeff(False), beam_centers[:C], beam_rotation)
+        rec = check(f"h2_beam_cube{m}_C{C}", K, F, astar=astar, timed=True)
+        if m == 6:
+            K3_LARGE.update(rec)
+        if m == 5:  # (h3) a ragged cell count
+            K37, F37, astar37 = _cell_systems(eng, beam_coeff(False), beam_centers[:37],
+                                              beam_rotation)
+            check("h3_beam_cube5_C37", K37, F37, astar=astar37)
+        if m == 6:  # (h4) an indefinite cell
+            Kd, Fd = K[:16].clone(), F[:, :, :16].contiguous()
+            Kd[3, -1, -1] = -Kd[3, -1, -1]
+            check("h4_indefinite_cube6_cell3", Kd, Fd, ok_cells=[c for c in range(16) if c != 3])
+        del eng, K, F, astar
+        torch.cuda.empty_cache()
+    m, C = square  # (h2) the 2D inclusion on the 16² square
+    rng = np.random.default_rng(21)
+    c2 = torch.as_tensor(rng.uniform(0, 1, (C, 2)), dtype=torch.float32, device=device)
+    K, F, astar = _cell_systems(engine(create_unit_square(m)),
+                                hooke_tensor(2, inclusion_mu, lambda x, y: 1.0), c2)
+    check(f"h2_square{m}_C{C}", K, F, astar=astar, timed=True)
+    return failed
 
 
 def phase_golden(device):
@@ -2152,14 +2284,16 @@ def _grad_pass(loss, theta, order: int = 1) -> dict:
     from hommx_tpu_torch.micro import stencil_pcg
     from hommx_tpu_torch.ops import chol_kernel, dia
 
-    kernels = {"stencil_pcg": stencil_pcg.KERNEL, "dia_spmv": dia.KERNEL,
-               "chol_solve": chol_kernel.KERNEL}
+    kernels = {"stencil_pcg": lambda: stencil_pcg.KERNEL.launches,
+               "dia_spmv": lambda: dia.KERNEL.launches,
+               "chol_solve": lambda: chol_kernel.KERNEL.counts["hommx_chol_solve_f32"],
+               "chol_solve_large": lambda: chol_kernel.KERNEL.counts["hommx_chol_solve_large_f32"]}
     cuda = theta.is_cuda
 
     def mark():
         if cuda:
             torch.cuda.synchronize()
-        return time.perf_counter(), {k: v.launches for k, v in kernels.items()}
+        return time.perf_counter(), {k: count() for k, count in kernels.items()}
 
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -2317,9 +2451,10 @@ def phase_pipeline_grad(device, macro_n: int = 512, micro_n: int = 16, check_n: 
     return {"stencil_pcg": stencil_pcg.KERNEL.launches, "dia_spmv": dia.KERNEL.launches}
 
 
-def _beam_grad(device, dtype, macro_n):
-    """dJ/dθ of J = Σu² through the rotated-fibre beam's pipeline, θ
-    scaling the fibre modulus (μ = 100θ in the fibre), at θ = 1."""
+def _beam_grad(device, dtype, macro_n, micro_n: int = 4):
+    """dJ/dθ of J = Σu² through the rotated-fibre beam's pipeline (a
+    ``micro_n``³ micro cube), θ scaling the fibre modulus (μ = 100θ in the
+    fibre), at θ = 1."""
     import torch
 
     from hommx_tpu_torch import LinearElasticityStratifiedHMM, create_box, create_unit_cube
@@ -2334,7 +2469,7 @@ def _beam_grad(device, dtype, macro_n):
     macro = create_box([[0, 0, 0], [BEAM_L, BEAM_W, BEAM_H]], list(macro_n))
     f = torch.tensor([0.0, 0.0, -0.05 * (BEAM_W / BEAM_L) ** 2], dtype=torch.float64)
     hmm = LinearElasticityStratifiedHMM(macro, hooke_tensor(3, mu, lambda x, y: 1.0),
-                                        lambda x: f, create_unit_cube(4), 2**-5,
+                                        lambda x: f, create_unit_cube(micro_n), 2**-5,
                                         beam_rotation, dtype=dtype, device=device,
                                         dedup_cells=False)
     clamp_x0(hmm)
@@ -2467,12 +2602,15 @@ def phase_micro_highres(device, reps: int = 5):
     8 cells in float64 on the card (pcg_tol 1e-9), the float32 A* within
     2e-3 of it; (c) the reference's 16³ gate (ν = 10, tol 1e-7, float64, 2
     cells): at most 100 iterations, diag(A*) physical; (d) the example's
-    micro-mesh sequence 4³, 8³, 16³ (one centre, float64, MG at all three,
-    ν = 8, tol 1e-7)."""
+    micro-mesh sequence on its own routes (one centre): 4³ and 8³ on the
+    default one, float32 through K3's small and large instance (one launch
+    each, A* within 1e-4 of the float64 plain route), 16³ on the MG route
+    (float64, ν = 8, tol 1e-7)."""
     import numpy as np
     import torch
 
     from hommx_tpu_torch import MicroEngine, create_unit_cube
+    from hommx_tpu_torch.ops import chol_kernel
 
     kw = dict(bs=3, coeff_kind="tensor4", solver="pcg", pcg_strategy="matfree",
               cell_prec="mg", device=device)
@@ -2541,31 +2679,55 @@ def phase_micro_highres(device, reps: int = 5):
              "seconds": time.perf_counter() - t, "diag": dg.tolist(),
              "finite": bool(torch.isfinite(Ag).all())}
     emit(rec_c)
-    # (d) the example's micro-mesh sequence
+    # (d) the example's micro-mesh sequence on its own routes: 4³ and 8³ on
+    # the default one (on the card float32, the chunk Cholesky: K3's small
+    # and then its large instance), 16³ on the MG route (ν = 8, tol 1e-7,
+    # in float64: the float32 route stalls short of that tolerance); the
+    # Cholesky cells also against the float64 plain route
     seq, prev = [], None
-    centre = torch.full((1, 3), 0.5, dtype=torch.float64, device=device)
+    small, large = "hommx_chol_solve_f32", "hommx_chol_solve_large_f32"
+    chol_kernel.KERNEL.reset_counts()
     for n in (4, 8, 16):
         t = time.perf_counter()
-        e = MicroEngine(create_unit_cube(n), dtype=torch.float64, mg_nu=8, pcg_tol=1e-7,
-                        pcg_maxiter=4000, **kw)
+        if n <= 8:
+            e = MicroEngine(create_unit_cube(n), bs=3, coeff_kind="tensor4", device=device)
+        else:
+            e = MicroEngine(create_unit_cube(n), dtype=torch.float64, mg_nu=8, pcg_tol=1e-7,
+                            pcg_maxiter=4000, **kw)
+        centre = torch.full((1, 3), 0.5, dtype=e.dtype, device=device)
+        before = dict(chol_kernel.KERNEL.counts)
         with torch.no_grad():
-            A = e.tensors_for_centers(fibre_only, centre)[0]
+            A = e.tensors_for_centers(fibre_only, centre)[0].double()
+        torch.cuda.synchronize()
         d = A.diagonal()
-        seq.append({"n": n, "A11": float(d[0]), "A22": float(d[4]),
-                    "seconds": time.perf_counter() - t,
-                    "rel_diff_to_previous": None if prev is None else rel_diff(A, prev)})
+        row = {"n": n, "dtype": str(e.dtype), "solver": e.solver, "cell_prec": e.cell_prec,
+               "A11": float(d[0]), "A22": float(d[4]), "seconds": time.perf_counter() - t,
+               "k3_launches": chol_kernel.KERNEL.counts[small] - before[small],
+               "k3_large_launches": chol_kernel.KERNEL.counts[large] - before[large],
+               "rel_diff_to_previous": None if prev is None else rel_diff(A, prev),
+               "finite": bool(torch.isfinite(A).all())}
+        if n <= 8:
+            A64 = _f64_astar(e.mesh, fibre_only, centre, bs=3, coeff_kind="tensor4")[0]
+            row["f64_rel_diff"] = rel_diff(A, A64)
+        seq.append(row)
         prev = A
-    emit({"phase": "micro_highres_sequence", "rows": seq})
+    emit({"phase": "micro_highres_sequence", "rows": seq, "bar": K3_LARGE_ASTAR_RTOL})
+    seq_ok = (seq[0]["k3_launches"] == 1 and seq[0]["k3_large_launches"] == 0
+              and seq[1]["k3_launches"] == 0 and seq[1]["k3_large_launches"] == 1
+              and seq[2]["k3_launches"] + seq[2]["k3_large_launches"] == 0
+              and all(r["finite"] for r in seq)
+              and all(r["f64_rel_diff"] <= K3_LARGE_ASTAR_RTOL for r in seq[:2]))
     ok = (rec["c8"]["finite"] and rec["c128"]["finite"] and rec["c8"]["checksums_differ"]
           and rec["c128"]["checksums_differ"] and rec["c8"]["fallback_cells"] == 0
           and rec["c8"]["diverged_cells"] == 0 and rec["c128"]["fallback_cells"] == 0
           and rec_b["f32_rel_diff_to_f64"] <= GOLDEN_ELASTICITY_RTOL
           and rec_c["finite"] and rec_c["iterations"] <= 100
-          and dg[0] > 1.0 and dg[1] < 1.0 and bool((dg > 0).all())
-          and all(math.isfinite(r["A11"]) for r in seq))
+          and dg[0] > 1.0 and dg[1] < 1.0 and bool((dg > 0).all()) and seq_ok)
     if not ok:
-        raise AssertionError(f"16³ multigrid route failed its checks: {rec} {rec_b} {rec_c}")
-    return {}
+        raise AssertionError(f"16³ multigrid route or the micro sequence failed its checks: "
+                             f"{rec} {rec_b} {rec_c} {seq}")
+    return {"chol_solve": chol_kernel.KERNEL.counts[small],
+            "chol_solve_large": chol_kernel.KERNEL.counts[large]}
 
 
 def phase_micro_routes(device):
@@ -3955,15 +4117,184 @@ def phase_k1_large(device, sizes2=(33, 48, 64), sizes3=(10, 12, 16),
     return main
 
 
+def _k3_large_run(tag, hmm, t_setup, sampled, rng) -> tuple:
+    """One elasticity solve through the entry point with K3's counts reset
+    before it: the run's record with its K3 launches per instance and
+    chunks, A* of ``sampled`` cells against a float64 engine on the card
+    beside the plain float32 route's distance, and u against the float64
+    solve of its own system.  Returns (record, launches, ok)."""
+    import numpy as np
+    import torch
+
+    from hommx_tpu_torch.micro.chunk import tensors_chunk_chol_plain
+    from hommx_tpu_torch.micro.krylov import _map_chunked
+    from hommx_tpu_torch.ops import chol_kernel
+
+    small, large = "hommx_chol_solve_f32", "hommx_chol_solve_large_f32"
+    chol_kernel.KERNEL.reset_counts()
+    rec, u = _solve_record(tag, hmm, t_setup)
+    counts = {"chol_solve": chol_kernel.KERNEL.counts[small],
+              "chol_solve_large": chol_kernel.KERNEL.counts[large]}
+    eng = hmm._engine
+    nc = rec["num_cells"]
+    chunk = min(hmm._chunk or eng._auto_chunk(nc), nc)
+    cfg = chol_kernel.chol_launch_config(eng.n_reduced, eng.s, chunk)
+    rec.update({"card": _card_line(), "n": eng.n_reduced, "s": eng.s, "dtype": str(eng.dtype),
+                "solver": eng.solver, "chunk": chunk, "chunks": -(-nc // chunk),
+                "launches": counts, "cluster": cfg.cluster,
+                "workspace_bytes_per_cell": cfg.workspace_bytes,
+                "cell_solves_per_s": nc * eng.s / rec["micro_seconds"]})
+    A32 = hmm.homogenized_tensors()
+    idx = torch.as_tensor(np.sort(rng.choice(nc, min(sampled, nc), replace=False)),
+                          device=A32.device)
+    centers, G_fn = hmm._sys.centers[idx], hmm._G_fn()
+    A64 = _f64_astar(eng.mesh, hmm._coeff, centers, G_fn, bs=eng.bs, coeff_kind="tensor4")
+    with torch.no_grad():
+        Ap = _map_chunked(lambda c: tensors_chunk_chol_plain(eng, hmm._coeff, c, G_fn),
+                          centers.to(eng.dtype), chunk)
+    scale = float(A64.abs().max())
+    rec["astar_cells"] = int(idx.numel())
+    rec["astar_rel_err"] = float((A32[idx].double() - A64).abs().max()) / scale
+    rec["plain_f32_astar_rel_err"] = float((Ap.double() - A64).abs().max()) / scale
+    rec["u_rel_err_own_f64"] = rel_diff(u, _own_system_f64(hmm))
+    rec["bars"] = {"astar": K3_LARGE_ASTAR_RTOL, "astar_vs_plain": "2x + 1e-6",
+                   "u": K3_LARGE_U_RTOL}
+    emit(rec)
+    ok = (_run_ok(rec) and counts["chol_solve_large"] == rec["chunks"]
+          and counts["chol_solve"] == 0
+          and rec["astar_rel_err"] < K3_LARGE_ASTAR_RTOL
+          and rec["astar_rel_err"] <= 2 * rec["plain_f32_astar_rel_err"] + K3_LARGE_ASTAR_SLACK
+          and rec["u_rel_err_own_f64"] < K3_LARGE_U_RTOL)
+    return rec, counts, ok
+
+
+def phase_k3_large(device, beam_n=(20, 6, 6), cube_n: int = 6, square_macro: int = 32,
+                   square_micro: int = 16, grad_n=(10, 3, 3), sampled: int = 256,
+                   engine_cubes=(5, 6, 8), engine_squares=(13, 16), engine_cells: int = 8):
+    """K3's large instance on the main path, float32, dedup off: (a) the
+    rotated-fibre beam of examples/linear_elasticity/rotated_fibers.py at
+    its full 20x6x6 macro with a 6³ micro cube in place of its 4³ (n = 648,
+    s = 6, 4320 cells); (b) LinearElasticityHMM in 2D on a 32² macro with a
+    16² micro square (n = 512, s = 3, 2048 cells; docs/usage.md's large
+    micro cell), the inclusion coefficient, clamped at x₀ = 0.  Each: K3's
+    large launches equal the micro stage's chunks and no chunk takes the
+    small instance or the plain route; A* of ``sampled`` cells within 1e-4
+    of a float64 engine on the card and within 2x the plain float32
+    route's distance + 1e-6; u within 1e-6 of the float64 solve of its own
+    system.  (c) MicroEngine with default arguments (the card, float32,
+    the chunk Cholesky) on the 5³, 6³ and 8³ cubes and the 13² and 16²
+    squares: ``engine_cells`` fresh cells each in one large launch, A*
+    within 1e-4 of the float64 plain route.  (d) build_pipeline's dJ/dθ
+    on the quick 10x3x3 beam with the 6³ cell (the adjoint through the
+    large instance) within 1e-3 of the CPU's float64 gradient."""
+    import numpy as np
+    import torch
+
+    from hommx_tpu_torch import (LinearElasticityHMM, MicroEngine, create_unit_cube,
+                                 create_unit_square, dirichletbc)
+    from hommx_tpu_torch.ops import chol_kernel
+    from hommx_tpu_torch.ops.function_space import boundary_dofs
+    from hommx_tpu_torch.utils.validation import hooke_tensor
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(18)
+    main = {"chol_solve": 0, "chol_solve_large": 0}
+    failed = []
+
+    def add(counts):
+        for key in main:
+            main[key] += counts[key]
+
+    # (a) the beam with 6³ cells
+    t0 = time.perf_counter()
+    hmm = make_beam(device, macro_n=beam_n, micro_n=cube_n)
+    rec, counts, ok = _k3_large_run("k3_large_beam", hmm, time.perf_counter() - t0, sampled,
+                                    rng)
+    add(counts)
+    if not ok:
+        failed.append(rec["phase"])
+    del hmm
+    torch.cuda.empty_cache()
+
+    # (b) 2D elasticity with 16² cells
+    t0 = time.perf_counter()
+    macro = create_unit_square(square_macro, square_macro)
+    f = torch.tensor([0.0, -0.01], dtype=torch.float64)
+    hmm = LinearElasticityHMM(macro, hooke_tensor(2, inclusion_mu, lambda x, y: 1.0),
+                              lambda x: f, create_unit_square(square_micro, square_micro), 2**-4,
+                              dtype=torch.float32, device=device, dedup_cells=False)
+    V = hmm.function_space
+    hmm.set_boundary_conditions(
+        dirichletbc(np.zeros(2), boundary_dofs(V, lambda x: np.isclose(x[0], 0)), V))
+    rec, counts, ok = _k3_large_run("k3_large_square", hmm, time.perf_counter() - t0, sampled,
+                                    rng)
+    add(counts)
+    if not ok:
+        failed.append(rec["phase"])
+    del hmm
+    torch.cuda.empty_cache()
+
+    # (c) the engines with default arguments on every cell the small
+    # instance cannot hold, a few fresh cells each
+    small, large = "hommx_chol_solve_f32", "hommx_chol_solve_large_f32"
+    rows = []
+    for mesh, coeff, G_fn in [(create_unit_cube(k), beam_coeff(True), beam_rotation)
+                              for k in engine_cubes] + \
+            [(create_unit_square(k, k), hooke_tensor(2, inclusion_mu, lambda x, y: 1.0), None)
+             for k in engine_squares]:
+        e = MicroEngine(mesh, bs=mesh.dim, coeff_kind="tensor4")
+        c = torch.as_tensor(rng.uniform(0, 1, (engine_cells, mesh.dim)), dtype=e.dtype,
+                            device=e.device)
+        before = dict(chol_kernel.KERNEL.counts)
+        with torch.no_grad():
+            A = e.tensors_for_centers(coeff, c, G_fn=G_fn)
+        torch.cuda.synchronize()
+        A64 = _f64_astar(mesh, coeff, c, G_fn, bs=mesh.dim, coeff_kind="tensor4")
+        rows.append({"dim": mesh.dim, "n": e.n_reduced, "s": e.s, "dtype": str(e.dtype),
+                     "device": str(e.device), "solver": e.solver,
+                     "k3_launches": chol_kernel.KERNEL.counts[small] - before[small],
+                     "k3_large_launches": chol_kernel.KERNEL.counts[large] - before[large],
+                     "astar_rel_err": rel_diff(A, A64), "finite": bool(torch.isfinite(A).all())})
+        main["chol_solve_large"] += rows[-1]["k3_large_launches"]
+        main["chol_solve"] += rows[-1]["k3_launches"]
+    emit({"phase": "k3_large_engines", "cells": engine_cells, "rows": rows,
+          "bar": K3_LARGE_ASTAR_RTOL})
+    if not all(r["finite"] and r["dtype"] == "torch.float32" and r["solver"] == "cholesky"
+               and r["k3_large_launches"] == 1 and r["k3_launches"] == 0
+               and r["astar_rel_err"] < K3_LARGE_ASTAR_RTOL for r in rows):
+        failed.append("k3_large_engines")
+
+    # (d) the gradient through the large instance
+    card = _beam_grad(device, torch.float32, grad_n, micro_n=cube_n)
+    cpu = _beam_grad("cpu", torch.float64, grad_n, micro_n=cube_n)
+    rec = {"phase": "k3_large_grad", "macro_n": list(grad_n), "micro_n": cube_n, "card": card,
+           "cpu_f64": cpu, "rel_err": _rel(card["derivative"], cpu["derivative"]),
+           "bar": BEAM_GRAD_RTOL}
+    emit(rec)
+    fwd, bwd = card.get("forward_launches", {}), card.get("backward_launches", {})
+    for key in main:
+        main[key] += fwd.get(key, 0) + bwd.get(key, 0)
+    if not (math.isfinite(card["derivative"]) and rec["rel_err"] <= BEAM_GRAD_RTOL
+            and bwd.get("chol_solve_large", 0) >= 1 and fwd.get("chol_solve_large", 0) >= 1
+            and fwd.get("chol_solve", 0) == 0):
+        failed.append("k3_large_grad")
+    emit({"phase": "k3_large_summary", "seconds": time.perf_counter() - t_phase,
+          "failed": failed, **main})
+    if failed:
+        raise AssertionError(f"K3's large instance failed its checks: {failed}")
+    return main
+
+
 #: the phases of the periodic, FEM and per-cell slice, of differentiation,
 #: of the micro engine's other routes, of the FFT and P2 routes, of the
 #: unstructured macro path, of multi-device solves, of the native host
-#: runtime and the utilities, and of K1's large instance, in their order
+#: runtime and the utilities, and of K1's and K3's large instances, in
+#: their order
 NEW_PHASES = (phase_fem_flagship, phase_golden_periodic_fem, phase_periodic_identity,
               phase_elasticity_periodic, phase_chol_batched, phase_kc_gather,
               phase_pipeline_grad, phase_pipeline_grad_elasticity, phase_fem_grad,
               phase_micro_highres, phase_micro_routes, phase_micro_fft, phase_p2, phase_amg,
-              phase_sharded, phase_host_native, phase_utils, phase_k1_large)
+              phase_sharded, phase_host_native, phase_utils, phase_k1_large, phase_k3_large)
 
 
 def main(argv) -> int:
@@ -4036,6 +4367,11 @@ def main(argv) -> int:
          "replaces": "hommx_tpu/micro/stencil_pcg.py:81",
          "launches": launches["stencil_pcg_large"], **{k: K1_LARGE[k] for k in keys},
          "library_ms": None},
+        {"name": "chol_solve_large", "route": "cuda",
+         "source": "hommx_tpu_torch/ops/csrc/chol_solve.cu",
+         "replaces": "hommx_tpu/ops/chol_kernel.py:451",
+         "launches": launches["chol_solve_large"], **{k: K3_LARGE[k] for k in keys},
+         "library_ms": K3_LARGE["library_ms"]},
     ]
     print(smi, flush=True)
     emit({"kernels": kernels})

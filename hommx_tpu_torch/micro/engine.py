@@ -50,6 +50,7 @@ from hommx_tpu_torch.micro.krylov import _map_chunked
 from hommx_tpu_torch.micro.periodic import build_periodic_map, build_periodic_map_points
 from hommx_tpu_torch.micro.stencil import micro_matvec_mode, torus_coords
 from hommx_tpu_torch.micro.stencil_pcg import check_k1_fits
+from hommx_tpu_torch.ops.chol_kernel import chol_launch_config, check_k3_fits
 from hommx_tpu_torch.ops.assembly import gather_sum
 from hommx_tpu_torch.ops.function_space import FunctionSpace
 
@@ -227,14 +228,7 @@ class MicroEngine:
         # the kernels' size limits, checked before any device or coefficient work
         on_card_f32 = self.device.type == "cuda" and self.dtype == torch.float32
         if on_card_f32 and self._chol_route():
-            from hommx_tpu_torch.ops.chol_kernel import max_kernel_n
-
-            if self.n_reduced > max_kernel_n(self.s):
-                raise NotImplementedError(
-                    f"the Cholesky kernel K3 holds a cell in shared memory: n = "
-                    f"{self.n_reduced} exceeds its limit n <= {max_kernel_n(self.s)} "
-                    f"at s = {self.s} (ROADMAP B5)"
-                )
+            check_k3_fits(self.n_reduced, self.s)
         if on_card_f32 and self._k1_route():
             check_k1_fits(self.n_reduced, self.s)
         from hommx_tpu_torch.micro.percell import build_operators
@@ -536,14 +530,11 @@ class MicroEngine:
         centers = torch.as_tensor(centers, device=self.device).to(self.dtype)
         nc = centers.shape[0]
         chunk = chunk or self._auto_chunk(nc)
-        itemsize = torch.empty((), dtype=self.dtype).element_size()
         if self._chol_route():
             if (
                 not with_correctors
                 and os.environ.get("HOMMX_CHOL_SOLVE_BATCH", "0") == "1"
-                # the resident operators and the solve's panels, 2·nc·n²
-                # values: past 6 GB the in-chunk route takes the batch
-                and 2 * nc * self.n_reduced**2 * itemsize <= (6 << 30)
+                and self._chol_batch_fits(nc)
             ):
                 return tensors_chol_batched(self, coeff, centers, G_fn, chunk, implicit_diff)
             route = tensors_chunk_chol
@@ -616,13 +607,33 @@ class MicroEngine:
 
         return _get_mg_levels(self, offsets, shape)
 
+    def _k3_workspace_bytes(self) -> int:
+        """Global workspace a cell of K3's large instance takes (its packed
+        lower tiles and right-hand sides), where this engine's solves run
+        it (a float32 CUDA engine on the Cholesky route above the small
+        instance's reach); else 0."""
+        if not (self.device.type == "cuda" and self.dtype == torch.float32
+                and self._chol_route()):
+            return 0
+        return chol_launch_config(self.n_reduced, self.s).workspace_bytes
+
+    def _chol_batch_fits(self, nc: int) -> bool:
+        """Whether ``HOMMX_CHOL_SOLVE_BATCH=1`` may solve ``nc`` cells in one
+        batch: the resident operators and the solve's panels, 2·nc·n²
+        values, and the workspace of K3's large instance, within 6 GB (past
+        it the in-chunk route takes the batch)."""
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        per_cell = 2 * self.n_reduced**2 * itemsize + self._k3_workspace_bytes()
+        return nc * per_cell <= (6 << 30)
+
     def _auto_chunk(self, nc: int) -> int:
         """Chunk size by the reference's rules: per-cell work arrays under
         a memory budget, equal chunks.  The chunk routes keep 1 GB and a cap
         of 2048 (the lockstep PCG iterates until a chunk's worst cell
         converges), the chunk Cholesky 4 GB and 4096, and count the dense
         per-cell operators where they hold them; the per-cell route counts
-        its dense K and the dense-D intermediate.  The reference doubles the
+        its dense K and the dense-D intermediate.  Where K3's large instance
+        runs, its per-cell workspace counts too.  The reference doubles the
         itemsize of float64 for the TPU's emulated float64; native float64
         here takes its real size."""
         itemsize = torch.empty((), dtype=self.dtype).element_size()
@@ -632,6 +643,8 @@ class MicroEngine:
             per_cell = (16 * self.nE * self.r * self.s + 10 * n * self.s) * itemsize
             if (self.pcg_strategy == "densek" or chol) and self.coeff_kind != "scalar":
                 per_cell += ((4 if chol else 2) * n * n + self.nE * self.nbl * self.nbl) * itemsize
+            if chol:
+                per_cell += self._k3_workspace_bytes()
             budget, cap = ((4 << 30), 4096) if chol else ((1 << 30), 2048)
             limit = int(np.clip(budget // max(per_cell, 1), 1, min(nc, cap)))
             if nc > limit:

@@ -11,9 +11,13 @@ batch-major, Fs and X (n, s, C) cell-minor.
 
 Dispatch is by device alone: a CUDA float32 tensor goes to the kernel, a
 CPU tensor to :func:`fused_chol_solve_plain`; anything else raises.  The
-kernel keeps a cell's lower 32 × 32 tiles in shared memory; its launch
-configuration comes from :func:`chol_launch_config`, which bounds n
-(:func:`max_kernel_n`; 288 at s ≤ 8).  The kernel has no backward of its
+source has two instances, and :func:`chol_launch_config` names the one that
+runs.  The small one keeps a cell's lower 32 × 32 tiles in shared memory and
+takes n up to :func:`max_small_n` (288 at s ≤ 8).  The large one takes every
+n above that: the tiles live in a per-cell global workspace that the
+wrapper allocates (``K3Config.workspace_bytes`` a cell), and a cell of a chunk
+smaller than the card is a cluster of CTAs; its only limit is memory.  The
+kernel refuses only s outside 1..8.  The kernel has no backward of its
 own: the Cholesky route (micro/chunk.py) wraps it in the implicit-function
 rule, as the reference wraps it in ``lax.custom_linear_solve``, so the
 adjoint is one more launch on the adjoint right-hand sides.
@@ -40,8 +44,10 @@ __all__ = [
     "chol_launch_config",
     "K3Config",
     "blocks_per_sm",
+    "check_k3_fits",
     "kernel_smem_bytes",
-    "max_kernel_n",
+    "large_occupancy",
+    "max_small_n",
     "KERNEL",
 ]
 
@@ -57,6 +63,11 @@ SMEM_LIMIT = 232_448
 SM_SMEM = 233_472
 BLOCK_RESERVED = 1024
 MAX_BLOCKS_PER_SM = 2  # __launch_bounds__(256, 2)
+# the large instance: a staging region of 24 tiles, Dinv_p and one diagonal
+# tile in shared memory at every n; at most 8 CTAs a cell
+LARGE_SMEM = 4 * (24 + 2) * NB * NB
+MAX_CLUSTER = 8
+SMS = 132  # streaming multiprocessors of the H100 SXM, for the cluster size
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
@@ -64,8 +75,16 @@ KERNEL = CudaKernel(
     {
         # K, F, X, C, n, s, eps, threads, P, tile_stride, smem, stream
         "hommx_chol_solve_f32": [_vp, _vp, _vp, _i, _i, _i, ctypes.c_float, _i, _i, _i, _i, _vp],
+        # K, F, X, W, V, C, n, s, eps, threads, P, CS, smem, stream
+        "hommx_chol_solve_large_f32": [
+            _vp, _vp, _vp, _vp, _vp, _i, _i, _i, ctypes.c_float, _i, _i, _i, _i, _vp,
+        ],
         # smem, out: resident blocks per SM (not a launch)
         "hommx_chol_blocks_per_sm": [_i, ctypes.POINTER(ctypes.c_int)],
+        # CS, smem, out, out: the large instance's CTAs an SM and clusters
+        # resident at once (not a launch)
+        "hommx_chol_large_occupancy": [_i, _i, ctypes.POINTER(ctypes.c_int),
+                                       ctypes.POINTER(ctypes.c_int)],
     },
 )
 
@@ -74,18 +93,28 @@ KERNEL = CudaKernel(
 class K3Config:
     """The kernel's launch configuration for one (n, s).
 
-    threads: per block (one block per cell); panels (P): ⌈n/32⌉, the padded
-    operator's 32-wide panels; tile_stride: floats between consecutive
-    columns of a stored 32 × 32 tile; smem_bytes: dynamic shared memory
-    (:func:`kernel_smem_bytes`);
-    blocks_per_sm: cells resident on one SM by shared memory and the
-    kernel's launch bounds."""
+    threads: per block; panels (P): ⌈n/32⌉, the padded operator's 32-wide
+    panels; tile_stride: floats between consecutive columns of a stored
+    32 × 32 tile; smem_bytes: dynamic shared memory a block
+    (:func:`kernel_smem_bytes` for the small instance, ``LARGE_SMEM`` for
+    the large one); blocks_per_sm: blocks resident on one SM by shared
+    memory and the kernel's launch bounds.  The small instance runs one
+    block a cell (``cluster`` 0).  The large one runs a cluster of
+    ``cluster`` CTAs a cell, with ``workspace_bytes`` of global workspace
+    a cell (the packed tiles and two (32·P, s) arrays:
+    :func:`kernel_smem_bytes`)."""
 
     threads: int
     panels: int
     tile_stride: int
     smem_bytes: int
     blocks_per_sm: int
+    cluster: int = 0
+    workspace_bytes: int = 0
+
+    @property
+    def large(self) -> bool:
+        return self.cluster > 0
 
 
 def kernel_smem_bytes(n: int, s: int) -> int:
@@ -97,42 +126,83 @@ def kernel_smem_bytes(n: int, s: int) -> int:
     return 4 * (P * (P + 1) // 2 * NB * NB + 2 * P * NB * s)
 
 
-@functools.lru_cache(maxsize=64)
-def chol_launch_config(n: int, s: int) -> K3Config:
+def _cluster(cells: int) -> int:
+    """CTAs a cell of the large instance: the fewest of 1, 2, 4, 8 that
+    give every SM a CTA for a chunk of ``cells`` (0: a chunk that fills
+    the card)."""
+    for cs in (1, 2, 4):
+        if not cells or cells * cs >= SMS:
+            return cs
+    return MAX_CLUSTER
+
+
+@functools.lru_cache(maxsize=256)
+def chol_launch_config(n: int, s: int, cells: int = 0) -> K3Config:
     """The kernel's launch configuration for n unknowns and s right-hand
-    sides per cell.  Raises ValueError, naming the limit, where the cell
-    does not fit one block's shared memory or s is out of range."""
+    sides per cell, in a chunk of ``cells`` cells (0: one that fills the
+    card; only the large instance's cluster depends on it).  The small
+    instance where a cell fits one block's shared memory (n up to
+    :func:`max_small_n`), the large one everywhere else.  Raises
+    ValueError where s is out of range."""
     if not 1 <= s <= MAX_RHS:
         raise ValueError(f"Cholesky kernel: s = {s} right-hand sides, the kernel takes 1 to {MAX_RHS}")
     if n < 1:
         raise ValueError(f"Cholesky kernel: n = {n}")
+    P = -(-n // NB)
     smem = kernel_smem_bytes(n, s)
-    if smem > SMEM_LIMIT or -(-n // NB) > MAX_PANELS:
-        raise ValueError(
-            f"Cholesky kernel: n = {n} exceeds its shared-memory limit n <= "
-            f"{max_kernel_n(s)} at s = {s} ({SMEM_LIMIT} bytes a block: the lower "
-            f"32 x 32 tiles of the padded operator and two (n_pad, s) arrays)"
-        )
-    blocks = min(MAX_BLOCKS_PER_SM, SM_SMEM // (smem + BLOCK_RESERVED))
-    return K3Config(THREADS, -(-n // NB), NB, smem, blocks)
+    if smem <= SMEM_LIMIT and P <= MAX_PANELS:
+        blocks = min(MAX_BLOCKS_PER_SM, SM_SMEM // (smem + BLOCK_RESERVED))
+        return K3Config(THREADS, P, NB, smem, blocks)
+    # the large instance's global workspace a cell holds what the small
+    # one's shared memory would: the packed tiles and two (32·P, s) arrays
+    blocks = min(MAX_BLOCKS_PER_SM, SM_SMEM // (LARGE_SMEM + BLOCK_RESERVED))
+    return K3Config(THREADS, P, NB, LARGE_SMEM, blocks, _cluster(cells), smem)
 
 
-def max_kernel_n(s: int) -> int:
-    """The largest n the kernel takes for s right-hand sides."""
+def max_small_n(s: int) -> int:
+    """The largest n the small instance takes for s right-hand sides."""
     n = NB * MAX_PANELS
     while kernel_smem_bytes(n, s) > SMEM_LIMIT:
         n -= 1
     return n
 
 
+def check_k3_fits(n: int, s: int) -> K3Config:
+    """K3's launch configuration for n unknowns and s right-hand sides, or
+    NotImplementedError where the kernel has none (s outside 1..8).  Host
+    data only: the engine calls this when it is built, before any device
+    or coefficient work."""
+    try:
+        return chol_launch_config(n, s)
+    except ValueError as err:
+        raise NotImplementedError(
+            f"the Cholesky kernel K3 takes 1 to {MAX_RHS} right-hand sides a cell and has "
+            f"no launch configuration for this cell: {err}"
+        ) from None
+
+
 def blocks_per_sm(cfg: K3Config) -> int:
     """Resident blocks of the kernel per SM at ``cfg``, as the CUDA runtime's
     occupancy query reports them on the current device (builds the kernel)."""
+    if cfg.large:
+        return large_occupancy(cfg)[0]
     out = ctypes.c_int(0)
     rc = KERNEL.library().hommx_chol_blocks_per_sm(cfg.smem_bytes, ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"chol_solve.cu: occupancy query failed with cudaError_t {rc}")
     return out.value
+
+
+def large_occupancy(cfg: K3Config) -> tuple:
+    """(CTAs resident on one SM, clusters of ``cfg.cluster`` CTAs resident
+    at once on the current device) of the large instance, by the CUDA
+    runtime's occupancy queries (builds the kernel)."""
+    blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    rc = KERNEL.library().hommx_chol_large_occupancy(
+        cfg.cluster, cfg.smem_bytes, ctypes.byref(blocks), ctypes.byref(clusters))
+    if rc != 0:
+        raise RuntimeError(f"chol_solve.cu: occupancy query failed with cudaError_t {rc}")
+    return blocks.value, clusters.value
 
 
 def fused_chol_solve_plain(Ks, Fs, eps: float = 1e-30, nb: int = 32):
@@ -150,8 +220,10 @@ def fused_chol_solve_plain(Ks, Fs, eps: float = 1e-30, nb: int = 32):
 
 
 def fused_chol_solve_cuda(Ks, Fs, eps: float = 1e-30):
-    """Launch the CUDA kernel: Ks (C, n, n) and Fs (n, s, C), float32 on
-    one CUDA device; returns X (n, s, C)."""
+    """Launch the CUDA kernel, the instance that
+    ``chol_launch_config(n, s, C)`` names (the large one with its
+    workspace from ``torch.empty``): Ks (C, n, n) and Fs (n, s, C), float32
+    on one CUDA device; returns X (n, s, C)."""
     C, n, n2 = Ks.shape
     s = Fs.shape[1]
     if not (Fs.is_cuda and Ks.device == Fs.device):
@@ -163,10 +235,21 @@ def fused_chol_solve_cuda(Ks, Fs, eps: float = 1e-30):
         )
     if n2 != n or Fs.shape != (n, s, C) or C < 1:
         raise ValueError(f"fused_chol_solve_cuda: bad shapes {tuple(Ks.shape)}, {tuple(Fs.shape)}")
-    cfg = chol_launch_config(n, s)
+    cfg = chol_launch_config(n, s, C)
     Kc = Ks.contiguous()
     Fc = Fs.contiguous()
     X = torch.empty((n, s, C), dtype=torch.float32, device=Fs.device)
+    if cfg.large:
+        # the packed tiles, then the right-hand sides and first solutions
+        P = cfg.panels
+        W = torch.empty(C * P * (P + 1) // 2 * NB * NB, dtype=torch.float32, device=Fs.device)
+        V = torch.empty(C * 2 * P * NB * s, dtype=torch.float32, device=Fs.device)
+        KERNEL.launch(
+            "hommx_chol_solve_large_f32", Fs.device.index,
+            Kc.data_ptr(), Fc.data_ptr(), X.data_ptr(), W.data_ptr(), V.data_ptr(),
+            C, n, s, float(eps), cfg.threads, P, cfg.cluster, cfg.smem_bytes,
+        )
+        return X
     KERNEL.launch(
         "hommx_chol_solve_f32", Fs.device.index,
         Kc.data_ptr(), Fc.data_ptr(), X.data_ptr(), C, n, s, float(eps),

@@ -31,7 +31,8 @@
 //   s = 6, so two 256-thread blocks (two cells) stay resident on one SM and
 //   one cell's loads, barriers and latency-bound diagonal steps overlap the
 //   other's panel products (__launch_bounds__(256, 2): at most 128
-//   registers a thread).  The largest n is 288 (9 panels, 45 tiles).
+//   registers a thread).  Its largest n is 288 (9 panels, 45 tiles); the
+//   large instance below takes every larger n.
 // - Each tile is stored column-major with stride 32 (element (r, c) at
 //   c * 32 + r).  Ks is symmetric, so tile (I, J) of the lower triangle is
 //   loaded from the rows J*32.. of the row-major Ks: every tile column is a
@@ -69,6 +70,44 @@
 // substitutions, the residual's loads) with few warps busy; the second
 // resident cell fills some of that time.  The products themselves are a
 // small share.
+//
+// The large instance (chol_solve_large_kernel, hommx_chol_solve_large_f32)
+// takes every n the small one cannot hold (n > 288 at s <= 8: the 5^3-8^3
+// cubes, the 13^2-16^2 squares and up), with the same algorithm, layouts
+// and helpers.  A cell's packed lower tiles do not fit on chip (338 KB at
+// n = 375, 4.7 MB at n = 1536), so they live in a per-cell global workspace
+// that the wrapper allocates; the right-hand sides and the first solution
+// live beside them.  Per panel p:
+// - every CTA of the cell loads Dinv_p (tile (p, p) of the workspace);
+// - the panel tiles L_ip = A_ip Dinv_p^T are split over the cell's workers
+//   (warps of all its CTAs), computed in shared memory and written back;
+// - the trailing update A_ij -= L_ip L_jp^T streams each tile through
+//   registers (read, subtract, write: the workspace is read-modify-written
+//   through L2), with L_ip and L_jp staged in shared memory: the whole
+//   column when its m = P-1-p tiles fit the 24-tile region, else in parts,
+//   a J window of 16 tiles against I windows of 8 below it.  Worker 0
+//   (warp 0 of rank 0) takes tile (p+1, p+1) alone, factors it at once and
+//   stores Dinv_{p+1}, as warp 0 does in the small instance.
+// Panel 0 reads its tiles straight from Ks (the upper triangle, with the
+// identity padding written on load), so Ks is copied into the workspace by
+// its first trailing update, not by a pass of its own.
+// Where a chunk has fewer cells than the card has SMs, a cell is a cluster
+// of CS CTAs (1, 2, 4 or 8) that split the panel tiles and the trailing
+// update; two cluster barriers a panel order the workspace (every read of it
+// goes through L2: cp.async.cg, ld.global.cg).  No mbarrier is waited on.
+// Rank 0 then runs the substitutions (the small instance's warp products on
+// tiles staged from the workspace, 16 at a time: forward right-looking,
+// backward left-looking, both down one contiguous tile column per panel)
+// and the refinement residual against the full Ks, and writes X.
+// Shared memory is 26 tiles (106,496 B) at every n, so two CTAs share an
+// SM.  What bounds it: the factor's n^3/3 FLOP at the FP32 rate and the
+// workspace's ~P^3/6 tile read-modify-writes (8 KB each; 151 MB a cell at
+// n = 1536), which at chunk sizes spill L2 to HBM.  Where the time goes
+// (tools/k3_probe.py --large, H100): on the 6^3 beam's 309-cell chunk the
+// trailing update takes ~60% of a CTA's cycles, the substitutions ~19% and
+// the residual ~10%; for one 8^3 cell on 8 CTAs, rank 0's substitutions and
+// residual take ~42% of its cycles while the other ranks have finished.
+// More CTAs a cell than the fewest that give every SM one ran slower.
 
 #include <cuda_runtime.h>
 
@@ -84,11 +123,25 @@ constexpr int kMaxRhs = 8;        // at most kWarps: one warp per right-hand sid
 constexpr int kMaxPanels = 9;     // n <= 288
 constexpr unsigned FULL = 0xffffffffu;
 
+// The large instance: a staging region of kStage tiles, split into a J
+// window of kStage - kWinB tiles and I windows of kWinB where a panel's
+// column does not fit it whole; kSolveTiles tiles at a time in the
+// substitutions; at most kMaxCluster CTAs a cell.
+constexpr int kStage = 24;
+constexpr int kWinB = 8;
+constexpr int kSolveTiles = 16;
+constexpr int kLargeTiles = kStage + 2;  // + Dinv_p and worker 0's diagonal tile
+constexpr int kMaxCluster = 8;
+
 // Phase marks.  They expand to nothing here; tools/k3_probe.py builds a copy
 // with K3_PROBE defined, in which thread 0 of every block adds up clock64
 // cycles per phase (0 loads, 1 the first diagonal tile, 2 panels, 3
 // trailing updates with the next diagonal tile, 4 substitutions, 5
-// refinement matvec, 6 output).
+// refinement matvec, 6 output).  In the large instance (one record per
+// CTA): 0 the first diagonal tile, 1 loading Dinv_p, 2 panel tiles and
+// their cluster barrier, 3 trailing products, read-modify-writes and their
+// cluster barrier, 4 substitutions (rank 0), 5 refinement residual, 6
+// output, 7 staging the trailing update's windows.
 #ifdef K3_PROBE
 __device__ long long g_k3_cycles[K3_PROBE_CELLS * 8];
 #define K3_MARK_START long long k3_t = clock64(), k3_c[8] = {0, 0, 0, 0, 0, 0, 0, 0};
@@ -476,6 +529,372 @@ chol_solve_f32_kernel(const float* __restrict__ K, const float* __restrict__ F,
   K3_MARK_END
 }
 
+// ---- the large instance ---------------------------------------------------
+
+__device__ __forceinline__ float4 ldcg4(const float* p) {
+  return __ldcg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster; orders memory cluster-wide
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// Rows gi .. gi+7 of the padded operator's column gj, from K[gj][gi ..]
+// (symmetric Ks, row-major): what load_chunk loads, into registers.
+__device__ __forceinline__ void load8(float (&v)[8], const float* Kc, int n, int gi, int gj,
+                                      bool vec) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int g0 = gi + 4 * h;
+    if (vec && gj < n && g0 < n) {  // n % 4 == 0: the four are inside or outside whole
+      const float4 x = __ldg(reinterpret_cast<const float4*>(Kc + (size_t)gj * n + g0));
+      v[4 * h] = x.x;
+      v[4 * h + 1] = x.y;
+      v[4 * h + 2] = x.z;
+      v[4 * h + 3] = x.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int g = g0 + e;
+        v[4 * h + e] = gj < n && g < n ? __ldg(Kc + (size_t)gj * n + g) : (g == gj ? 1.f : 0.f);
+      }
+    }
+  }
+}
+
+// One warp: tile (I, J) of the padded operator into dst (column-major) by
+// cp.async, from Ks (from_k: panel 0, before any update) or from the
+// workspace tile Wt; the caller commits and waits.
+__device__ __forceinline__ void warp_fetch_tile(float* dst, const float* Kc, const float* Wt,
+                                                int n, int I, int J, bool from_k, bool vec,
+                                                int lane) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int t = lane + 32 * e, lc = t >> 3, lr = (t & 7) * 4;  // 4 t = lc * NB + lr
+    if (from_k)
+      load_chunk(dst + 4 * t, Kc, n, I * NB + lr, J * NB + lc, vec);
+    else
+      cp_async16(dst + 4 * t, Wt + 4 * t);
+  }
+}
+
+__device__ __forceinline__ void warp_store_tile(float* dst, const float* src, int lane) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) st4(dst + 4 * (lane + 32 * e), ld4(src + 4 * (lane + 32 * e)));
+}
+
+// The block: tiles (a .. b-1, p), contiguous in the workspace's tile column
+// p, into dst by cp.async (committed; the caller waits).
+__device__ __forceinline__ void stage_tiles(float* dst, const float* Wc, int P, int p, int a,
+                                            int b, int tid) {
+  const float* src = Wc + (size_t)tile_index(a, p, P) * TILE;
+  for (int t = tid; t < (b - a) * (TILE / 4); t += kThreads) cp_async16(dst + 4 * t, src + 4 * t);
+  cp_async_commit();
+}
+
+// One warp, tile (I, J) of the trailing update: A_IJ - Li Lj^T, with A_IJ
+// read from Ks (from_k) or the workspace tile Wt and the result written to
+// dst, the workspace tile (global) or, for the diagonal tile that worker 0
+// factors next, shared memory; A's loads are issued before the product.
+__device__ void update_tile_ws(float* dst, const float* Li, const float* Lj, const float* Kc,
+                               const float* Wt, int n, int I, int J, bool from_k, bool vec,
+                               int lane) {
+  int r0, c0;
+  lane_block(lane, r0, c0);
+  float old[4][8];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (from_k) {
+      load8(old[c], Kc, n, I * NB + r0, J * NB + c0 + c, vec);
+    } else {
+      const float* col = Wt + (c0 + c) * NB + r0;
+      const float4 x0 = ldcg4(col), x1 = ldcg4(col + 4);
+      old[c][0] = x0.x, old[c][1] = x0.y, old[c][2] = x0.z, old[c][3] = x0.w;
+      old[c][4] = x1.x, old[c][5] = x1.y, old[c][6] = x1.z, old[c][7] = x1.w;
+    }
+  }
+  float acc[8][4];
+  tile_product(acc, Li, Lj, r0, c0);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    float* col = dst + (c0 + c) * NB + r0;
+    st4(col, make_float4(old[c][0] - acc[0][c], old[c][1] - acc[1][c], old[c][2] - acc[2][c],
+                         old[c][3] - acc[3][c]));
+    st4(col + 4, make_float4(old[c][4] - acc[4][c], old[c][5] - acc[5][c],
+                             old[c][6] - acc[6][c], old[c][7] - acc[7][c]));
+  }
+}
+
+// L L^T X = B in place on Bv ((npad, s) by columns q * npad, global), from
+// the factored workspace; the block, with R (kStage tiles) and D (one tile)
+// of shared memory.  Forward right-looking: y_p = Dinv_p b_p, then
+// b_i -= L_ip y_p for i > p; backward left-looking: x_p = Dinv_p^T (b_p -
+// sum_{i > p} L_ip^T x_i).  Both walk tile column p, kSolveTiles tiles at a
+// time, one warp a tile for all s right-hand sides.
+__device__ void cho_solve_ws(const float* Wc, float* Bv, float* R, float* D, int P, int npad,
+                             int s, int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  float* const xseg = R + kSolveTiles * TILE;   // kSolveTiles x kMaxRhs x 32
+  float* const part = xseg + kSolveTiles * kMaxRhs * NB;  // kWarps x kMaxRhs x 32
+  float* const yin = part + kWarps * kMaxRhs * NB;         // kMaxRhs x 32
+  float* const yout = yin + kMaxRhs * NB;                  // kMaxRhs x 32
+  for (int p = 0; p < P; ++p) {
+    stage_tiles(D, Wc, P, p, p, p + 1, tid);
+    if (tid < s * NB) yin[tid] = Bv[(tid >> 5) * npad + p * NB + (tid & 31)];
+    cp_async_wait<0>();
+    __syncthreads();
+    if (warp < s) {
+      const float y = dot32<false>(D + lane, yin + warp * NB, lane);
+      yout[warp * NB + lane] = y;
+      Bv[warp * npad + p * NB + lane] = y;
+    }
+    for (int a = p + 1; a < P; a += kSolveTiles) {
+      const int b = min(a + kSolveTiles, P);
+      stage_tiles(R, Wc, P, p, a, b, tid);
+      cp_async_wait<0>();
+      __syncthreads();  // also: yout is written
+      for (int i = a + warp; i < b; i += kWarps) {
+        const float* const T = R + (i - a) * TILE + lane;
+        for (int q = 0; q < s; ++q)
+          Bv[q * npad + i * NB + lane] -= dot32<false>(T, yout + q * NB, lane);
+      }
+      __syncthreads();
+    }
+    __syncthreads();
+  }
+  for (int p = P - 1; p >= 0; --p) {
+    float acc[kMaxRhs];
+#pragma unroll
+    for (int q = 0; q < kMaxRhs; ++q) acc[q] = 0.f;
+    stage_tiles(D, Wc, P, p, p, p + 1, tid);
+    for (int a = p + 1; a < P; a += kSolveTiles) {
+      const int b = min(a + kSolveTiles, P);
+      stage_tiles(R, Wc, P, p, a, b, tid);
+      for (int t = tid; t < (b - a) * s * NB; t += kThreads) {
+        const int k = t / (s * NB), q = (t / NB) % s, r = t & 31;
+        xseg[(k * kMaxRhs + q) * NB + r] = Bv[q * npad + (a + k) * NB + r];
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+      for (int i = a + warp; i < b; i += kWarps) {
+        const float* const T = R + (i - a) * TILE + lane * NB;
+#pragma unroll
+        for (int q = 0; q < kMaxRhs; ++q)
+          if (q < s) acc[q] += dot32<true>(T, xseg + ((i - a) * kMaxRhs + q) * NB, lane);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int q = 0; q < kMaxRhs; ++q)
+      if (q < s) part[(warp * kMaxRhs + q) * NB + lane] = acc[q];
+    if (tid < s * NB) yin[tid] = Bv[(tid >> 5) * npad + p * NB + (tid & 31)];
+    cp_async_wait<0>();
+    __syncthreads();
+    if (warp < s) {
+      float r = yin[warp * NB + lane];
+      for (int w = 0; w < kWarps; ++w) r -= part[(w * kMaxRhs + warp) * NB + lane];
+      yout[warp * NB + lane] = r;
+      __syncwarp();
+      Bv[warp * npad + p * NB + lane] = dot32<true>(D + lane * NB, yout + warp * NB, lane);
+    }
+    __syncthreads();
+  }
+}
+
+// The refinement's right-hand side Bv = F - Ks Xv over the full Ks (rows
+// i < n; padded rows get zero), one warp per kRows rows, the lanes across
+// the columns, Xv read from global memory (written by this block).
+__device__ void residual_ws(const float* __restrict__ Kc, const float* __restrict__ F,
+                            const float* Xv, float* Bv, int C, int c, int n, int npad, int s,
+                            int tid) {
+  constexpr int kRows = 4;
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int i0 = warp * kRows; i0 < npad; i0 += kWarps * kRows) {
+    float acc[kRows][kMaxRhs];
+#pragma unroll
+    for (int h = 0; h < kRows; ++h)
+#pragma unroll
+      for (int q = 0; q < kMaxRhs; ++q) acc[h][q] = 0.f;
+#pragma unroll 2
+    for (int j = lane; j < n; j += 32) {
+      float kv[kRows];
+#pragma unroll
+      for (int h = 0; h < kRows; ++h)
+        kv[h] = i0 + h < n ? __ldg(Kc + (size_t)(i0 + h) * n + j) : 0.f;
+#pragma unroll
+      for (int q = 0; q < kMaxRhs; ++q) {
+        if (q < s) {
+          const float x = Xv[q * npad + j];
+#pragma unroll
+          for (int h = 0; h < kRows; ++h) acc[h][q] += kv[h] * x;
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < kRows; ++h) {
+      const int i = i0 + h;
+      const float mine = warp_sum8(acc[h], lane);  // (K Xv)(i, lane) for lane < s
+      if (lane < s) Bv[lane * npad + i] = (i < n ? F[((size_t)i * s + lane) * C + c] : 0.f) - mine;
+    }
+  }
+}
+
+// One cell per cluster of CS CTAs (grid C * CS).  W: the cells' packed
+// lower tiles (C x P(P+1)/2 x TILE floats); V: per cell the right-hand
+// sides Bv and the first solution Xv ((npad, s) each, by columns).
+__global__ void __launch_bounds__(kThreads, 2)
+chol_solve_large_kernel(const float* __restrict__ K, const float* __restrict__ F,
+                        float* __restrict__ X, float* __restrict__ W, float* __restrict__ V,
+                        int C, int n, int s, int P, int CS, float eps, bool vec) {
+  extern __shared__ float4 smem4[];
+  float* const D = reinterpret_cast<float*>(smem4);  // Dinv_p
+  float* const E = D + TILE;                         // worker 0's diagonal tile
+  float* const R = E + TILE;                         // kStage tiles
+  const int npad = P * NB;
+  const int c = blockIdx.x / CS;
+  const int rank = (int)cluster_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int NW = CS * kWarps, gw = warp * CS + rank;  // workers of the cell; 0: rank 0, warp 0
+  const float* const Kc = K + (size_t)c * n * n;
+  float* const Wc = W + (size_t)c * (P * (P + 1) / 2) * TILE;
+  K3_MARK_START
+
+  // Dinv_0, in every CTA
+  {
+    const int lc = tid >> 3, lr = (tid & 7) * 4;
+    load_chunk(D + lc * NB + lr, Kc, n, lr, lc, vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (warp == 0) factor_diag(D, lane, eps);
+    __syncthreads();
+    if (rank == 0 && warp == 0) warp_store_tile(Wc, D, lane);
+  }
+  K3_MARK(0)
+
+  for (int p = 0; p + 1 < P; ++p) {
+    const bool from_k = p == 0;  // panel 0 reads Ks
+    if (p > 0) {
+      stage_tiles(D, Wc, P, p, p, p + 1, tid);
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    K3_MARK(1)
+    // panel tiles L_ip = A_ip Dinv_p^T, i > p, one worker each
+    for (int i = p + 1 + gw; i < P; i += NW) {
+      float* const S = R + warp * TILE;
+      float* const Wt = Wc + (size_t)tile_index(i, p, P) * TILE;
+      warp_fetch_tile(S, Kc, Wt, n, i, p, from_k, vec, lane);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncwarp();
+      panel_tile(S, D, lane);
+      __syncwarp();
+      warp_store_tile(Wt, S, lane);
+      __syncwarp();
+    }
+    cluster_sync();
+    K3_MARK(2)
+    // trailing update, p < j <= i < P, by windows of staged panel tiles
+    const int m = P - 1 - p;
+    const int wa = m <= kStage ? m : kStage - kWinB;
+    for (int ja = p + 1; ja < P; ja += wa) {
+      const int jb = min(ja + wa, P), w = jb - ja;
+      stage_tiles(R, Wc, P, p, ja, jb, tid);
+      cp_async_wait<0>();
+      __syncthreads();
+      K3_MARK(7)
+      const bool first = ja == p + 1;
+      int u0 = gw, du = NW;
+      if (first) {
+        if (gw == 0) {  // tile (p+1, p+1): update, factor, store Dinv_{p+1}
+          update_tile_ws(E, R, R, Kc, Wc + (size_t)tile_index(p + 1, p + 1, P) * TILE, n,
+                         p + 1, p + 1, from_k, vec, lane);
+          __syncwarp();
+          factor_diag(E, lane, eps);
+          __syncwarp();
+          warp_store_tile(Wc + (size_t)tile_index(p + 1, p + 1, P) * TILE, E, lane);
+          u0 = w * (w + 1) / 2;  // no more of this triangle
+        } else {
+          u0 = gw;
+          du = NW - 1;
+        }
+      }
+      for (int u = u0; u < w * (w + 1) / 2; u += du) {
+        int jj = 0, ii = u;
+        while (ii >= w - jj) {
+          ii -= w - jj;
+          ++jj;
+        }
+        const int i = ja + jj + ii, j = ja + jj;
+        float* const Wt = Wc + (size_t)tile_index(i, j, P) * TILE;
+        update_tile_ws(Wt, R + (i - ja) * TILE, R + (j - ja) * TILE, Kc, Wt, n, i, j, from_k,
+                       vec, lane);
+      }
+      K3_MARK(3)
+      float* const RB = R + wa * TILE;
+      int b = 0;
+      for (int ia = jb; ia < P; ia += kWinB, ++b) {
+        if (b % CS != rank) continue;  // uniform in the CTA
+        const int ib = min(ia + kWinB, P);
+        __syncthreads();  // RB is free
+        stage_tiles(RB, Wc, P, p, ia, ib, tid);
+        cp_async_wait<0>();
+        __syncthreads();
+        K3_MARK(7)
+        for (int u = warp; u < (ib - ia) * w; u += kWarps) {
+          const int i = ia + u / w, j = ja + u % w;
+          float* const Wt = Wc + (size_t)tile_index(i, j, P) * TILE;
+          update_tile_ws(Wt, RB + (i - ia) * TILE, R + (j - ja) * TILE, Kc, Wt, n, i, j, from_k,
+                         vec, lane);
+        }
+        K3_MARK(3)
+      }
+      __syncthreads();  // R is free
+    }
+    cluster_sync();
+    K3_MARK(3)
+  }
+  if (rank != 0) {
+    K3_MARK_END
+    return;
+  }
+
+  // ---- rank 0: solve, keep X, residual against the full Ks, solve again --
+  float* const Bv = V + (size_t)c * 2 * npad * s;
+  float* const Xv = Bv + (size_t)npad * s;
+  for (int t = tid; t < npad * s; t += kThreads) {
+    const int q = t / npad, i = t - q * npad;
+    Bv[t] = i < n ? F[((size_t)i * s + q) * C + c] : 0.f;
+  }
+  __syncthreads();
+  cho_solve_ws(Wc, Bv, R, D, P, npad, s, tid);
+  K3_MARK(4)
+  for (int t = tid; t < npad * s; t += kThreads) Xv[t] = Bv[t];
+  __syncthreads();
+  residual_ws(Kc, F, Xv, Bv, C, c, n, npad, s, tid);
+  __syncthreads();
+  K3_MARK(5)
+  cho_solve_ws(Wc, Bv, R, D, P, npad, s, tid);
+  K3_MARK(4)
+  for (int t = tid; t < n * s; t += kThreads) {
+    const int i = t / s, q = t - i * s;
+    X[(size_t)t * C + c] = Xv[q * npad + i] + Bv[q * npad + i];
+  }
+  K3_MARK(6)
+  K3_MARK_END
+}
+
 // Dynamic shared memory of one block: the packed lower tiles and two
 // (npad, s) right-hand-side arrays (ops/chol_kernel.py::chol_launch_config).
 long smem_bytes(int P, int s) {
@@ -489,6 +908,34 @@ cudaError_t set_attributes(int smem) {
   return cudaFuncSetAttribute(chol_solve_f32_kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// The large instance's shared memory, the same at every n: the staging
+// region, Dinv_p and worker 0's diagonal tile.
+long large_smem_bytes() { return 4L * kLargeTiles * TILE; }
+
+cudaError_t set_large_attributes(int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      chol_solve_large_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(chol_solve_large_kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+void large_launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int C, int CS,
+                         int smem, cudaStream_t stream) {
+  cfg = {};
+  cfg.gridDim = dim3(C * CS);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
 }
 
 }  // namespace
@@ -512,6 +959,47 @@ int hommx_chol_solve_f32(const float* K, const float* F, float* X, int C, int n,
   const bool vec = n % 4 == 0 && reinterpret_cast<std::uintptr_t>(K) % 16 == 0;
   chol_solve_f32_kernel<<<C, kThreads, smem, stream>>>(K, F, X, C, n, s, P, eps, vec);
   return (int)cudaGetLastError();
+}
+
+// The large instance: the configuration (threads, P, CS CTAs a cell, smem)
+// is the wrapper's chol_launch_config(n, s, C); W (C x P(P+1)/2 x 1024
+// floats) and V (C x 2 x 32P x s floats) are its workspaces, allocated by
+// the wrapper, 16-byte aligned.  A configuration this kernel does not run,
+// including a shared-memory count that differs from its own, is refused
+// with cudaErrorInvalidValue.
+int hommx_chol_solve_large_f32(const float* K, const float* F, float* X, float* W, float* V,
+                               int C, int n, int s, float eps, int threads, int P, int CS,
+                               int smem, cudaStream_t stream) {
+  const int bad = (int)cudaErrorInvalidValue;
+  if (C <= 0 || n <= 0 || s <= 0 || s > kMaxRhs || threads != kThreads ||
+      P != (n + NB - 1) / NB || CS < 1 || CS > kMaxCluster || (CS & (CS - 1)) != 0 ||
+      large_smem_bytes() != smem || reinterpret_cast<std::uintptr_t>(W) % 16 != 0 ||
+      reinterpret_cast<std::uintptr_t>(V) % 16 != 0)
+    return bad;
+  const cudaError_t err = set_large_attributes(smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec = n % 4 == 0 && reinterpret_cast<std::uintptr_t>(K) % 16 == 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  large_launch_config(cfg, attr, C, CS, smem, stream);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, chol_solve_large_kernel, K, F, X, W, V, C, n,
+                                           s, P, CS, eps, vec);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The large instance's occupancy: CTAs resident on one SM, and clusters of
+// CS CTAs the card holds at once (cudaOccupancyMaxActiveClusters).
+int hommx_chol_large_occupancy(int CS, int smem, int* blocks_per_sm, int* clusters) {
+  cudaError_t err = set_large_attributes(smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, chol_solve_large_kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  large_launch_config(cfg, attr, 1, CS, smem, 0);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, chol_solve_large_kernel, &cfg);
 }
 
 // Blocks of the kernel resident on one SM at ``smem`` bytes of dynamic

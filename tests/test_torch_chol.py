@@ -88,19 +88,26 @@ def test_dispatch_is_by_device():
 
 
 def test_kernel_size_limit():
-    """The kernel holds a cell's lower 32 x 32 tiles (P(P+1)/2 of them, P =
-    ceil(n/32)) and two (32 P, s) right-hand-side arrays in shared memory:
-    at n = 192, s = 6, 21 tiles and 2 x 192 x 6 floats.  9 panels (n = 288)
-    fit the 232,448 bytes a block may take, 10 do not.  An f32 CUDA engine
-    above the limit refuses at construction, naming it and ROADMAP B5,
-    before it touches the device."""
+    """The small instance holds a cell's lower 32 x 32 tiles (P(P+1)/2 of
+    them, P = ceil(n/32)) and two (32 P, s) right-hand-side arrays in shared
+    memory: at n = 192, s = 6, 21 tiles and 2 x 192 x 6 floats.  9 panels
+    (n = 288) fit the 232,448 bytes a block may take, 10 do not; there the
+    large instance takes over with the same bytes as its global workspace.
+    The engine's host-side guard admits every n (n = 375 and 1536 at s = 6
+    run the large instance) and refuses only s outside 1..8, naming the
+    range, before any device work."""
     assert k3.kernel_smem_bytes(192, 6) == 4 * (21 * 32 * 32 + 2 * 192 * 6) == 95232
-    assert k3.max_kernel_n(6) == 288
+    assert k3.max_small_n(6) == 288
     assert k3.kernel_smem_bytes(288, 6) == 4 * (45 * 1024 + 2 * 288 * 6) == 198144 <= 232448
     assert k3.kernel_smem_bytes(289, 6) == 4 * (55 * 1024 + 2 * 320 * 6) == 240640 > 232448
-    with pytest.raises(NotImplementedError, match=r"n = 375 exceeds its limit n <= 288.*B5"):
-        ht.MicroEngine(ht.create_unit_cube(5), bs=3, coeff_kind="tensor4",
-                       dtype=torch.float32, device="cuda")
+    assert k3.chol_launch_config(289, 6).workspace_bytes == 240640
+    for n in (375, 1536):
+        cfg = k3.check_k3_fits(n, 6)
+        assert cfg.large and cfg.panels == -(-n // 32)
+        assert cfg.workspace_bytes == k3.kernel_smem_bytes(n, 6)
+    assert not k3.check_k3_fits(288, 6).large
+    with pytest.raises(NotImplementedError, match="takes 1 to 8 right-hand sides"):
+        k3.check_k3_fits(375, 9)
 
 
 @pytest.mark.parametrize(
@@ -124,9 +131,51 @@ def test_chol_launch_config_hand_counts(n, s, panels, smem, blocks):
 
 
 def test_chol_launch_config_raises_above_limit():
-    """One past the limit, and s outside 1..8, raise ValueError naming the
-    limit; the CUDA wrapper refuses such shapes before it builds anything."""
-    with pytest.raises(ValueError, match="n = 289 exceeds its shared-memory limit n <= 288 at s = 6"):
-        k3.chol_launch_config(289, 6)
+    """The switch: n = 288 is the small instance's last size at s = 6, n =
+    289 the large instance's first (10 panels, 55 tiles in its workspace).
+    s outside 1..8 still raises ValueError naming the range; the CUDA
+    wrapper refuses such shapes before it builds anything."""
+    assert not k3.chol_launch_config(288, 6).large
+    cfg = k3.chol_launch_config(289, 6)
+    assert cfg.large and cfg.panels == 10
+    assert cfg.workspace_bytes == 4 * (55 * 1024 + 2 * 320 * 6)
     with pytest.raises(ValueError, match="takes 1 to 8"):
         k3.chol_launch_config(32, 9)
+    with pytest.raises(ValueError, match="takes 1 to 8"):
+        k3.chol_launch_config(3000, 9)
+
+
+@pytest.mark.parametrize(
+    "n,s,cells,panels,tiles,cluster",
+    [
+        # the 13² square (1440-cell chunk): 11 panels, one CTA a cell
+        (338, 3, 1440, 11, 66, 1),
+        # the 5³ cube (720-cell chunk)
+        (375, 6, 720, 12, 78, 1),
+        # the 16² square (720-cell chunk)
+        (512, 3, 720, 16, 136, 1),
+        # the 6³ cube: 309 cells fill the card's 132 SMs alone
+        (648, 6, 309, 21, 231, 1),
+        # the 8³ cube: 76 cells, two CTAs a cell give 152 >= 132
+        (1536, 6, 76, 48, 1176, 2),
+        # one 8³ cell (high_res_micro's sequence): a cluster of 8
+        (1536, 6, 1, 48, 1176, 8),
+        # n = 3000: 94 panels, staged in parts (a J window of 16 tiles and I
+        # windows of 8); 40 cells, four CTAs a cell give 160
+        (3000, 6, 40, 94, 4465, 4),
+    ],
+)
+def test_large_launch_config_hand_counts(n, s, cells, panels, tiles, cluster):
+    """The large instance: 256 threads, P = ceil(n/32) panels, P(P+1)/2
+    packed tiles of 4 KB and two (32 P, s) arrays of global workspace a
+    cell, 26 staged tiles of shared memory (106,496 B: a 24-tile region,
+    Dinv_p and the next diagonal tile) at every n, so two CTAs an SM
+    (2 x (106,496 + 1,024) <= 233,472), and the fewest CTAs a cell (1, 2,
+    4, 8) that give each of the 132 SMs one."""
+    cfg = k3.chol_launch_config(n, s, cells)
+    assert panels * (panels + 1) // 2 == tiles
+    assert cfg == k3.K3Config(threads=256, panels=panels, tile_stride=32,
+                              smem_bytes=26 * 32 * 32 * 4, blocks_per_sm=2, cluster=cluster,
+                              workspace_bytes=4 * (tiles * 1024 + 2 * 32 * panels * s))
+    assert cfg.smem_bytes == 106_496 and cfg.large
+    assert k3.chol_launch_config(n, s).cluster == 1  # a chunk that fills the card

@@ -214,6 +214,61 @@ def test_engine_astar_3d_rotated_matches_reference():
     np.testing.assert_allclose(con.numpy(), np.asarray(con_ref), rtol=1e-13)
 
 
+@pytest.mark.parametrize("name", ["square13", "cube5"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_engine_astar_above_small_k3_matches_reference(name, dtype):
+    """Cells above the small K3 instance's reach (n = 338 on the 13² micro
+    square, n = 375 on the 5³ cube with the rotated fibre), which K3's large
+    instance solves on the card: the port's chunk-Cholesky A* (the plain
+    version here) against the reference in the same process, float32
+    against its float32 chunk solve within 5e-5, float64 against its route
+    within 1e-10 (the chunk-against-per-cell divergence)."""
+    from hommx_tpu_torch.ops import chol_kernel
+
+    jm = hx.create_unit_square(13, 13) if name == "square13" else hx.create_unit_cube(5)
+    d = jm.dim
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    coeff = (JAX_A2, TORCH_A2) if d == 2 else (JAX_A3, TORCH_A3)
+    G = (None, None) if d == 2 else (jax_rotation, torch_rotation)
+    centers = np.random.default_rng(12).uniform(0, 1, (3, d))
+    je = JaxEngine(jm, bs=d, coeff_kind="tensor4", dtype=jdt, solver="cholesky")
+    te = ht.MicroEngine(port_mesh(jm), bs=d, coeff_kind="tensor4", dtype=tdt, device="cpu")
+    assert te._chol_route() and te.n_reduced == (338 if d == 2 else 375)
+    assert chol_kernel.chol_launch_config(te.n_reduced, te.s).large
+    ref = np.asarray(je.tensors_for_centers(coeff[0], jnp.asarray(centers, jdt), G_fn=G[0],
+                                            chunk=3))
+    got = te.tensors_for_centers(coeff[1], torch.as_tensor(centers, dtype=tdt), G_fn=G[1],
+                                 chunk=3)
+    assert got.dtype == tdt and got.shape == (3, d * d, d * d)
+    tol = 5e-5 if dtype == "float32" else 1e-10
+    assert np.abs(got.numpy() - ref).max() / np.abs(ref).max() < tol
+    assert chol_kernel.KERNEL.launches == 0  # the CPU takes the plain version
+
+
+def test_k3_workspace_in_chunk_and_batch_guards():
+    """Where K3's large instance runs (a float32 CUDA engine on the
+    Cholesky route above n = 288), the engine counts its workspace: the
+    6³ cube's per-cell bytes, (16·nE·r·s + 10·n·s + 4n² + nE·nbl²)·4 =
+    12,099,456, grow by 978,432, so a 4320-cell batch takes 14 chunks of
+    309 instead of 13 of 333; and the whole-batch route's guard counts it:
+    300 cells of the 8³ cube take 300 · 2 · 1536² · 4 = 5.66 GB without it
+    and 300 · 4,890,624 B more with it, over 6 GB, so the in-chunk route
+    takes them instead of running out of memory (a whole 8³ beam batch of
+    4320 cells is refused either way).  The device is set after
+    construction, so nothing touches a card."""
+    e6 = ht.MicroEngine(ht.create_unit_cube(6), bs=3, coeff_kind="tensor4",
+                        dtype=torch.float32, device="cpu")
+    assert e6._k3_workspace_bytes() == 0 and e6._auto_chunk(4320) == 333
+    e6.device = torch.device("cuda")
+    assert e6._k3_workspace_bytes() == 978_432 and e6._auto_chunk(4320) == 309
+    e8 = ht.MicroEngine(ht.create_unit_cube(8), bs=3, coeff_kind="tensor4",
+                        dtype=torch.float32, device="cpu")
+    assert e8._chol_batch_fits(300) and not e8._chol_batch_fits(4320)
+    e8.device = torch.device("cuda")
+    assert e8._k3_workspace_bytes() == 4_890_624
+    assert not e8._chol_batch_fits(300) and e8._chol_batch_fits(20)
+
+
 def test_chunking_does_not_change_elasticity_results():
     """A ragged last chunk (padded by _map_chunked) gives the same A*."""
     te = ht.MicroEngine(ht.create_unit_square(4), bs=2, coeff_kind="tensor4", device="cpu")
