@@ -226,9 +226,23 @@ prints no result line):
                (d) build_pipeline's dJ/dθ on the 10x3x3 beam with 6³ cells
                against the CPU's float64 gradient
 
+19. the example scripts (``hommx_tpu_torch/examples/``, the counterparts of
+   ``examples/``), each through its ``run`` at its default size, float32
+   but for the three float64 solves named below:
+   examples    hmm (15² macro and micro, K1; the 128² FEM, K2), laminate
+               and inclusion (30² × 30², K1 at n = 900; the 256² and 512²
+               FEMs, K2; laminate's 512² one in float64, K2 f64), hmm_3d (6³ × 6³, K1 at n = 216, s = 3; the 64³
+               FEM, 274,625 dofs, K2), periodic_cell_load (float64 per-cell
+               solves on 8²–64², no kernel), rotated_fibers (20x6x6, K3),
+               high_res_micro (4³ K3, 8³ K3 large, 16³ float64 MG),
+               unstructured (the jittered n = 72 mesh, AMG-CG, K1, K2),
+               inverse_design (damped Newton, second derivatives through
+               K1): the printed numbers against the JAX examples' float64
+               values, each PNG, each run's launches
+
 Phases 1-9 pass ``dedup_cells=False`` and so solve every cell, as before
 the models' default became dedup.  ``--only fem_flagship,kc_gather`` runs
-the named phases of parts 11 to 18 alone (after the build) and prints no
+the named phases of parts 11 to 19 alone (after the build) and prints no
 result line.  The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -353,15 +367,6 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS) -> tu
     return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
 
 
-def fibre(a, b):
-    """Circular fibre cross-section in the (a, b) plane of the unit cell."""
-    import torch
-
-    da = torch.arccos(torch.cos(2 * torch.pi * (a - 0.5)))
-    db = torch.arccos(torch.cos(2 * torch.pi * (b - 0.5)))
-    return (da**2 + db**2) < ((2 * torch.pi) ** 2 / 16)
-
-
 def inclusion_mu(x, y):
     """Shear modulus of the 2D inclusion cell (tests/test_chol_kernel.py's):
     50(1 + 0.2x₀) inside a disc of radius 0.3, 0.5 + 0.3 sin 2πy₁ outside."""
@@ -378,12 +383,13 @@ def beam_coeff(x_dependent: bool):
     for the bench row's x-dependent cell), 0.001 outside, λ = 1."""
     import torch
 
+    from hommx_tpu_torch.examples._common import circle_indicator
     from hommx_tpu_torch.utils.validation import hooke_tensor
 
     def mu(x, y):
         one = torch.ones((), dtype=y.dtype, device=y.device)
         stiff = 100.0 * (1.0 + 0.001 * x[0]) * one if x_dependent else 100.0 * one
-        return torch.where(fibre(y[1], y[2]), stiff, 0.001 * one)
+        return torch.where(circle_indicator(y[1], y[2]), stiff, 0.001 * one)
 
     return hooke_tensor(3, mu, lambda x, y: 1.0)
 
@@ -416,37 +422,11 @@ def golden_stratified_dtheta(x):
                         torch.stack([z, o])])
 
 
-def laminate_coeff(x, y):
-    """examples/diffusion/laminate.py: 5 or 0.05 by the sign of cos 2πy₀."""
-    import torch
-
-    one = torch.ones((), dtype=y.dtype, device=y.device)
-    return torch.where(torch.cos(2 * torch.pi * y[0]) < 0, 5.0 * one, 0.05 * one)
-
-
-def laminate_dtheta(x):
-    """Dθᵀ for the laminate's θ(x) = (x₁ − sin 2πx₀, x₀)."""
-    import torch
-
-    z, o = torch.zeros_like(x[0]), torch.ones_like(x[0])
-    return torch.stack([torch.stack([-2 * torch.pi * torch.cos(2 * torch.pi * x[0]), o]),
-                        torch.stack([o, z])])
-
-
-def darcy_bcs(V):
-    """u = 1 on the left edge, 0 on the right, natural elsewhere."""
-    import numpy as np
-
-    from hommx_tpu_torch import dirichletbc
-    from hommx_tpu_torch.ops.function_space import boundary_dofs
-
-    lo, hi = V.mesh.bounding_box()
-    left = boundary_dofs(V, lambda x: np.isclose(x[0], lo[0]))
-    right = boundary_dofs(V, lambda x: np.isclose(x[0], hi[0]))
-    return [dirichletbc(1.0, left, V), dirichletbc(0.0, right, V)]
-
-
 def darcy(hmm):
+    """examples/diffusion/laminate.py's boundary conditions on ``hmm``: u = 1
+    on the left edge, 0 on the right, natural elsewhere."""
+    from hommx_tpu_torch.examples._common import darcy_bcs
+
     hmm.set_boundary_conditions(darcy_bcs(hmm.function_space))
 
 
@@ -1724,11 +1704,12 @@ def _laminate(device, macro_n, micro_n, **kw):
     import torch
 
     from hommx_tpu_torch import PoissonStratifiedHMM, SolverOptions, create_unit_square
+    from hommx_tpu_torch.examples.diffusion import laminate
 
     t0 = time.perf_counter()
-    hmm = PoissonStratifiedHMM(create_unit_square(macro_n, macro_n), laminate_coeff,
+    hmm = PoissonStratifiedHMM(create_unit_square(macro_n, macro_n), laminate.A,
                                lambda x: 1.0, create_unit_square(micro_n, micro_n), 2**-5,
-                               laminate_dtheta, SolverOptions(rtol=1e-5, maxiter=20000),
+                               laminate.Dtheta, SolverOptions(rtol=1e-5, maxiter=20000),
                                dtype=torch.float32, device=device, **kw)
     darcy(hmm)
     return hmm, time.perf_counter() - t0
@@ -1742,6 +1723,7 @@ def phase_slice_stratified(device, macro_n: int = 512, micro_n: int = 30, checke
     import torch
 
     from hommx_tpu_torch import MicroEngine, create_unit_square
+    from hommx_tpu_torch.examples.diffusion import laminate
     from hommx_tpu_torch.micro import stencil_pcg
     from hommx_tpu_torch.micro.chunk import tensors_chunk_plain
     from hommx_tpu_torch.ops import dia
@@ -1760,8 +1742,8 @@ def phase_slice_stratified(device, macro_n: int = 512, micro_n: int = 30, checke
     if flagged.numel():
         eng64 = MicroEngine(create_unit_square(micro_n, micro_n), dtype=torch.float64,
                             device=device)
-        A64 = tensors_chunk_plain(eng64, laminate_coeff, hmm._sys.centers[flagged].double(),
-                                  laminate_dtheta)
+        A64 = tensors_chunk_plain(eng64, laminate.A, hmm._sys.centers[flagged].double(),
+                                  laminate.Dtheta)
         rec["fallback_astar_rel_err_f64"] = rel_diff(hmm.homogenized_tensors()[flagged], A64)
     emit(rec)
     if not (_run_ok(rec) and rec["blocks_at_maxiter"] == 0
@@ -1779,6 +1761,7 @@ def phase_slice_stratified_full(device, macro_n: int = 128, micro_n: int = 30,
     import torch
 
     from hommx_tpu_torch import MicroEngine, create_unit_square
+    from hommx_tpu_torch.examples.diffusion import laminate
     from hommx_tpu_torch.micro import stencil_pcg
     from hommx_tpu_torch.micro.chunk import tensors_chunk_plain
     from hommx_tpu_torch.micro.krylov import _map_chunked
@@ -1801,7 +1784,7 @@ def phase_slice_stratified_full(device, macro_n: int = 128, micro_n: int = 30,
     A32 = full.homogenized_tensors()
     idx = torch.linspace(0, A32.shape[0] - 1, checked, device=device).round().long()
     eng64 = MicroEngine(create_unit_square(micro_n, micro_n), dtype=torch.float64, device=device)
-    A64 = _map_chunked(lambda c: tensors_chunk_plain(eng64, laminate_coeff, c, laminate_dtheta),
+    A64 = _map_chunked(lambda c: tensors_chunk_plain(eng64, laminate.A, c, laminate.Dtheta),
                        full._sys.centers[idx].double(), checked)
     recs[0].update({"k1_launches": launches["stencil_pcg"], "checked_cells": checked,
                     "astar_rel_err_f64": rel_diff(A32[idx], A64)})
@@ -1871,6 +1854,7 @@ def phase_fem_flagship(device, n: int = 1024, hmm_n: int = 15):
     import torch
 
     from hommx_tpu_torch import PoissonHMM, SolverOptions, create_rectangle, create_unit_square
+    from hommx_tpu_torch.examples._common import darcy_bcs
     from hommx_tpu_torch.micro import stencil_pcg
     from hommx_tpu_torch.models.common import merge_bcs
     from hommx_tpu_torch.models.fem import fem_solve, fem_system
@@ -2458,13 +2442,14 @@ def _beam_grad(device, dtype, macro_n, micro_n: int = 4):
     import torch
 
     from hommx_tpu_torch import LinearElasticityStratifiedHMM, create_box, create_unit_cube
+    from hommx_tpu_torch.examples._common import circle_indicator
     from hommx_tpu_torch.utils.validation import hooke_tensor
 
     holder = [1.0]
 
     def mu(x, y):
         one = torch.ones((), dtype=y.dtype, device=y.device)
-        return torch.where(fibre(y[1], y[2]), 100.0 * holder[0] * one, 0.001 * one)
+        return torch.where(circle_indicator(y[1], y[2]), 100.0 * holder[0] * one, 0.001 * one)
 
     macro = create_box([[0, 0, 0], [BEAM_L, BEAM_W, BEAM_H]], list(macro_n))
     f = torch.tensor([0.0, 0.0, -0.05 * (BEAM_W / BEAM_L) ** 2], dtype=torch.float64)
@@ -2515,6 +2500,7 @@ def _fem_grad(device, dtype, n):
     import torch
 
     from hommx_tpu_torch import create_rectangle, fem_solve_fn
+    from hommx_tpu_torch.examples._common import darcy_bcs
     from hommx_tpu_torch.ops.function_space import FunctionSpace
 
     eps = 2**-5
@@ -2602,10 +2588,11 @@ def phase_micro_highres(device, reps: int = 5):
     8 cells in float64 on the card (pcg_tol 1e-9), the float32 A* within
     2e-3 of it; (c) the reference's 16³ gate (ν = 10, tol 1e-7, float64, 2
     cells): at most 100 iterations, diag(A*) physical; (d) the example's
-    micro-mesh sequence on its own routes (one centre): 4³ and 8³ on the
-    default one, float32 through K3's small and large instance (one launch
-    each, A* within 1e-4 of the float64 plain route), 16³ on the MG route
-    (float64, ν = 8, tol 1e-7)."""
+    micro-mesh sequence on its own routes (one centre), through
+    ``hommx_tpu_torch.examples.linear_elasticity.high_res_micro.run``: 4³
+    and 8³ on the default one, float32 through K3's small and large
+    instance (one launch each, A* within 1e-4 of the float64 plain route),
+    16³ on the MG route (float64, ν = 8, tol 1e-7)."""
     import numpy as np
     import torch
 
@@ -2679,42 +2666,32 @@ def phase_micro_highres(device, reps: int = 5):
              "seconds": time.perf_counter() - t, "diag": dg.tolist(),
              "finite": bool(torch.isfinite(Ag).all())}
     emit(rec_c)
-    # (d) the example's micro-mesh sequence on its own routes: 4³ and 8³ on
-    # the default one (on the card float32, the chunk Cholesky: K3's small
-    # and then its large instance), 16³ on the MG route (ν = 8, tol 1e-7,
-    # in float64: the float32 route stalls short of that tolerance); the
-    # Cholesky cells also against the float64 plain route
-    seq, prev = [], None
+    # (d) the example's micro-mesh sequence on its own routes, through the
+    # port's script: 4³ and 8³ on the default one (on the card float32, the
+    # chunk Cholesky: K3's small and then its large instance, one launch
+    # each), 16³ on the MG route (ν = 8, tol 1e-7, in float64: the float32
+    # route stalls short of that tolerance); the Cholesky cells also
+    # against the float64 plain route
+    from hommx_tpu_torch.examples.linear_elasticity import high_res_micro
+
     small, large = "hommx_chol_solve_f32", "hommx_chol_solve_large_f32"
     chol_kernel.KERNEL.reset_counts()
-    for n in (4, 8, 16):
-        t = time.perf_counter()
-        if n <= 8:
-            e = MicroEngine(create_unit_cube(n), bs=3, coeff_kind="tensor4", device=device)
-        else:
-            e = MicroEngine(create_unit_cube(n), dtype=torch.float64, mg_nu=8, pcg_tol=1e-7,
-                            pcg_maxiter=4000, **kw)
-        centre = torch.full((1, 3), 0.5, dtype=e.dtype, device=device)
-        before = dict(chol_kernel.KERNEL.counts)
-        with torch.no_grad():
-            A = e.tensors_for_centers(fibre_only, centre)[0].double()
-        torch.cuda.synchronize()
-        d = A.diagonal()
-        row = {"n": n, "dtype": str(e.dtype), "solver": e.solver, "cell_prec": e.cell_prec,
-               "A11": float(d[0]), "A22": float(d[4]), "seconds": time.perf_counter() - t,
-               "k3_launches": chol_kernel.KERNEL.counts[small] - before[small],
-               "k3_large_launches": chol_kernel.KERNEL.counts[large] - before[large],
-               "rel_diff_to_previous": None if prev is None else rel_diff(A, prev),
-               "finite": bool(torch.isfinite(A).all())}
-        if n <= 8:
-            A64 = _f64_astar(e.mesh, fibre_only, centre, bs=3, coeff_kind="tensor4")[0]
-            row["f64_rel_diff"] = rel_diff(A, A64)
-        seq.append(row)
-        prev = A
-    emit({"phase": "micro_highres_sequence", "rows": seq, "bar": K3_LARGE_ASTAR_RTOL})
-    seq_ok = (seq[0]["k3_launches"] == 1 and seq[0]["k3_large_launches"] == 0
-              and seq[1]["k3_launches"] == 0 and seq[1]["k3_large_launches"] == 1
-              and seq[2]["k3_launches"] + seq[2]["k3_large_launches"] == 0
+    seq = high_res_micro.run(device=device)["rows"]
+    torch.cuda.synchronize()
+    centre = torch.full((1, 3), 0.5, dtype=torch.float64, device=device)
+    for row in seq:
+        A = torch.tensor(row.pop("A"), dtype=torch.float64)
+        row["finite"] = bool(torch.isfinite(A).all())
+        if row["n"] <= 8:
+            A64 = _f64_astar(create_unit_cube(row["n"]), high_res_micro.A_el, centre, bs=3,
+                             coeff_kind="tensor4")[0]
+            row["f64_rel_diff"] = rel_diff(A, A64.cpu())
+    counts = {"k3_launches": chol_kernel.KERNEL.counts[small],
+              "k3_large_launches": chol_kernel.KERNEL.counts[large]}
+    emit({"phase": "micro_highres_sequence", "rows": seq, **counts,
+          "bar": K3_LARGE_ASTAR_RTOL})
+    seq_ok = (counts == {"k3_launches": 1, "k3_large_launches": 1}
+              and [r["dtype"] for r in seq] == ["torch.float32"] * 2 + ["torch.float64"]
               and all(r["finite"] for r in seq)
               and all(r["f64_rel_diff"] <= K3_LARGE_ASTAR_RTOL for r in seq[:2]))
     ok = (rec["c8"]["finite"] and rec["c128"]["finite"] and rec["c8"]["checksums_differ"]
@@ -2923,6 +2900,7 @@ def phase_micro_fft(device, checked: int = 4096, suite_n: int = 48, flagship_n: 
 
     from hommx_tpu_torch import (MicroEngine, PoissonHMM, PoissonStratifiedHMM, SolverOptions,
                                  create_box, create_unit_cube, create_unit_square)
+    from hommx_tpu_torch.examples.diffusion import laminate
     from hommx_tpu_torch.micro import stencil_pcg
     from hommx_tpu_torch.micro.chunk import tensors_chunk_chol_plain
     from hommx_tpu_torch.ops import dia
@@ -2934,18 +2912,18 @@ def phase_micro_fft(device, checked: int = 4096, suite_n: int = 48, flagship_n: 
     runs = {}
     for route, kw in (("fft", {"engine_kwargs": {"cell_prec": "fft"}}), ("k1", {})):
         t0 = time.perf_counter()
-        hmm = PoissonStratifiedHMM(create_unit_square(suite_n, suite_n), laminate_coeff,
+        hmm = PoissonStratifiedHMM(create_unit_square(suite_n, suite_n), laminate.A,
                                    lambda x: 1.0,
-                                   micro24, 2**-4, laminate_dtheta, dtype=torch.float32,
+                                   micro24, 2**-4, laminate.Dtheta, dtype=torch.float32,
                                    device=device, dedup_cells=False, **kw)
         rec, u = _hmm_record(f"micro_fft_suite_{route}", hmm, time.perf_counter() - t0)
         runs[route] = (hmm, u, rec)
     hmm, u, rec = runs["fft"]
     centers = hmm._sys.centers
-    rec.update(_chunk_iters(hmm._engine, laminate_coeff, centers, laminate_dtheta,
+    rec.update(_chunk_iters(hmm._engine, laminate.A, centers, laminate.Dtheta,
                             hmm._chunk or 0))
     rec["k1_route_block_iters"] = _k1_block_iters(runs["k1"][0])
-    A64 = _f64_astar(micro24, laminate_coeff, centers, laminate_dtheta)
+    A64 = _f64_astar(micro24, laminate.A, centers, laminate.Dtheta)
     rec["astar_rel_diff_f64"] = rel_diff(hmm.homogenized_tensors(), A64)
     rec["k1_route_astar_rel_diff_f64"] = rel_diff(runs["k1"][0].homogenized_tensors(), A64)
     rec["u_rel_diff_f64"] = rel_diff(u, _own_system_f64(hmm))
@@ -4285,16 +4263,167 @@ def phase_k3_large(device, beam_n=(20, 6, 6), cube_n: int = 6, square_macro: int
     return main
 
 
+#: the example scripts (``hommx_tpu_torch/examples/``) in the order of phase
+#: examples: the name, the module, the kernels that the run must launch
+#: (none: it must launch no kernel), and the keyword arguments beyond the
+#: default size (``plot`` where the example has ``--plot``)
+EXAMPLES = (
+    ("hmm", "hmm", ("stencil_pcg", "dia_spmv"), {"plot": True}),
+    ("laminate", "diffusion.laminate", ("stencil_pcg", "dia_spmv", "dia_spmv_f64"),
+     {"plot": True}),
+    ("inclusion", "diffusion.inclusion", ("stencil_pcg", "dia_spmv"), {"plot": True}),
+    ("hmm_3d", "hmm_3d", ("stencil_pcg", "dia_spmv"), {}),
+    ("periodic_cell_load", "diffusion.periodic_cell_load", (), {}),
+    ("rotated_fibers", "linear_elasticity.rotated_fibers", ("chol_solve",), {}),
+    ("high_res_micro", "linear_elasticity.high_res_micro", ("chol_solve", "chol_solve_large"),
+     {}),
+    ("unstructured", "diffusion.unstructured", ("stencil_pcg", "dia_spmv"), {}),
+    ("inverse_design", "inverse_design", ("stencil_pcg",), {}),
+)
+
+#: what the JAX examples print at their default sizes, float64 on the CPU
+#: (``python examples/<name>.py``; the unrounded values read from each
+#: ``main``'s locals, and high_res_micro's 16³ step computed the same way)
+EXAMPLES_F64 = {
+    "hmm": {"rel": 0.07575871075192699},
+    "laminate": {"rel": 0.03405700849917928, "rel_het": 0.44296215995877375},
+    "inclusion": {"rel": 0.009992276154911472},
+    "hmm_3d": {"rel": 0.04370167699889176},
+    "periodic_cell_load": {"errors": [0.07298611625496655, 0.0181917855810415,
+                                      0.0045446284052803945, 0.0011359513045507855]},
+    "rotated_fibers": {"max_u": 0.3765643453906081, "tip": -0.3765643453906081},
+    "high_res_micro": {"A11": [40.584937499999974, 41.105765624999975, 40.454730468749965],
+                       "A22": [1.5753302896796315, 1.3159820316543165, 1.2958968090319558]},
+    "unstructured": {"rel": 0.00044714554372970344, "macro_iterations": 10},
+    "inverse_design": {"m": 7.0},
+}
+EXAMPLE_ERR_ABS = 5e-4  # a printed relative L² error, float32 on the card vs float64
+EXAMPLE_ASTAR_RTOL = 1e-4  # high_res_micro's A*₁₁ and A*₂₂, as micro_highres (d)
+
+
+def _example_misses(name, res) -> list:
+    """The numbers of one example's ``run`` that miss their bar against
+    ``EXAMPLES_F64`` (unstructured and inverse_design: their own
+    assertions, which ``run`` raises)."""
+    ref, misses = EXAMPLES_F64[name], []
+
+    def check(key, value, target, ok):
+        if not (math.isfinite(value) and ok):
+            misses.append({"key": key, "value": value, "f64": target})
+
+    if name in ("hmm", "laminate", "inclusion", "hmm_3d"):
+        for key, target in ref.items():
+            value = res.get(key, math.nan)
+            check(key, value, target, abs(value - target) <= EXAMPLE_ERR_ABS)
+    elif name == "periodic_cell_load":
+        for n, value, target in zip(res["sizes"], res["errors"], ref["errors"]):
+            check(f"error_{n}", value, target, abs(value - target) <= EXAMPLE_ERR_ABS)
+        check("delta", res["delta"], 0.0, res["delta"] < 1e-10)
+    elif name == "rotated_fibers":
+        for key in ("max_u", "tip"):
+            check(key, res[key], ref[key], _rel(res[key], ref[key]) <= GOLDEN_ELASTICITY_RTOL)
+    elif name == "high_res_micro":
+        for row, a11, a22 in zip(res["rows"], ref["A11"], ref["A22"]):
+            check(f"A11_{row['n']}", row["A11"], a11, _rel(row["A11"], a11) <= EXAMPLE_ASTAR_RTOL)
+            check(f"A22_{row['n']}", row["A22"], a22, _rel(row["A22"], a22) <= EXAMPLE_ASTAR_RTOL)
+    return misses
+
+
+def phase_examples(device, overrides=None):
+    """Every example script on the card at its default size (float32; the
+    float64 steps where the example asks for float64: periodic_cell_load,
+    high_res_micro's 16³, laminate's heterogeneous FEM), ``--plot`` where it has one, its PNGs into a
+    temporary directory: one record each with the lines it printed, its
+    numbers, seconds and each kernel's launches in the run, held to the
+    JAX examples' float64 values (``EXAMPLES_F64``): a printed relative L²
+    error within 5e-4, the beam's max |u| and tip within 2e-3 relative, A*
+    within 1e-4 relative; unstructured and inverse_design by their own
+    assertions.  Every PNG must exist and start with the PNG signature;
+    each run must launch the kernels ``EXAMPLES`` names (and
+    periodic_cell_load none).  ``overrides`` maps a name to keyword
+    arguments of its ``run`` (a CPU rehearsal's small sizes)."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+
+    import torch
+
+    from hommx_tpu_torch.micro import stencil_pcg
+    from hommx_tpu_torch.ops import chol_kernel, dia
+
+    counters = {"stencil_pcg": (stencil_pcg.KERNEL, "hommx_stencil_pcg_f32"),
+                "stencil_pcg_large": (stencil_pcg.KERNEL, "hommx_stencil_pcg_large_f32"),
+                "dia_spmv": (dia.KERNEL, "hommx_dia_spmv_f32"),
+                "dia_spmv_f64": (dia.KERNEL, "hommx_dia_spmv_f64"),
+                "chol_solve": (chol_kernel.KERNEL, "hommx_chol_solve_f32"),
+                "chol_solve_large": (chol_kernel.KERNEL, "hommx_chol_solve_large_f32")}
+    main = dict.fromkeys(counters, 0)
+    failed, t_phase = [], time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, module, expected, kw in EXAMPLES:
+            ex = importlib.import_module(f"hommx_tpu_torch.examples.{module}")
+            kw = {**kw, **(overrides or {}).get(name, {})}
+            out = os.path.join(tmp, name)
+            for k in (stencil_pcg.KERNEL, dia.KERNEL, chol_kernel.KERNEL):
+                k.reset_counts()
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(printed):
+                    res = ex.run(device=device, out=out, **kw)
+                torch.cuda.synchronize()
+                error = None
+            except AssertionError as e:  # unstructured's and inverse_design's bars
+                res, error = {"pngs": []}, f"AssertionError: {e}"
+            seconds = time.perf_counter() - t0
+            launches = {key: k.counts[fn] for key, (k, fn) in counters.items()}
+            for key in main:
+                main[key] += launches[key]
+            pngs = []
+            for path in res["pngs"]:
+                exists, magic = os.path.exists(path), b""
+                if exists:
+                    with open(path, "rb") as fh:
+                        magic = fh.read(8)
+                pngs.append({"file": os.path.basename(path), "exists": exists,
+                             "bytes": os.path.getsize(path) if exists else 0,
+                             "png": magic == b"\x89PNG\r\n\x1a\n"})
+            misses = [] if error else _example_misses(name, res)
+            kernels_ok = (all(launches[k] >= 1 for k in expected) if expected
+                          else sum(launches.values()) == 0)
+            ok = (error is None and not misses and kernels_ok and all(p["png"] for p in pngs)
+                  and (name not in ("hmm_3d", "rotated_fibers") or len(pngs) == 1))
+            numbers = {k: v for k, v in res.items() if k != "pngs"}
+            if "rows" in numbers:  # high_res_micro: the diagonal entries, not A
+                numbers["rows"] = [{k: v for k, v in r.items() if k != "A"}
+                                   for r in numbers["rows"]]
+            emit({"phase": "examples", "example": name, "seconds": seconds,
+                  "lines": printed.getvalue().splitlines(), "numbers": numbers,
+                  "f64": EXAMPLES_F64[name], "misses": misses, "error": error,
+                  "launches": launches, "expected_kernels": list(expected), "pngs": pngs,
+                  "ok": ok})
+            if not ok:
+                failed.append(name)
+            torch.cuda.empty_cache()
+    emit({"phase": "examples_summary", "card": _card_line(),
+          "seconds": time.perf_counter() - t_phase, "failed": failed, **main})
+    if failed:
+        raise AssertionError(f"examples failed their checks: {failed}")
+    return main
+
+
 #: the phases of the periodic, FEM and per-cell slice, of differentiation,
 #: of the micro engine's other routes, of the FFT and P2 routes, of the
 #: unstructured macro path, of multi-device solves, of the native host
-#: runtime and the utilities, and of K1's and K3's large instances, in
-#: their order
+#: runtime and the utilities, of K1's and K3's large instances, and of the
+#: example scripts, in their order
 NEW_PHASES = (phase_fem_flagship, phase_golden_periodic_fem, phase_periodic_identity,
               phase_elasticity_periodic, phase_chol_batched, phase_kc_gather,
               phase_pipeline_grad, phase_pipeline_grad_elasticity, phase_fem_grad,
               phase_micro_highres, phase_micro_routes, phase_micro_fft, phase_p2, phase_amg,
-              phase_sharded, phase_host_native, phase_utils, phase_k1_large, phase_k3_large)
+              phase_sharded, phase_host_native, phase_utils, phase_k1_large, phase_k3_large,
+              phase_examples)
 
 
 def main(argv) -> int:

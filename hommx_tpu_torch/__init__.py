@@ -22,7 +22,8 @@ The solve is differentiable end to end: ``BaseHMM.build_pipeline``,
 ``fem_solve_fn`` and ``entry`` (the flagship's pipeline) carry the
 implicit-function rule through every cell solve and the macro solve.
 Every entry point runs on the card unless the caller passes
-``device="cpu"``.
+``device="cpu"``.  The reference's example scripts run on the port from
+``hommx_tpu_torch.examples`` (``python3 -m hommx_tpu_torch.examples.hmm``).
 The JAX package ``hommx_tpu`` is the reference it is tested against; this
 package imports neither JAX nor ``hommx_tpu``.
 """

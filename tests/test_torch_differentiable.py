@@ -484,31 +484,11 @@ def test_entry_matches_graft_entry():
 
 
 def test_inverse_design_newton():
-    """examples/inverse_design.py at its n = 8: damped Newton on
+    """examples/inverse_design.py at its n = 8, through the port's script
+    (``hommx_tpu_torch.examples.inverse_design.run``): damped Newton on
     J(p) = ‖u(eᵖ) − u*‖² / ‖u*‖² with both derivatives by autograd
     recovers the laminate contrast m* = 7 from m = 2 within 1e-4."""
-    macro, micro = ht.create_unit_square(8, 8), ht.create_unit_square(8, 8)
+    from hommx_tpu_torch.examples.inverse_design import run
 
-    def solve_for(m):
-        def A(x, y):
-            phase = 0.5 * (1.0 + torch.tanh(10.0 * torch.sin(2 * torch.pi * y[0])))
-            return 1.0 + (m - 1.0) * phase
-
-        step, centers = ht.PoissonHMM(macro, A, lambda x: 1.0, micro, 0.1 / 8,
-                                      device="cpu").build_pipeline()
-        return step(centers)
-
-    with torch.no_grad():
-        u_target = solve_for(torch.tensor(7.0, dtype=F64))
-    lossp = lambda p: ((solve_for(torch.exp(p)) - u_target) ** 2).sum() / (u_target**2).sum()
-    p = torch.log(torch.tensor(2.0, dtype=F64))
-    for _ in range(12):
-        th = p.clone().requires_grad_(True)
-        (g,) = torch.autograd.grad(lossp(th), th, create_graph=True)
-        (h,) = torch.autograd.grad(g, th)
-        g, h = g.detach(), h.detach()
-        dp = -g / torch.clamp(h, min=1e-12) if h > 1e-12 else -torch.sign(g) * 0.4
-        p = p + torch.clamp(dp, -0.7, 0.7)
-        if abs(float(dp)) < 1e-8:
-            break
-    assert abs(float(torch.exp(p)) - 7.0) / 7.0 < 1e-4
+    res = run(n=8, steps=12, m_true=7.0, m_init=2.0, device="cpu")
+    assert abs(res["m"] - 7.0) / 7.0 < 1e-4

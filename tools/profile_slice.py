@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the hommx_tpu_torch slice goes, on one NVIDIA GPU.
 
-    python3 tools/profile_slice.py [--mode poisson|elasticity|micro16|routes|amg|sharded]
+    python3 tools/profile_slice.py [--mode poisson|elasticity|micro16|routes|amg|sharded|fem3d]
                                    [--macro 512] [--micro 16] [--pc auto|jacobi] [--out FILE]
 
 Run from the repository root on a machine with one CUDA card; it fails
@@ -74,6 +74,12 @@ stage then cached): the micro stage of a fresh model of each, then the
 macro stage (a solve: guard, assembly, the CG) in the order unsharded,
 sharded, sharded, unsharded, each with its ``diagnostics``, K2's launches,
 device busy and idle share and the top kernels.
+
+``--mode fem3d`` drives the fine FEM of ``examples/hmm_3d.py`` at its 64³
+default (``hommx_tpu_torch.examples.hmm_3d``'s coefficient, 274,625 dofs,
+float32 multigrid CG through K2): three ``fem_solve`` calls (set-up,
+assembly and solve seconds, CG iterations, the multigrid grids), then one
+under ``torch.profiler`` (device busy and idle share of the whole call).
 """
 
 from __future__ import annotations
@@ -344,10 +350,36 @@ def sharded(args, device, keep, kernels):
               "macro_iterations": dg["macro_iterations"], "macro_steps": dg["macro_steps"]})
 
 
+def fem3d(args, device, keep, kernels):
+    """The fine FEM of ``hmm_3d.py`` at its 64³ default (274,625 dofs,
+    float32 multigrid CG through K2): three solves, each with its set-up
+    (MacroSystem, DIA view, hierarchy), assembly and solve seconds, CG
+    iterations and the multigrid grids, then one under the profiler."""
+    from hommx_tpu_torch import create_unit_cube
+    from hommx_tpu_torch.examples import hmm_3d
+    from hommx_tpu_torch.models.fem import fem_solve
+    from hommx_tpu_torch.ops.function_space import FunctionSpace, boundary_dofs, dirichletbc
+
+    V = FunctionSpace(create_unit_cube(2**6), 1)
+    bcs = [dirichletbc(0.0, boundary_dofs(V), V)]
+
+    def solve():
+        return fem_solve(V, lambda x: hmm_3d.A(x, x / hmm_3d.eps), hmm_3d.f, bcs,
+                         device=device)
+
+    for rep in range(3):
+        t0 = time.perf_counter()
+        u = solve()
+        keep({"tag": "solve", "rep": rep, "seconds": time.perf_counter() - t0,
+              "dofs": V.num_dofs, **u.diagnostics, "iterations": u.solver_iterations,
+              "mg_grids": [list(lev.grid) for lev in u.system.mg.levels]})
+    keep({"tag": "stage", **profiled("fem3d", solve, kernels)})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", choices=("poisson", "elasticity", "micro16", "routes", "amg",
-                                       "sharded"), default="poisson")
+                                       "sharded", "fem3d"), default="poisson")
     ap.add_argument("--macro", type=int, default=512)
     ap.add_argument("--micro", type=int, default=16)
     ap.add_argument("--pc", choices=("auto", "jacobi"), default="auto")
@@ -388,6 +420,8 @@ def main() -> int:
         amg(args, device, keep, kernels)
     elif args.mode == "sharded":
         sharded(args, device, keep, kernels)
+    elif args.mode == "fem3d":
+        fem3d(args, device, keep, kernels)
     else:
         make = (poisson if args.mode == "poisson" else elasticity)(args, device, keep, kernels)
     if make is not None:
