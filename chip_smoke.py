@@ -207,8 +207,10 @@ prints no result line):
 17. K1's large instance (n above the small one's reach, up to 4096):
    k1_large    (a) K1 against its plain version at the kernel's block size
                on an auto-sized chunk of the 33², 48², 64², 10³, 12³ and
-               16³ micro meshes and a ragged chunk of 64², 33², 64² and
-               16³ timed; (b) PoissonHMM, 128² macro, 64² micro, float32,
+               16³ micro meshes, a ragged and a mixed-stop chunk of 64²
+               (alternate blocks of contrast-100 cells), two identical 64²
+               launches bitwise equal, 33², 64² and 16³ timed; (b)
+               PoissonHMM, 128² macro, 64² micro, float32,
                dedup off: large launches = chunks, A* of 256 cells against
                a float64 engine, u against the float64 solve of its own
                system, the micro stage beside cell_prec='mg' on the same
@@ -687,37 +689,56 @@ def phase_dia(device):
     return recs["2d512"], recs["beam40x12x12_f64"]
 
 
-def _k1_case(eng, centers, timed):
+def _k1_case(eng, centers, timed, coeff=None, repeat=False, iter_slack=K1_ITER_SLACK):
     """K1 vs its plain version at the kernel's own block size on one chunk
-    of the main path's scaled system, both taken through the chunk's own
-    clamp and A* contraction, with the iteration counts of each block side
-    by side.  Timed: the kernel, the unblocked plain loop, the bound and
+    of the main path's scaled system (the flagship coefficient unless
+    ``coeff``), both taken through the chunk's own clamp and A*
+    contraction, with the iteration counts of each block side by side.
+    Timed: the kernel, the unblocked plain loop, the bound and
     ``prec_library_us``, one float32 ``torch.matmul`` of Minv by the chunk's
     (n, s·C) right-hand sides (TF32 off): a yardstick for one
-    preconditioner apply of the chunk, not for the whole PCG."""
+    preconditioner apply of the chunk, not for the whole PCG.  ``repeat``:
+    a second identical launch must give bitwise the same X and counts.
+    ``iter_slack``: the bar on each block's count against the plain
+    version's; None records the counts beside the plain float64 version's
+    (stop tolerance 1e-5) instead, for chunks whose float32 loop is itself
+    several iterations from float64 (PERF.md, PR 20)."""
     import torch
 
     from hommx_tpu_torch.micro.chunk import chunk_system
-    from hommx_tpu_torch.micro.stencil_pcg import launch_config, stencil_pcg_cuda, stencil_pcg_plain
+    from hommx_tpu_torch.micro.stencil_pcg import (large_grid_on_card, launch_config,
+                                                   stencil_pcg_cuda, stencil_pcg_plain)
 
-    cs = chunk_system(eng, flagship, centers)
+    cs = chunk_system(eng, coeff or flagship, centers)
     ws_s, Fs = cs.scaled()
     args = (ws_s, Fs, cs.Minv, cs.st.shape, cs.st.offsets, eng.pcg_tol, eng.pcg_maxiter)
     n, s, C, K = eng.n_reduced, eng.s, centers.shape[0], len(cs.st.offsets)
     cfg = launch_config(n, s, C)
     Yk, itk = stencil_pcg_cuda(*args, per_block=True)
+    repeat_equal = None
+    if repeat:
+        Y2, it2 = stencil_pcg_cuda(*args, per_block=True)
+        repeat_equal = bool(torch.equal(Yk, Y2) and torch.equal(itk, it2))
     Yp, itp = stencil_pcg_plain(*args, block=cfg.cells_per_block, per_block=True)
     itk = [int(k) for k in itk.cpu()]
     Ak, Ap = cs.astar(eng, Yk, max(itk)), cs.astar(eng, Yp, max(itp))
     torch.cuda.synchronize()
     abs_err = float((Ak - Ap).abs().max())
     slack = max(abs(a - b) for a, b in zip(itk, itp))
+    per_block = [list(v) for v in zip(itk, itp)]
+    if iter_slack is None:  # beside the plain float64 version's counts
+        args64 = ([w.double() for w in ws_s], Fs.double(), cs.Minv.double(), *args[3:5], 1e-5,
+                  eng.pcg_maxiter)
+        _, it64 = stencil_pcg_plain(*args64, block=cfg.cells_per_block, per_block=True)
+        per_block = [v + [k64] for v, k64 in zip(per_block, it64)]
     rec = {"cells": C, "dim": eng.d, "n": n, "K": K, "s": s,
            "cells_per_block": cfg.cells_per_block, "threads": cfg.threads,
            "rows_per_thread": cfg.rows_per_thread, "smem_bytes": cfg.smem_bytes,
-           "cluster": cfg.cluster, "stages": cfg.stages,
-           "iters_kernel": max(itk), "iters_plain": max(itp),
-           "iters_per_block": [list(p) for p in zip(itk, itp)],
+           "large": cfg.large, "stages": cfg.stages, "tile_cols": cfg.tile_cols,
+           "grid": cfg.grid,
+           "grid_on_card": large_grid_on_card(cfg) if cfg.large else None,
+           "state_bytes": cfg.state_bytes, "bitwise_repeat": repeat_equal,
+           "iters_kernel": max(itk), "iters_plain": max(itp), "iters_per_block": per_block,
            "iters_max_block_diff": slack, "max_abs_err": abs_err,
            "rel_err": abs_err / float(Ap.abs().max())}
     if timed:
@@ -737,7 +758,8 @@ def _k1_case(eng, centers, timed):
                     for b, it in enumerate(itk))
         rec["gflop"] = flops / 1e9
         rec["bound_ms"], rec["bound_by"] = bound(flops, 4.0 * (K * n * C + 2 * n * s * C + n * n))
-    ok = (math.isfinite(rec["rel_err"]) and rec["rel_err"] < K1_RTOL and slack <= K1_ITER_SLACK)
+    ok = (math.isfinite(rec["rel_err"]) and rec["rel_err"] < K1_RTOL
+          and (iter_slack is None or slack <= iter_slack) and repeat_equal is not False)
     return rec, ok
 
 
@@ -3977,22 +3999,47 @@ def phase_utils(device, macro_n: int = 512, micro_n: int = 16, small_n: int = 25
 K1_LARGE = {}
 
 
+def contrast_coeff(x, y):
+    """Contrast 100 in the cells whose centre has x₀ < 1/2 (100 in a disc
+    of radius 1/4 at the middle of the cell, 1 outside), the flagship
+    coefficient in the others: the contrast cells need several times the
+    flagship's PCG iterations."""
+    import torch
+
+    inc = (y[0] - 0.5) ** 2 + (y[1] - 0.5) ** 2 < 0.0625
+    return torch.where(x[0] < 0.5, torch.where(inc, 100.0, 1.0), flagship(x, y))
+
+
+def _mixed_centers(C, cb, rng):
+    """C centres in 2D whose blocks of ``cb`` cells alternate between the
+    contrast-100 half (x₀ < 1/2, even blocks) and the flagship half: half
+    the blocks stop many iterations after the others."""
+    import numpy as np
+
+    x0 = np.where((np.arange(C) // cb) % 2 == 0, rng.uniform(0, 0.5, C), rng.uniform(0.5, 1, C))
+    return np.stack([x0, rng.uniform(0, 1, C)], axis=1)
+
+
 def phase_k1_large(device, sizes2=(33, 48, 64), sizes3=(10, 12, 16),
                    timed=("2d33", "2d64", "3d16"), macro_n: int = 128, micro_n: int = 64,
                    cube_n: int = 6, micro3_n: int = 16, sampled: int = 256, mg_cells=None):
     """K1's large instance (n above the small instance's reach, up to 4096):
     (a) K1 against its plain version at the kernel's block size on one
-    auto-sized chunk of the 33², 48², 64², 10³, 12³ and 16³ micro meshes and
-    on a ragged 37-cell chunk of 64² (flagship coefficient), the iterations
-    of each block side by side; 33², 64² and 16³ timed, with the bound and
-    the float32 Minv product as yardstick.  (b) PoissonHMM with the
-    flagship coefficient on a 128² macro mesh and a 64² micro mesh (n =
-    4096, s = 2), float32, dedup off: K1's large launches equal to the
-    micro stage's chunks, A* of ``sampled`` cells against a float64 engine
-    on the card, u against the float64 solve of its own system, and the
-    micro stage beside the same cells on cell_prec='mg' (``mg_cells`` of
-    them where given), the route such cells took before.  (c) The same on
-    create_unit_cube(6) with a 16³ micro cube (n = 4096, s = 3)."""
+    auto-sized chunk of the 33², 48², 64², 10³, 12³ and 16³ micro meshes,
+    on a ragged 37-cell chunk of 64² (flagship coefficient) and on a
+    mixed-stop 64² chunk (``contrast_coeff``: alternate blocks of
+    contrast-100 cells, held on A* alone, its counts beside the float64
+    plain version's), the iterations of each block side by side; two
+    identical launches on the 64² chunk bitwise equal; 33², 64² and 16³
+    timed, with the bound and the float32 Minv product as yardstick.  (b)
+    PoissonHMM with the flagship coefficient on a 128² macro mesh and a 64²
+    micro mesh (n = 4096, s = 2), float32, dedup off: K1's large launches
+    equal to the micro stage's chunks, A* of ``sampled`` cells against a
+    float64 engine on the card, u against the float64 solve of its own
+    system, and the micro stage beside the same cells on cell_prec='mg'
+    (``mg_cells`` of them where given), the route such cells took before.
+    (c) The same on create_unit_cube(6) with a 16³ micro cube (n = 4096,
+    s = 3)."""
     import numpy as np
     import torch
 
@@ -4010,14 +4057,18 @@ def phase_k1_large(device, sizes2=(33, 48, 64), sizes3=(10, 12, 16),
               + [(f"3d{m}", lambda m=m: create_unit_cube(m)) for m in sizes3])
     for name, make in meshes:
         eng = MicroEngine(make(), device=device, dtype=torch.float32)
-        cases = [(name, eng._auto_chunk(1 << 20))]
+        C = eng._auto_chunk(1 << 20)
+        cases = [(name, rng.uniform(0, 1, (C, eng.d)), None)]
         if name == f"2d{max(sizes2)}":
-            cases.append((f"{name}_C37", 37))
-        for tag, C in cases:
-            centers = torch.as_tensor(rng.uniform(0, 1, (C, eng.d)), dtype=torch.float32,
-                                      device=device)
+            cb = stencil_pcg.launch_config(eng.n_reduced, eng.s, C).cells_per_block
+            cases += [(f"{name}_C37", rng.uniform(0, 1, (37, eng.d)), None),
+                      (f"{name}_mixed", _mixed_centers(C, cb, rng), contrast_coeff)]
+        for tag, cen, coeff in cases:
+            centers = torch.as_tensor(cen, dtype=torch.float32, device=device)
             before = stencil_pcg.KERNEL.counts[large]
-            rec, ok = _k1_case(eng, centers, timed=tag in timed)
+            rec, ok = _k1_case(eng, centers, timed=tag in timed, coeff=coeff,
+                               repeat=tag == f"2d{max(sizes2)}",
+                               iter_slack=None if coeff else K1_ITER_SLACK)
             rec = {"phase": "k1_large", "case": tag, "card": _card_line(),
                    "large_launches": stencil_pcg.KERNEL.counts[large] - before, **rec}
             if "ms" in rec:
@@ -4025,7 +4076,7 @@ def phase_k1_large(device, sizes2=(33, 48, 64), sizes3=(10, 12, 16),
             emit(rec)
             if tag == "2d64":
                 K1_LARGE.update(rec)
-            if not (ok and rec["stages"] > 0 and rec["large_launches"] >= 1):
+            if not (ok and rec["large"] and rec["large_launches"] >= 1):
                 failed.append(tag)
         del eng
         torch.cuda.empty_cache()
@@ -4056,7 +4107,8 @@ def phase_k1_large(device, sizes2=(33, 48, 64), sizes3=(10, 12, 16),
         cfg = stencil_pcg.launch_config(eng.n_reduced, eng.s, chunk)
         rec.update({"card": _card_line(), "n": eng.n_reduced, "s": eng.s, "chunk": chunk,
                     "chunks": -(-nc // chunk), "launches": counts,
-                    "cells_per_block": cfg.cells_per_block, "cluster": cfg.cluster,
+                    "cells_per_block": cfg.cells_per_block, "tile_cols": cfg.tile_cols,
+                    "grid": cfg.grid,
                     "cell_solves_per_s": nc * eng.s / rec["micro_seconds"]})
         # A* of sampled cells against a float64 engine on the card
         A32 = hmm.homogenized_tensors()

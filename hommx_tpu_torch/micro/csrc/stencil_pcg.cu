@@ -53,37 +53,42 @@
 //
 // The large instance (stencil_pcg_large_kernel) takes n above the small
 // one's reach (1198, 1024, 896 at s = 1, 2, 3) up to 4096: the 64² square,
-// the 16³ cube.  There a Minv slab of n rows no longer fits beside R and P,
-// and what bounds the product is the rate at which an SM takes in Minv
-// (tools/k1_probe.py --large on the H100, PERF.md):
+// the 16³ cube.  There Minv (up to 64 MB) no longer fits beside a block's
+// vectors, and a design that streams all of Minv through every block of 16
+// columns is bound by the rate at which an SM takes in Minv (PR 17's, in
+// PERF.md): each Minv float feeds 16 FMAs.  So the product no longer
+// follows the stop blocks:
 //
-//  - Minv streams in 16 KB tiles (BM rows x BK k, BM = 4096 / BK) through
-//    a ring of buffers that one producer lane fills with cp.async.bulk
-//    copies (full barriers count the bytes, used barriers the consumer
-//    warps).  A CTA so fed took in 27-36 GB/s whatever the ring's depth
-//    (4 to 13 buffers), and multicasting each tile to a cluster of CTAs
-//    that solved their own cells ran no faster: the SM's intake is the
-//    bound, not L2 or HBM traffic.  With the product's arithmetic left
-//    out an apply still takes ~3/4 of its time (two CTAs an SM take in
-//    ~47 GB/s), and a second producer lane gains nothing.  The tile layout [k group][row][4]
-//    (the wrapper's _tiled) makes a thread's float4 4 k of one of its 4
-//    rows of the panel; with its 4 columns that is 64 FMAs a float4 pair.
-//  - So a block of CB cells (16 columns; 12 at s = 3, none of them
-//    padding) is a cluster of CS CTAs that split its rows: each streams
-//    only its n / CS rows of Minv, with the rows of R each tile multiplies
-//    in the same buffer, and the CTAs add their column sums through
-//    distributed shared memory in rank order, so every CTA holds the same
-//    totals and takes the same stop decision.  CS grows until a chunk
-//    puts 1.5 CTAs on every SM (1 at 33², 4 at 64², 8 at 16³): against one
-//    CTA a block that made 64² 2.6x and 16³ 5.5x faster.
-//  - R, P, X and Z live in a per-block state in global memory (L2): each
-//    CTA writes only its rows; the stencil matvec reads P's neighbour rows
-//    of any CTA through L2, recomputed in the update pass rather than kept
-//    (n K gathers beside the n^2 product); cluster barriers order R's rows
-//    before a product (with a proxy fence for the bulk copies) and P's
-//    before a matvec.
+//  - One cooperative launch of co-resident CTAs runs the chunk's whole PCG
+//    in phases split by a grid barrier (each CTA releases a flag, the first
+//    CTA acquires them all and releases a generation word; a wait past
+//    ~2^34 cycles traps): the product Z = Minv R; K P and its dots; the
+//    updates of X and R; the stop decisions and the new direction.
+//  - The product is one GEMM over the chunk's columns, across blocks: tiles
+//    of 128 rows x BN columns (128 at s = 1, 2, 48 at s = 3: whole blocks)
+//    with 8 x 8 accumulators a thread (16 FMAs a float4 read from shared
+//    memory).  Minv (pre-tiled, [row tile][k tile][k][row]) and R ([column
+//    tile][row][BN]) come in 16-k tiles through a ring of stages that one
+//    lane fills with cp.async.bulk copies (full barriers count the bytes,
+//    used barriers the warps).  Each Minv float a CTA takes in feeds BN
+//    FMAs.  The tiles' k tiles are split evenly over the CTAs (stream-K),
+//    so no CTA waits on a last tile; the CTA that completes a tile adds its
+//    k pieces up in order.  Column tiles whose blocks have all stopped are
+//    skipped.
+//  - The vector passes split the rows of the running blocks evenly over the
+//    CTAs the same way; the stencil gathers P's neighbour rows through L2.
+//    R, P, X, K P and the product's pieces live in a per-chunk state in
+//    global memory in the column-tile layout; the best X goes to the
+//    output directly.
+//  - Dots: every tile and segment writes its column sums; the CTA that
+//    completes a column tile (a block) adds them up in row order, so every
+//    CTA takes the same stop decision for a block and two identical
+//    launches are bitwise equal.  The block's first segment owns its
+//    per-block state (stall count, iterations, the iteration it stopped
+//    at); per-column scalars are kept by parity, so a phase never writes
+//    what another CTA may still read.
 //  - The product stays in the kernel's own full-f32 FMAs (2 n^2 s flops a
-//    cell and iteration).
+//    cell and iteration): no TF32, no library call.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -521,21 +526,32 @@ int launch(const void* ws, const void* F, const void* Minv, const void* nbr, voi
 
 // ---------------------------------------------------------------------------
 // The large instance (see the header): semantics per column and per block
-// are those of the small instance; a block is a cluster of CS CTAs, each
-// owning a contiguous range of its rows (whole panels of BM rows).
+// are those of the small instance; the product's tiles span blocks, the
+// vector passes take one block's slice of rows.
 
-constexpr int LTILE = 4096;      // floats per Minv tile (16 KB): BM rows x BK columns (k)
-constexpr int LTM = 4;           // rows of a panel a thread holds
-constexpr int LMAX_STAGES = 16;  // ring buffers
-constexpr int LMAX_NC = 16;      // columns a block: s CB in {4, 8, 12, 16}
-constexpr int LMAX_CS = 8;       // CTAs a cluster
+constexpr int LBM = 128;          // rows of a product tile (Minv rows)
+constexpr int LBK = 16;           // k of a ring stage
+constexpr int LSL = 256;          // rows a group of the vector passes takes at once
+constexpr int LMAX_STAGES = 8;    // ring stages
+constexpr int LMAX_CT = 1024;     // column tiles a chunk
+constexpr int LMAX_NC = 16;       // columns a block: s CB in {12, 16}
+constexpr int LIVE = 0x7fffffff;  // stopped[b] of a block that has not stopped
+constexpr int LCTL = 16;          // control words before the grid barrier's flags
+constexpr int LMAX_GRID = 2048;   // CTAs: one flag each
+constexpr int LPIECES = 8;        // k pieces a product tile at most
+constexpr int LEPIECES = 32;      // segments a block of the vector passes at most
 
-// With K1L_PROBE defined (tools/k1_probe.py --large), thread 0 and the
-// producer lane of every CTA add up clock64 cycles: 0 in the products, 1 of
-// them waiting for tiles, 2 the producer's, 3 of them waiting for the
-// consumers, 4 in the stencil passes, 5 in all; 6 the applies.  K1L_NO_FMA
-// leaves the product's arithmetic out (wrong results, the tiles' intake
-// alone: only the cycles mean anything).
+// CTAs an SM that __launch_bounds__ asks of the registers: one at 256
+// threads (two, at 128 registers a thread, spilled ~2 KB and ran 5-13%
+// slower on the H100, tools/k1_probe.py), four at 96 (168 registers)
+__host__ __device__ constexpr int large_min_blocks(int BN) { return BN == 128 ? 1 : 4; }
+
+// With K1L_PROBE defined (tools/k1_probe.py --large), thread 0 of every CTA
+// adds up clock64 cycles: 0 in the products (their ring waits, the
+// producer's and the epilogues included), 1 of them waiting for tiles, 2
+// waiting at grid barriers, 3 in the stencil passes, 4 in the other vector
+// passes, 5 in the dots (the column scalars and the column sums of the
+// passes), 6 in all; 7 counts the ring stages it consumed.
 #ifdef K1L_PROBE
 __device__ long long g_k1l_cycles[8192 * 8];
 #define K1L_NOW(v) const long long v = clock64();
@@ -599,487 +615,805 @@ __device__ __forceinline__ void fence_async_global() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// every thread of every CTA of the cluster; orders memory cluster-wide
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-
-// the float at p's offset in the shared memory of cluster rank `rank`
-__device__ __forceinline__ float ld_rank(const float* p, unsigned rank) {
-  float v;
-  asm volatile(
-      "{\n.reg .b32 ra;\n"
-      "mapa.shared::cluster.u32 ra, %1, %2;\n"
-      "ld.shared::cluster.f32 %0, [ra];\n}\n"
-      : "=f"(v)
-      : "r"(smem_addr(p)), "r"(rank)
-      : "memory");
-  return v;
-}
-
+// state that other CTAs write is read through L2 (ld.global.cg)
 __device__ __forceinline__ float4 ldcg4(const float* p) {
   return __ldcg(reinterpret_cast<const float4*>(p));
 }
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float el(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
 
-// The producer of one apply: lane 0 of the last warp keeps the ring full.
-// Tile g (numbered on from apply to apply) goes to buffer g % S once this
-// CTA's consumers are done with tile g - S; a buffer holds the Minv tile
-// (this CTA's rows, k tile kt) and the rows kt BK .. kt BK + BK of R.
-__device__ __forceinline__ void produce(const float* __restrict__ Mt, const float* Rg,
-                                        float* Ms, unsigned long long* full_b,
-                                        unsigned long long* used_b, unsigned g0, int T,
-                                        int KT, int pt0, int BK, int NC, int S, int sst,
-                                        long long& waited) {
-  fence_async_global();
-  for (int tt = 0; tt < T; ++tt) {
-    const unsigned g = g0 + tt, use = g / S;
-    const int st = g % S, kt = tt % KT;
-    if (use > 0) {
-      K1L_NOW(w0)
-      mbar_wait(&used_b[st], (use - 1) & 1);
-      K1L_ADD(waited, w0)
-    }
-    mbar_arrive_tx(&full_b[st], (LTILE + BK * NC) * 4);
-    float* const buf = Ms + st * sst;
-    bulk_load(buf, Mt + ((size_t)(pt0 + tt / KT) * KT + kt) * LTILE, LTILE * 4, &full_b[st]);
-    bulk_load(buf + LTILE, Rg + (size_t)kt * BK * NC, BK * NC * 4, &full_b[st]);
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// Spin until *p reaches v; a wait past ~2^34 cycles (seconds) traps.
+__device__ __forceinline__ void spin_until(const unsigned* p, unsigned v, int sleep_ns) {
+  const long long t0 = clock64();
+  while (ld_acquire(p) != v) {
+    if (clock64() - t0 > (1LL << 34)) __trap();
+    if (sleep_ns) __nanosleep(sleep_ns);
   }
 }
 
-// acc[u][:] = (Minv R)[p0 + RG u, j0:j0+4] for one panel of BM = LTILE / BK
-// rows: its KT tiles g0 .. g0 + KT - 1 from the ring.  The tile layout is
-// [k group][row][4]: a thread's float4 holds 4 k of one row.
-template <int BK>
-__device__ __forceinline__ void prec_panel(const float* Ms, unsigned long long* full_b,
-                                           unsigned long long* used_b, unsigned g0, int KT,
-                                           int S, int sst, int NC, int rg, int RG, int j0,
-                                           int lane, float (&acc)[LTM][4], long long& waited) {
-  constexpr int BM = LTILE / BK;
+// Every thread of every CTA of the (cooperative, co-resident) grid.  Each
+// CTA but the first releases its flag (ctl[LCTL + CTA]) at generation gen
+// + 1; the first CTA's threads acquire all flags, then it releases the
+// generation word ctl[0] that the others acquire: no atomic, no CTA
+// waits on a contended address but ctl[0].  gen (every thread's) counts
+// the barriers passed.
+__device__ __forceinline__ void grid_sync(unsigned* ctl, unsigned& gen, long long& waited) {
+  fence_async_global();  // this thread's writes before other CTAs' bulk copies
+  __syncthreads();
+  K1L_NOW(w0)
+  const unsigned target = ++gen;
+  if (blockIdx.x == 0) {
+    for (unsigned i = threadIdx.x + 1; i < gridDim.x; i += blockDim.x)
+      spin_until(ctl + LCTL + i, target, 0);
+    __syncthreads();
+    if (threadIdx.x == 0) st_release(ctl, target);
+  } else if (threadIdx.x == 0) {
+    __threadfence();
+    st_release(ctl + LCTL + blockIdx.x, target);
+    spin_until(ctl, target, 32);
+  }
+  __syncthreads();
+  K1L_ADD(waited, w0)
+}
+
+struct LargeArgs {
+  const float* ws;  // (K, n, Cp) stencil weights
+  const float* F;   // (s, n, Cp) right-hand sides
+  const float* Mt;  // Minv tiled: [RT][KT][LBK][LBM], zero past n
+  const int* nbr;   // (K, n) neighbour table
+  float* bX;        // (s, n, Cp) best iterate
+  int* iters;       // (Cp / CB,) iterations a block
+  float* state;     // the chunk's state (see hommx_stencil_pcg_large_f32)
+  int K, n, s, Cp, CB;
+  int stages;  // ring stages
+  float tol;
+  int maxiter;
+};
+
+// acc += (the stage's 16 k of Minv)^T-tile x (its 16 rows of R): a thread's
+// rows 4 ty + (0..3), 64 + 4 ty + (0..3) and columns 4 tx + (0..3),
+// BN / 2 + 4 tx + (0..3).
+template <int BN>
+__device__ __forceinline__ void mma_stage(const float* As, const float* Bs, int ty, int tx,
+                                          float (&acc)[8][8]) {
 #pragma unroll
-  for (int u = 0; u < LTM; ++u)
+  for (int kk = 0; kk < LBK; ++kk) {
+    const float4 a0 = ld4(As + kk * LBM + 4 * ty), a1 = ld4(As + kk * LBM + 64 + 4 * ty);
+    const float4 b0 = ld4(Bs + kk * BN + 4 * tx), b1 = ld4(Bs + kk * BN + BN / 2 + 4 * tx);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[u][e] = 0.f;
-  for (int kt = 0; kt < KT; ++kt) {
-    const unsigned g = g0 + kt;
-    const int st = g % S;
-    K1L_NOW(w0)
-    mbar_wait(&full_b[st], (g / S) & 1);
-    K1L_ADD(waited, w0)
-    const float* M = Ms + st * sst + rg * 4;
-    const float* R = Ms + st * sst + LTILE + j0;
-#ifndef K1L_NO_FMA
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int q = 0; q < BK / 4; ++q) {
-      float4 a[LTM];
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// What a product phase of the large kernel reads: the chunk's sizes, the
+// state's arrays, the CTA's ring and barriers, and the split.
+struct LargeProd {
+  const float* Mt;
+  const float* R;
+  float* W;
+  float* Pp;
+  float* Tp;
+  int* done_t;
+  int* done_p;
+  unsigned long long* full_b;
+  unsigned long long* used_b;
+  const unsigned short* act;  // the listed column tiles
+  int* last_s;                // shared: whether this CTA completed a count
+  long long* cyc;             // the probe's counters (K1L_PROBE)
+  size_t A;                   // floats an array of the state
+  long long U;                // the split's units
+  int n, npad, KT, RT, CT, NCt, CTa, Gp, NST;
+};
+
+// Whether this CTA, adding `part` to `done` after writing its sums, brings
+// it to `whole` (thread 0's atomic after a fence; the last resets the
+// count): every thread learns it.
+__device__ __forceinline__ bool large_last_in(int* done, int whole, int part, int* last_s) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const bool last = atomicAdd(done, part) == whole - part;
+    if (last) *done = 0;
+    *last_s = last;
+  }
+  __syncthreads();
+  const bool last = *last_s != 0;
+  if (last) __threadfence();
+  return last;
+}
+
+// One product phase of the large kernel: Z = Minv R over the listed column
+// tiles, split over the CTAs (stream-K): the tiles tau = rt CTa + cti, each
+// of KT k tiles, are U units u = tau KT + kt; CTA c < Gp takes units [c U /
+// Gp, (c + 1) U / Gp), so every CTA gets the same work to a unit, and with
+// Gp <= 6 RT CTa a tile's units fall to at most LPIECES CTAs, its k
+// pieces.  Piece pc of a tile writes its part to W[pc]; the CTA that
+// completes the tile adds the pieces up in piece order into W[0] (a tile
+// of one piece is whole at once).  With the whole Z of a tile, mode 1 adds
+// the column sums of <R, Z> to Pp[0], mode 2 also those of |R|^2 to Pp[1];
+// the CTA that completes a column tile adds up its sums in row-tile order
+// into Tp.  Returns the ring's counts of stages consumed and issued.
+template <int BN>
+__device__ __forceinline__ uint2 large_product(const LargeProd& g, int mode, unsigned gcons,
+                                            unsigned gprod) {
+  constexpr int T = 2 * BN, TX = BN / 8;
+  constexpr int SA = LBK * LBM, SB = LBK * BN, SST = SA + SB;
+  const int t = threadIdx.x, lane = t & 31, ty = t / TX, tx = t % TX, c = blockIdx.x;
+  const int n = g.n, KT = g.KT, CTa = g.CTa, Gp = g.Gp, NST = g.NST;
+  const long long U = g.U;
+  auto owner = [&](long long u) { return (int)(((u + 1) * Gp - 1) / U); };  // unit u's CTA
+  extern __shared__ float4 smem4[];  // the kernel's: NST ring stages, then the column sums
+  float* const ring = reinterpret_cast<float*>(smem4);
+  float* const red = ring + (size_t)NST * SST;
+  (void)T;
+  K1L_NOW(p0)
+  const long long lo = c < Gp ? (long long)c * U / Gp : 0;
+  const long long hi = c < Gp ? (long long)(c + 1) * U / Gp : 0;
+  long long pu = lo;  // the producer's (thread 0's) next unit
+  auto issue = [&]() {
+    if (pu >= hi) return;
+    const int tau = (int)(pu / KT), kt = (int)(pu % KT);
+    const int rt = tau / CTa, ct = g.act[tau % CTa];
+    const unsigned h = gprod++;
+    const int st = h % NST;
+    if (h >= (unsigned)NST) mbar_wait(&g.used_b[st], ((h / NST) - 1) & 1);
+    mbar_arrive_tx(&g.full_b[st], SST * 4);
+    float* const buf = ring + st * SST;
+    bulk_load(buf, g.Mt + ((size_t)rt * KT + kt) * SA, SA * 4, &g.full_b[st]);
+    bulk_load(buf + SA, g.R + ((size_t)ct * g.npad + (size_t)kt * LBK) * BN, SB * 4,
+              &g.full_b[st]);
+    ++pu;
+  };
+  if (t == 0) {
+    fence_async_global();
+    for (int i = 0; i < NST - 1; ++i) issue();
+  }
+  for (long long u = lo; u < hi;) {
+    const int tau = (int)(u / KT), k0 = (int)(u % KT);
+    const int k1 = (int)min((long long)KT, k0 + (hi - u));
+    const int rt = tau / CTa, cti = tau % CTa, ct = g.act[cti];
+    const int pc = c - owner((long long)tau * KT);
+    u += k1 - k0;
+    float acc[8][8];
 #pragma unroll
-      for (int u = 0; u < LTM; ++u) a[u] = ld4(M + (q * BM + RG * u) * 4);
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        const float4 r = ld4(R + (4 * q + d) * NC);
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int kt = k0; kt < k1; ++kt) {
+      if (t == 0) issue();  // into the stage the previous step freed
+      const unsigned gs = gcons++;
+      const int st = gs % NST;
+      K1L_NOW(w0)
+      mbar_wait(&g.full_b[st], (gs / NST) & 1);
+      K1L_ADD(g.cyc[1], w0)
+      mma_stage<BN>(ring + st * SST, ring + st * SST + SA, ty, tx, acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&g.used_b[st]);
+#ifdef K1L_PROBE
+      g.cyc[7] += 1;
+#endif
+    }
+    // this piece's Z into W[pc]
+    const size_t tile = (size_t)ct * g.npad * BN;
+    auto rowof = [&](int i) { return rt * LBM + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4); };
 #pragma unroll
-        for (int u = 0; u < LTM; ++u) {
-          const float m = d == 0 ? a[u].x : d == 1 ? a[u].y : d == 2 ? a[u].z : a[u].w;
-          acc[u][0] = fmaf(m, r.x, acc[u][0]);
-          acc[u][1] = fmaf(m, r.y, acc[u][1]);
-          acc[u][2] = fmaf(m, r.z, acc[u][2]);
-          acc[u][3] = fmaf(m, r.w, acc[u][3]);
+    for (int i = 0; i < 8; ++i) {
+      const int p = rowof(i);
+      if (p >= n) continue;
+      float* const zr = g.W + (size_t)pc * g.A + tile + (size_t)p * BN;
+      st4(zr + 4 * tx, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+      st4(zr + BN / 2 + 4 * tx, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
+    }
+    const int np = owner((long long)(tau + 1) * KT - 1) - owner((long long)tau * KT) + 1;
+    bool whole = np == 1;
+    if (!whole && large_last_in(g.done_t + (size_t)rt * g.CT + ct, KT, k1 - k0, g.last_s)) {
+      whole = true;  // every piece is in: Z = their sum in piece order, into W[0] and acc
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int p = rowof(i);
+        if (p >= n) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const size_t o = tile + (size_t)p * BN + h * (BN / 2) + 4 * tx;
+          float4 z = ldcg4(g.W + o);
+          for (int i2 = 1; i2 < np; ++i2) {
+            const float4 v = ldcg4(g.W + (size_t)i2 * g.A + o);
+            z = make_float4(z.x + v.x, z.y + v.y, z.z + v.z, z.w + v.w);
+          }
+          st4(g.W + o, z);
+          acc[i][4 * h] = z.x;
+          acc[i][4 * h + 1] = z.y;
+          acc[i][4 * h + 2] = z.z;
+          acc[i][4 * h + 3] = z.w;
         }
       }
     }
-#endif
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&used_b[st]);
-  }
-}
-
-// (K P)[p, j0:j0+4] through the neighbour table; P's rows belong to any CTA
-// of the cluster, so they are read from L2.  cell[e] is column j0 + e's
-// cell (its weight column).
-__device__ __forceinline__ void kp_row(const float* __restrict__ ws,
-                                       const int* __restrict__ nbr, const float* Pg, int K,
-                                       int n, int NC, int Cp, int j0, const int (&cell)[4],
-                                       int p, float (&o)[4]) {
+    if (whole && mode) {  // the column sums of the tile's rows
+      K1L_NOW(s0)
+      float d0[8], d1[8];
 #pragma unroll
-  for (int e = 0; e < 4; ++e) o[e] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const size_t row = (size_t)k * n + p;
-    const float4 v = ldcg4(Pg + (size_t)__ldg(nbr + row) * NC + j0);
-    const float* w = ws + row * Cp;
-    o[0] = fmaf(__ldg(w + cell[0]), v.x, o[0]);
-    o[1] = fmaf(__ldg(w + cell[1]), v.y, o[1]);
-    o[2] = fmaf(__ldg(w + cell[2]), v.z, o[2]);
-    o[3] = fmaf(__ldg(w + cell[3]), v.w, o[3]);
+      for (int j = 0; j < 8; ++j) d0[j] = d1[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int p = rowof(i);
+        if (p >= n) continue;
+        const float4 r0 = ldcg4(g.R + tile + (size_t)p * BN + 4 * tx);
+        const float4 r1 = ldcg4(g.R + tile + (size_t)p * BN + BN / 2 + 4 * tx);
+        const float rv[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          d0[j] += rv[j] * acc[i][j];
+          d1[j] += rv[j] * rv[j];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cc = j < 4 ? 4 * tx + j : BN / 2 + 4 * tx + j - 4;
+        red[(ty * 2 + 0) * BN + cc] = d0[j];
+        red[(ty * 2 + 1) * BN + cc] = d1[j];
+      }
+      __syncthreads();
+      const int q = t / BN, col = t % BN;  // one (quantity, column) a thread
+      float* const pq = g.Pp + (size_t)q * g.RT * g.NCt + (size_t)ct * BN + col;
+      if (q == 0 || mode == 2) {
+        float v = 0.f;
+#pragma unroll
+        for (int y = 0; y < 16; ++y) v += red[(y * 2 + q) * BN + col];
+        pq[(size_t)rt * g.NCt] = v;
+      }
+      if (large_last_in(g.done_p + ct, g.RT, 1, g.last_s) && (q == 0 || mode == 2)) {
+        float v = 0.f;
+        for (int r2 = 0; r2 < g.RT; r2 += 8) {
+          float x[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            x[i] = r2 + i < g.RT ? __ldcg(pq + (size_t)(r2 + i) * g.NCt) : 0.f;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) v += x[i];
+        }
+        g.Tp[(size_t)q * g.NCt + (size_t)ct * BN + col] = v;
+      }
+      __syncthreads();  // red and last_s are the next tile's
+      K1L_ADD(g.cyc[5], s0)
+    }
   }
+  K1L_ADD(g.cyc[0], p0)
+  return make_uint2(gcons, gprod);
 }
 
-// what an apply of the preconditioner does with its rows
-enum class Epi { kFirst, kDirection, kUpdate };
-
-// two CTAs an SM: 96 registers a thread (a few spills) and two producers;
-// 8-11% faster than one CTA at 168 registers (tools/k1_probe.py --large)
-#ifndef K1L_MIN_BLOCKS
-#define K1L_MIN_BLOCKS 2
-#endif
-
-template <int BK>
-__global__ void __launch_bounds__(256 + 32, K1L_MIN_BLOCKS)
-stencil_pcg_large_kernel(const float* __restrict__ ws, const float* __restrict__ F,
-                         const float* __restrict__ Mt, const int* __restrict__ nbr,
-                         float* __restrict__ bX, float* __restrict__ state,
-                         int* __restrict__ iters, int K, int n, int s, int Cp, int CB, int CS,
-                         int S, float tol, int maxiter) {
-  constexpr int BM = LTILE / BK;
+template <int BN, int NC>
+__global__ void __launch_bounds__(2 * BN, large_min_blocks(BN))
+stencil_pcg_large_kernel(const LargeArgs a) {
+  constexpr int T = 2 * BN, TX = BN / 8, NW = T / 32;
+  constexpr int QN = NC / 4, RPP = T / QN, NR = LSL / RPP, BPT = BN / NC;
+  constexpr int SA = LBK * LBM, SB = LBK * BN, SST = SA + SB;  // floats a ring stage
+  static_assert(T % QN == 0 && LSL % RPP == 0 && BN % NC == 0, "tile shape");
   extern __shared__ float4 smem4[];
-  __shared__ float fnorm_s[LMAX_NC], rel_s[LMAX_NC], brel_s[LMAX_NC], rz_s[LMAX_NC];
-  __shared__ float alpha_s[LMAX_NC], beta_s[LMAX_NC];
-  __shared__ int imp_s[LMAX_NC];
-  __shared__ int cont_s, stall_s, k_s;
-  __shared__ float cpart_s[2][2][LMAX_NC];  // this CTA's column sums, by parity
-  __shared__ float tot_s[2][LMAX_NC];       // the cluster's
+  __shared__ unsigned short act_s[LMAX_CT];  // the column tiles with a running block
+  __shared__ float cola_s[NC];               // alpha or beta of the item's columns
+  __shared__ int coli_s[NC];                 // improved
+  __shared__ int nact_s, last_s;
   __shared__ __align__(8) unsigned long long full_b[LMAX_STAGES], used_b[LMAX_STAGES];
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int Tc = blockDim.x - 32, NWc = Tc >> 5;
-  const bool producer = warp == NWc;  // the last warp streams Minv
-  const int NC = s * CB, CG = NC / 4, RG = Tc / CG;
-  const int WC = warp_cols(CG), WR = 32 / WC, RB = RG / WR, CGB = CG / WC;
-  const int cg = (warp % CGB) * WC + lane % WC;  // column group: columns j0..j0+3
-  const int rg = (warp / CGB) * WR + lane / WC;  // rows r0 + rg + RG v
-  const int slot = (warp / CGB) * CG + cg;
-  const int j0 = 4 * cg;
-  const int blk = blockIdx.x / CS;
-  const unsigned rank = cluster_rank();
-  const int npad = ((n + BK - 1) / BK) * BK, KT = npad / BK;
-  // this CTA's rows r0 .. r1: whole panels
-  const int nr = ((n + CS - 1) / CS + BM - 1) / BM * BM;
-  const int r0 = rank * nr, r1 = min(n, r0 + nr);
-  const int pt0 = r0 / BM, PT = (r1 - r0 + BM - 1) / BM, T = PT * KT;
-  const int sst = LTILE + BK * NC;  // floats a ring buffer
+  const int n = a.n, K = a.K, Cp = a.Cp, CB = a.CB, NST = a.stages;
+  const int NB = Cp / CB, CT = (NB + BPT - 1) / BPT, NBs = CT * BPT, NCt = CT * BN;
+  const int npad = (n + LBK - 1) / LBK * LBK, KT = npad / LBK, RT = (n + LBM - 1) / LBM;
+  const int NSLp = (npad + LSL - 1) / LSL;  // I0's slices
   const float shrink = 1.0f - 1e-4f;
-  float* const Ms = reinterpret_cast<float*>(smem4);  // S ring buffers
-  float* const red = Ms + S * sst;                    // RB x CG x 2 x 4 partial sums
-  // the block's state in global memory: R (npad rows), P, X, Z (n x NC each)
-  float* const Rg = state + (size_t)blk * (npad + 3 * n) * NC;
-  float* const Pg = Rg + (size_t)npad * NC;
-  float* const Xg = Pg + (size_t)n * NC;
-  float* const Zg = Xg + (size_t)n * NC;
+  const size_t A = (size_t)CT * npad * BN;  // floats an array of the state
+  // the state: control words (the grid barrier's generation; from LCTL its
+  // flags), then the arrays
+  unsigned* const ctl = reinterpret_cast<unsigned*>(a.state);
+  float* const R = a.state + LCTL + LMAX_GRID;
+  float* const P = R + A;
+  float* const X = P + A;
+  float* const W = X + A;                      // Z by k piece, then whole in the first; K P
+  float* const Pp = W + (size_t)LPIECES * A;   // [2][RT][NCt] the products' sums
+  float* const Pe = Pp + (size_t)2 * RT * NCt;   // [2][LEPIECES][NCt] the passes' sums
+  float* const Tp = Pe + (size_t)2 * LEPIECES * NCt;  // [2][NCt] their totals
+  float* const Te = Tp + 2 * NCt;                    // [2][NCt]
+  float* const fnorm = Te + 2 * NCt;                 // [NCt]
+  float* const rzv = fnorm + NCt;                    // [2][NCt] by parity
+  float* const brelv = rzv + 2 * NCt;                // [2][NCt] by parity
+  int* const stopped = reinterpret_cast<int*>(brelv + 2 * NCt);  // [NBs]
+  int* const stall = stopped + NBs;
+  int* const kcnt = stall + NBs;
+  int* const done_e = kcnt + NBs;  // [NBs] a block's rows whose sums are in
+  int* const done_p = done_e + NBs;  // [CT] a column tile's row tiles whose sums are in
+  int* const done_t = done_p + CT;   // [RT CT] a product tile's k tiles done
+  float* const ring = reinterpret_cast<float*>(smem4);  // NST stages
+  float* const red = ring + (size_t)NST * SST;          // 32 BN floats of column sums
 
-  // column j = i CB + c: right-hand side i of the block's cell c; fo[e] + p Cp
-  // is column j0 + e's element at row p of F and of bX (s, n, Cp)
-  int cell[4];
-  size_t fo[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int j = j0 + e;
-    cell[e] = blk * CB + j % CB;
-    fo[e] = (size_t)(j / CB) * n * Cp + cell[e];
-  }
+  // the product's thread: rows 4 ty + (0..3) and 64 + 4 ty + (0..3) of its
+  // tile, columns 4 tx + (0..3) and BN / 2 + 4 tx + (0..3)
+  const int ty = t / TX, tx = t % TX;
+  // the passes' thread: column quad qd of the block, rows r + RPP u of a group
+  const int qd = t % QN, r = t / QN;
+  // the state's element (p, quad qd of block b), and F's and bX's
+  auto sidx = [&](int b, int p) -> size_t {
+    const int gc = b * NC + 4 * qd;
+    return ((size_t)(gc / BN) * npad + p) * BN + gc % BN;
+  };
+  auto fidx = [&](int b, int p) -> size_t {
+    const int j = 4 * qd;
+    return ((size_t)(j / CB) * n + p) * Cp + (size_t)b * CB + j % CB;
+  };
 
+  long long cyc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  K1L_NOW(c_start)
   if (t == 0) {
-    for (int i = 0; i < S; ++i) {
-      mbar_init(&full_b[i], 1);    // the producer's arrival with the bytes
-      mbar_init(&used_b[i], NWc);  // every consumer warp done with the buffer
+    for (int i = 0; i < NST; ++i) {
+      mbar_init(&full_b[i], 1);   // the producer's arrival with the bytes
+      mbar_init(&used_b[i], NW);  // every warp done with the stage
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  long long cyc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  K1L_NOW(c_start)
+  __syncthreads();
+  unsigned gen = 0;               // grid barriers passed
+  unsigned gcons = 0, gprod = 0;  // ring stages consumed; issued (thread 0's)
 
-  // Z = Minv R over this CTA's panels, and what `epi` does with their rows;
-  // part[q][e] gathers the thread's column partial sums
-  unsigned gbase = 0;
-  float part[2][4];
-  auto apply = [&](Epi epi) {
-    K1L_NOW(a0)
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[q][e] = 0.f;
-    if (producer) {
-      if (lane == 0)
-        produce(Mt, Rg, Ms, full_b, used_b, gbase, T, KT, pt0, BK, NC, S, sst, cyc[3]);
-      __syncwarp();
-      K1L_ADD(cyc[2], a0)
-    } else {
-      for (int pt = 0; pt < PT; ++pt) {
-        float acc[LTM][4];
-        prec_panel<BK>(Ms, full_b, used_b, gbase + pt * KT, KT, S, sst, NC, rg, RG, j0, lane,
-                       acc, cyc[1]);
-#pragma unroll
-        for (int u = 0; u < LTM; ++u) {
-          const int p = r0 + pt * BM + rg + RG * u;
-          if (p >= r1) continue;
-          float* const prow = Pg + (size_t)p * NC + j0;
-          if (epi == Epi::kFirst) {  // X = best X = P = Z
-            st4(Xg + (size_t)p * NC + j0, mk4(acc[u]));
-            st4(prow, mk4(acc[u]));
-#pragma unroll
-            for (int e = 0; e < 4; ++e) bX[fo[e] + (size_t)p * Cp] = acc[u][e];
-            continue;
+  // the column tiles with a block that runs in iteration it (warp 0; the
+  // same list in every CTA)
+  auto build_act = [&](int it) {
+    if (warp == 0) {
+      int cnt = 0;
+      for (int c0 = 0; c0 < CT; c0 += 32) {
+        const int ct = c0 + lane;
+        bool on = false;
+        if (ct < CT)
+          for (int q = 0; q < BPT; ++q) {
+            const int b = ct * BPT + q;
+            on = on || (b < NB && __ldcg(stopped + b) >= it);
           }
-          const float4 r4 = ld4(Rg + (size_t)p * NC + j0);
-          const float r[4] = {r4.x, r4.y, r4.z, r4.w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[0][e] += r[e] * acc[u][e];
-          if (epi == Epi::kDirection) {  // P = Z; <R, Z>
-            st4(prow, mk4(acc[u]));
-          } else {  // Z kept for P's update; <R, Z>, |R|^2
-            st4(Zg + (size_t)p * NC + j0, mk4(acc[u]));
-#pragma unroll
-            for (int e = 0; e < 4; ++e) part[1][e] += r[e] * r[e];
-          }
-        }
+        const unsigned m = __ballot_sync(FULL, on);
+        if (on) act_s[cnt + __popc(m & ((1u << lane) - 1u))] = static_cast<unsigned short>(ct);
+        cnt += __popc(m);
       }
-      K1L_ADD(cyc[0], a0)
+      if (lane == 0) nact_s = cnt;
     }
-    gbase += T;
-    cyc[6] += 1;
+    __syncthreads();
   };
 
-  // the cluster's sums of Q quantities per column: each CTA's warp 0 adds
-  // up its row blocks, then every CTA adds the CTAs' sums in rank order, so
-  // all of them hold the same totals (tot_s) and take the same decisions
-  int par = 0;
-  auto cluster_sums = [&](int Q) {
-    __syncthreads();
-    if (warp == 0)
-      for (int j = lane; j < NC; j += 32)
-        for (int q = 0; q < Q; ++q) cpart_s[par][q][j] = colsum(red, Q, q, j, RB, CG);
-    cluster_sync();
-    if (warp == 0)
-      for (int j = lane; j < NC; j += 32)
-        for (int q = 0; q < Q; ++q) {
-          float v = 0.f;
-          for (int r = 0; r < CS; ++r) v += ld_rank(&cpart_s[par][q][j], r);
-          tot_s[q][j] = v;
-        }
-    par ^= 1;
+  // The product's split over the CTAs (large_product)
+  int CTa = 0, Gp = 0;
+  long long U = 1;
+  auto split = [&]() {
+    CTa = nact_s;
+    U = (long long)RT * CTa * KT;
+    Gp = min((int)gridDim.x, 6 * RT * CTa);
   };
-  // warp 0: the lockstep stop test on the block's worst column
-  auto decide = [&](float m, int nan, int any, bool step) {
+
+  // a product phase (large_product)
+  auto product = [&](int mode) {
+    const LargeProd g = {a.Mt, R, W, Pp, Tp, done_t, done_p, full_b, used_b, act_s, &last_s, cyc,
+                         A, U, n, npad, KT, RT, CT, NCt, CTa, Gp, NST};
+    const uint2 gc = large_product<BN>(g, mode, gcons, gprod);
+    gcons = gc.x;
+    gprod = gc.y;
+  };
+
+  // The vector passes' split, as the product's: the block slots of the
+  // listed column tiles, n rows each, are Ue block-rows; CTA c < Ge takes
+  // [c Ue / Ge, (c + 1) Ue / Ge), at most LEPIECES CTAs a block (Ge <= 30
+  // slots).  body(b, r0, r1, pc, np): rows r0 .. r1 of block b, the
+  // segment's place pc among the np of the block.
+  auto segments = [&](auto&& body) {
+    const int nbl = CTa * BPT;
+    const long long Ue = (long long)nbl * n;
+    const int Ge = min((int)gridDim.x, 30 * nbl), c = blockIdx.x;
+    auto own = [&](long long u) { return (int)(((u + 1) * Ge - 1) / Ue); };
+    if (c >= Ge) return;
+    const long long hi = (long long)(c + 1) * Ue / Ge;
+    for (long long u = (long long)c * Ue / Ge; u < hi;) {
+      const int bi = (int)(u / n), r0 = (int)(u % n);
+      const int r1 = (int)min((long long)n, r0 + (hi - u));
+      const int first = own((long long)bi * n);
+      const int np = own((long long)bi * n + n - 1) - first + 1;
+      u += r1 - r0;
+      body(act_s[bi / BPT] * BPT + bi % BPT, r0, r1, c - first, np);
+    }
+  };
+  // The column sums s0 (and s1) of the segment's threads -> Pe[q][pc][b's
+  // columns]; the CTA that completes the block's rows adds its np pieces up
+  // in order into Te.
+  auto seg_sums = [&](int b, int rows, int pc, int np, float4 s0, float4 s1, int Q) {
+    K1L_NOW(d0)
+    float4* const r4 = reinterpret_cast<float4*>(red);
+    r4[2 * t] = s0;
+    r4[2 * t + 1] = s1;
+    __syncthreads();
+    const int q = t / NC, j = t % NC;
+    float* const pe = Pe + (size_t)q * LEPIECES * NCt + (size_t)b * NC + j;
+    if (t < Q * NC) {
+      float v = 0.f;
+#pragma unroll 8
+      for (int rr = 0; rr < RPP; ++rr) v += el(r4[2 * (rr * QN + j / 4) + q], j & 3);
+      pe[(size_t)pc * NCt] = v;
+    }
+    if (large_last_in(done_e + b, n, rows, &last_s) && t < Q * NC) {
+      float v = 0.f;
+      for (int i0 = 0; i0 < np; i0 += 8) {
+        float x[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) x[i] = i0 + i < np ? __ldcg(pe + (size_t)(i0 + i) * NCt) : 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v += x[i];
+      }
+      Te[(size_t)q * NCt + (size_t)b * NC + j] = v;
+    }
+    __syncthreads();  // red and last_s are the next segment's
+    K1L_ADD(cyc[5], d0)
+  };
+  auto live = [&](int b, int it) { return b < NB && __ldcg(stopped + b) >= it; };
+  // the thread's rows of a group: p0 + r + RPP u, u < NR
+  auto grp = [&](int p0, int u) { return p0 + r + RPP * u; };
+  // (K V) at the thread's rows of a group of block b (those past pend
+  // computed on row pend - 1, never stored): the weights of the block's
+  // cells, V's neighbour rows through L2, all rows of one k at once, the
+  // next k's neighbours loaded with this k's values
+  auto kv = [&](const float* V, int b, int p0, int pend, float4 (&o)[NR]) {
+    const size_t wc = (size_t)b * CB + (4 * qd) % CB;
+    const float* const Vc = V + sidx(b, 0);
+    size_t rw[NR];  // row k n + p of the weights and the table
+    int q[NR];
+#pragma unroll
+    for (int u = 0; u < NR; ++u) {
+      o[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      rw[u] = min(grp(p0, u), pend - 1);
+      q[u] = __ldg(a.nbr + rw[u]);
+    }
+    for (int k = 0; k < K; ++k) {
+      float4 w[NR], v[NR];
+      int qn[NR];
+#pragma unroll
+      for (int u = 0; u < NR; ++u) {
+        w[u] = ldg4(a.ws + rw[u] * Cp + wc);
+        v[u] = ldcg4(Vc + (size_t)q[u] * BN);
+        rw[u] += n;
+        qn[u] = k + 1 < K ? __ldg(a.nbr + rw[u]) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < NR; ++u) {
+        o[u].x = fmaf(w[u].x, v[u].x, o[u].x);
+        o[u].y = fmaf(w[u].y, v[u].y, o[u].y);
+        o[u].z = fmaf(w[u].z, v[u].z, o[u].z);
+        o[u].w = fmaf(w[u].w, v[u].w, o[u].w);
+        q[u] = qn[u];
+      }
+    }
+  };
+  // warp 0 of the block's first segment: the lockstep stop test on the
+  // block's worst column (lanes < NC hold rel and improved); step: one more
+  // iteration, else the first decision.  Writes the block's state.
+  auto decide = [&](int b, float rel, bool improved, bool step, int it) {
+    const bool mine = lane < NC;
+    float m = mine && !isnan(rel) ? rel : -INFINITY;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
-    nan = __any_sync(FULL, nan);
-    any = __any_sync(FULL, any);
+    const int nan = __any_sync(FULL, mine && isnan(rel));
+    const int any = __any_sync(FULL, mine && improved);
     if (lane == 0) {
-      if (step) {
-        stall_s = any ? 0 : stall_s + 1;
-        k_s += 1;
-      } else {
-        stall_s = 0;
-        k_s = 0;
-      }
-      cont_s = (!nan && m > tol && k_s < maxiter && stall_s < STALL_CAP) ? 1 : 0;
+      const int st = step ? (any ? 0 : __ldcg(stall + b) + 1) : 0;
+      const int k = step ? __ldcg(kcnt + b) + 1 : 0;
+      stall[b] = st;
+      kcnt[b] = k;
+      a.iters[b] = k;
+      if (!(!nan && m > a.tol && k < a.maxiter && st < STALL_CAP)) stopped[b] = it;
     }
   };
 
-  // R = F in this CTA's rows (rank 0 zeroes the padded rows)
-  if (rank == 0)
-    for (int e = t; e < (npad - n) * NC; e += blockDim.x) Rg[(size_t)n * NC + e] = 0.f;
-  if (!producer) {
-    for (int p = r0 + rg; p < r1; p += RG) {
-      float f[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) f[e] = __ldg(F + fo[e] + (size_t)p * Cp);
-      st4(Rg + (size_t)p * NC + j0, mk4(f));
+  // I0: R = F (zero in the padded rows and block slots); the blocks' state
+  for (int w = blockIdx.x; w < NBs * NSLp; w += gridDim.x) {
+    K1L_NOW(u0)
+    const int b = w / NSLp, sl = w % NSLp, pend = min(npad, (sl + 1) * LSL);
+    if (sl == 0 && t == 0) {
+      stopped[b] = b < NB ? LIVE : -1;
+      done_e[b] = 0;
+      if (b % BPT == 0) done_p[b / BPT] = 0;
     }
+    if (sl == 0 && b % BPT == 0)  // the counters of block b's column tile
+      for (int r2 = t; r2 < RT; r2 += T) done_t[(size_t)r2 * CT + b / BPT] = 0;
+#pragma unroll
+    for (int u = 0; u < NR; ++u) {
+      const int p = grp(sl * LSL, u);
+      if (p >= pend) continue;
+      st4(R + sidx(b, p),
+          b < NB && p < n ? ldg4(a.F + fidx(b, p)) : make_float4(0.f, 0.f, 0.f, 0.f));
+    }
+    K1L_ADD(cyc[4], u0)
   }
-  fence_async_global();
-  cluster_sync();  // every CTA's barriers and rows of R
+  grid_sync(ctl, gen, cyc[2]);
+  build_act(0);  // every column tile
+  split();
 
-  // X = prec(F); best X = X; X into P for the residual's matvec
-  apply(Epi::kFirst);
-  cluster_sync();
-
+  // X = prec(F)
+  product(0);
+  grid_sync(ctl, gen, cyc[2]);
+  // X = best X = Z
+  segments([&](int b, int r0, int r1, int, int) {
+    if (b >= NB) return;
+    K1L_NOW(u0)
+    for (int p0 = r0; p0 < r1; p0 += RPP * NR)
+#pragma unroll
+      for (int u = 0; u < NR; ++u) {
+        const int p = grp(p0, u);
+        if (p >= r1) continue;
+        const float4 z = ldcg4(W + sidx(b, p));
+        st4(X + sidx(b, p), z);
+        st4(a.bX + fidx(b, p), z);
+      }
+    K1L_ADD(cyc[4], u0)
+  });
+  grid_sync(ctl, gen, cyc[2]);
   // R = F - K X; |F|^2, |R|^2
-  if (!producer) {
-    float sums[2][4] = {};
-    for (int p = r0 + rg; p < r1; p += RG) {
-      float kx[4];
-      kp_row(ws, nbr, Pg, K, n, NC, Cp, j0, cell, p, kx);
-      const float4 f4 = ld4(Rg + (size_t)p * NC + j0);
-      const float f[4] = {f4.x, f4.y, f4.z, f4.w};
-      float r[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        r[e] = f[e] - kx[e];
-        sums[0][e] += f[e] * f[e];
-        sums[1][e] += r[e] * r[e];
-      }
-      st4(Rg + (size_t)p * NC + j0, mk4(r));
-    }
-    stash<2>(sums, red, WC, slot);
-  }
-  fence_async_global();
-  cluster_sums(2);
-  if (warp == 0) {
-    for (int j = lane; j < NC; j += 32) {
-      const float fn = sqrtf(tot_s[0][j]) + 1e-30f;
-      fnorm_s[j] = fn;
-      rel_s[j] = brel_s[j] = sqrtf(tot_s[1][j]) / fn;
-    }
-  }
-  __syncthreads();
-
-  // Z = prec(R); P = Z; rz = <R, Z>
-  apply(Epi::kDirection);
-  if (!producer) {
-    float sums[1][4] = {{part[0][0], part[0][1], part[0][2], part[0][3]}};
-    stash<1>(sums, red, WC, slot);
-  }
-  cluster_sums(1);
-  if (warp == 0) {
-    float m = -INFINITY;
-    int nan = 0;
-    for (int j = lane; j < NC; j += 32) {
-      rz_s[j] = tot_s[0][j];
-      const float v = rel_s[j];
-      if (isnan(v)) nan = 1; else m = fmaxf(m, v);
-    }
-    decide(m, nan, 0, false);
-  }
-  __syncthreads();
-
-  while (cont_s) {
-    // pkp = <P, K P>
+  segments([&](int b, int r0, int r1, int pc, int np) {
+    if (b >= NB) return;
     K1L_NOW(m0)
-    if (!producer) {
-      float sums[1][4] = {};
-      for (int p = r0 + rg; p < r1; p += RG) {
-        float kp[4];
-        kp_row(ws, nbr, Pg, K, n, NC, Cp, j0, cell, p, kp);
-        const float4 v = ld4(Pg + (size_t)p * NC + j0);
-        sums[0][0] += v.x * kp[0];
-        sums[0][1] += v.y * kp[1];
-        sums[0][2] += v.z * kp[2];
-        sums[0][3] += v.w * kp[3];
-      }
-      stash<1>(sums, red, WC, slot);
-    }
-    cluster_sums(1);
-    if (warp == 0) {
-      for (int j = lane; j < NC; j += 32) {
-        const float pkp = tot_s[0][j], rz = rz_s[j];
-        const bool ok = pkp > 0.f && isfinite(pkp) && isfinite(rz) && brel_s[j] >= tol;
-        alpha_s[j] = ok ? rz / pkp : 0.f;
-      }
-    }
-    __syncthreads();
-    // X += alpha P; R -= alpha K P (K P again: n K gathers beside the n^2 product)
-    if (!producer) {
-      const float a[4] = {alpha_s[j0], alpha_s[j0 + 1], alpha_s[j0 + 2], alpha_s[j0 + 3]};
-      for (int p = r0 + rg; p < r1; p += RG) {
-        float kp[4];
-        kp_row(ws, nbr, Pg, K, n, NC, Cp, j0, cell, p, kp);
-        const size_t o = (size_t)p * NC + j0;
-        const float4 p4 = ld4(Pg + o), r4 = ld4(Rg + o), x4 = ld4(Xg + o);
-        const float pv[4] = {p4.x, p4.y, p4.z, p4.w}, rv[4] = {r4.x, r4.y, r4.z, r4.w};
-        const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
-        float x[4], r[4];
+    float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f), s1 = s0;
+    for (int p0 = r0; p0 < r1; p0 += RPP * NR) {
+      float4 kx[NR];
+      kv(X, b, p0, r1, kx);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          x[e] = xv[e] + pv[e] * a[e];
-          r[e] = rv[e] - kp[e] * a[e];
+      for (int u = 0; u < NR; ++u) {
+        const int p = grp(p0, u);
+        if (p >= r1) continue;
+        const size_t o = sidx(b, p);
+        const float4 f = ldcg4(R + o);
+        const float4 rv =
+            make_float4(f.x - kx[u].x, f.y - kx[u].y, f.z - kx[u].z, f.w - kx[u].w);
+        st4(R + o, rv);
+        s0 = make_float4(s0.x + f.x * f.x, s0.y + f.y * f.y, s0.z + f.z * f.z, s0.w + f.w * f.w);
+        s1 = make_float4(s1.x + rv.x * rv.x, s1.y + rv.y * rv.y, s1.z + rv.z * rv.z,
+                         s1.w + rv.w * rv.w);
+      }
+    }
+    K1L_ADD(cyc[3], m0)
+    seg_sums(b, r1 - r0, pc, np, s0, s1, 2);
+  });
+  grid_sync(ctl, gen, cyc[2]);
+  // Z = prec(R); <R, Z>
+  product(1);
+  grid_sync(ctl, gen, cyc[2]);
+  // P = Z; rz = <R, Z>; |F|, rel = best rel; the first stop decision
+  segments([&](int b, int r0, int r1, int, int) {
+    if (b >= NB) return;
+    if (r0 == 0 && warp == 0) {
+      K1L_NOW(d0)
+      float rel = 0.f;
+      if (lane < NC) {
+        const int gc = b * NC + lane;
+        const float fn = sqrtf(__ldcg(Te + gc)) + 1e-30f;
+        rel = sqrtf(__ldcg(Te + NCt + gc)) / fn;
+        fnorm[gc] = fn;
+        brelv[gc] = rel;
+        rzv[gc] = __ldcg(Tp + gc);
+      }
+      decide(b, rel, false, false, 0);
+      K1L_ADD(cyc[5], d0)
+    }
+    K1L_NOW(u0)
+    for (int p0 = r0; p0 < r1; p0 += RPP * NR)
+#pragma unroll
+      for (int u = 0; u < NR; ++u) {
+        const int p = grp(p0, u);
+        if (p < r1) st4(P + sidx(b, p), ldcg4(W + sidx(b, p)));
+      }
+    K1L_ADD(cyc[4], u0)
+  });
+  grid_sync(ctl, gen, cyc[2]);
+
+  for (int it = 1;; ++it) {
+    build_act(it);
+    if (nact_s == 0) break;
+    split();
+    const int pc = (it - 1) & 1, pn = it & 1;
+    // K P (into W); pkp = <P, K P>
+    segments([&](int b, int r0, int r1, int sp, int np) {
+      if (!live(b, it)) return;
+      K1L_NOW(m0)
+      float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int p0 = r0; p0 < r1; p0 += RPP * NR) {
+        float4 kp[NR];
+        kv(P, b, p0, r1, kp);
+#pragma unroll
+        for (int u = 0; u < NR; ++u) {
+          const int p = grp(p0, u);
+          if (p >= r1) continue;
+          const size_t o = sidx(b, p);
+          const float4 pv = ldcg4(P + o);
+          st4(W + o, kp[u]);
+          s0 = make_float4(s0.x + pv.x * kp[u].x, s0.y + pv.y * kp[u].y, s0.z + pv.z * kp[u].z,
+                           s0.w + pv.w * kp[u].w);
         }
-        st4(Xg + o, mk4(x));
-        st4(Rg + o, mk4(r));
       }
-    }
-    fence_async_global();
-    cluster_sync();  // every CTA's rows of R before the product reads them
-    K1L_ADD(cyc[4], m0)
-    // Z = prec(R); rz_new = <R, Z>; |R|^2
-    apply(Epi::kUpdate);
-    if (!producer) stash<2>(part, red, WC, slot);
-    cluster_sums(2);
-    if (warp == 0) {
-      float m = -INFINITY;
-      int nan = 0, any = 0;
-      for (int j = lane; j < NC; j += 32) {
-        const float rz_new = tot_s[0][j], rz = rz_s[j];
-        beta_s[j] = rz > 0.f ? rz_new / rz : 0.f;
-        rz_s[j] = rz_new;
-        const float rel = sqrtf(tot_s[1][j]) / fnorm_s[j];
-        const float brel = brel_s[j];
-        const bool improved = rel < brel * shrink && isfinite(rel);
-        if (improved) brel_s[j] = fminf(rel, brel);
-        rel_s[j] = rel;
-        imp_s[j] = improved ? 1 : 0;
-        any |= improved ? 1 : 0;
-        if (isnan(rel)) nan = 1; else m = fmaxf(m, rel);
+      K1L_ADD(cyc[3], m0)
+      seg_sums(b, r1 - r0, sp, np, s0, s0, 1);
+    });
+    grid_sync(ctl, gen, cyc[2]);
+    // alpha; X += alpha P; R -= alpha K P
+    segments([&](int b, int r0, int r1, int, int) {
+      if (!live(b, it)) return;
+      K1L_NOW(d0)
+      if (t < NC) {
+        const int gc = b * NC + t;
+        const float pkp = __ldcg(Te + gc), rz = __ldcg(rzv + pc * NCt + gc);
+        const bool ok = pkp > 0.f && isfinite(pkp) && isfinite(rz) &&
+                        __ldcg(brelv + pc * NCt + gc) >= a.tol;
+        cola_s[t] = ok ? rz / pkp : 0.f;
       }
-      decide(m, nan, any, true);
-    }
-    __syncthreads();
-    // P = Z + beta P; best X = X in the columns that improved
-    if (!producer) {
-      const float b[4] = {beta_s[j0], beta_s[j0 + 1], beta_s[j0 + 2], beta_s[j0 + 3]};
-      const bool im[4] = {imp_s[j0] != 0, imp_s[j0 + 1] != 0, imp_s[j0 + 2] != 0,
-                          imp_s[j0 + 3] != 0};
+      __syncthreads();
+      K1L_ADD(cyc[5], d0)
+      K1L_NOW(u0)
+      const float al[4] = {cola_s[4 * qd], cola_s[4 * qd + 1], cola_s[4 * qd + 2],
+                           cola_s[4 * qd + 3]};
+      for (int p0 = r0; p0 < r1; p0 += RPP * 4) {  // four rows' loads at once
+        float4 p4[4], r4[4], x4[4], k4[4];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          if (grp(p0, v) >= r1) continue;
+          const size_t o = sidx(b, grp(p0, v));
+          p4[v] = ldcg4(P + o);
+          r4[v] = ldcg4(R + o);
+          x4[v] = ldcg4(X + o);
+          k4[v] = ldcg4(W + o);
+        }
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          if (grp(p0, v) >= r1) continue;
+          const size_t o = sidx(b, grp(p0, v));
+          float x[4], rr[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            x[e] = el(x4[v], e) + el(p4[v], e) * al[e];
+            rr[e] = el(r4[v], e) - el(k4[v], e) * al[e];
+          }
+          st4(X + o, mk4(x));
+          st4(R + o, mk4(rr));
+        }
+      }
+      __syncthreads();  // cola_s is the next segment's
+      K1L_ADD(cyc[4], u0)
+    });
+    grid_sync(ctl, gen, cyc[2]);
+    // Z = prec(R); <R, Z>, |R|^2
+    product(2);
+    grid_sync(ctl, gen, cyc[2]);
+    // beta, rel, improved; the stop decision; P = Z + beta P; best X
+    segments([&](int b, int r0, int r1, int, int) {
+      if (!live(b, it)) return;
+      K1L_NOW(d0)
+      if (warp == 0) {
+        float rel = 0.f;
+        bool improved = false;
+        if (lane < NC) {
+          const int gc = b * NC + lane;
+          const float rz_new = __ldcg(Tp + gc), rz = __ldcg(rzv + pc * NCt + gc);
+          rel = sqrtf(__ldcg(Tp + NCt + gc)) / __ldcg(fnorm + gc);
+          const float brel = __ldcg(brelv + pc * NCt + gc);
+          improved = rel < brel * shrink && isfinite(rel);
+          cola_s[lane] = rz > 0.f ? rz_new / rz : 0.f;
+          coli_s[lane] = improved ? 1 : 0;
+          if (r0 == 0) {
+            rzv[pn * NCt + gc] = rz_new;
+            brelv[pn * NCt + gc] = improved ? fminf(rel, brel) : brel;
+          }
+        }
+        if (r0 == 0) decide(b, rel, improved, true, it);
+      }
+      __syncthreads();
+      K1L_ADD(cyc[5], d0)
+      K1L_NOW(u0)
+      const float be[4] = {cola_s[4 * qd], cola_s[4 * qd + 1], cola_s[4 * qd + 2],
+                           cola_s[4 * qd + 3]};
+      const bool im[4] = {coli_s[4 * qd] != 0, coli_s[4 * qd + 1] != 0, coli_s[4 * qd + 2] != 0,
+                          coli_s[4 * qd + 3] != 0};
       const bool any_im = im[0] || im[1] || im[2] || im[3];
-      for (int p = r0 + rg; p < r1; p += RG) {
-        const size_t o = (size_t)p * NC + j0;
-        const float4 z4 = ld4(Zg + o), p4 = ld4(Pg + o);
-        st4(Pg + o, make_float4(z4.x + p4.x * b[0], z4.y + p4.y * b[1], z4.z + p4.z * b[2],
-                                z4.w + p4.w * b[3]));
-        if (any_im) {
-          const float4 x4 = ld4(Xg + o);
-          const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+      for (int p0 = r0; p0 < r1; p0 += RPP * 4) {  // four rows' loads at once
+        float4 z4[4], p4[4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (im[e]) bX[fo[e] + (size_t)p * Cp] = x[e];
+        for (int v = 0; v < 4; ++v) {
+          if (grp(p0, v) >= r1) continue;
+          const size_t o = sidx(b, grp(p0, v));
+          z4[v] = ldcg4(W + o);
+          p4[v] = ldcg4(P + o);
+        }
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int p = grp(p0, v);
+          if (p >= r1) continue;
+          const size_t o = sidx(b, p);
+          st4(P + o, make_float4(z4[v].x + p4[v].x * be[0], z4[v].y + p4[v].y * be[1],
+                                 z4[v].z + p4[v].z * be[2], z4[v].w + p4[v].w * be[3]));
+          if (any_im) {
+            const float4 x4 = ldcg4(X + o);
+            const size_t fo = fidx(b, p);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (im[e]) a.bX[fo + e] = el(x4, e);
+          }
         }
       }
-    }
-    cluster_sync();  // every CTA's rows of P before the next matvec
+      __syncthreads();  // cola_s, coli_s are the next segment's
+      K1L_ADD(cyc[4], u0)
+    });
+    grid_sync(ctl, gen, cyc[2]);
   }
-  if (t == 0 && rank == 0) iters[blk] = k_s;
 #ifdef K1L_PROBE
-  K1L_ADD(cyc[5], c_start)
-  if (blockIdx.x < 8192) {
-    if (t == 0)
-      for (int q : {0, 1, 4, 5, 6}) g_k1l_cycles[blockIdx.x * 8 + q] = cyc[q];
-    if (producer && lane == 0)
-      for (int q : {2, 3}) g_k1l_cycles[blockIdx.x * 8 + q] = cyc[q];
-  }
+  K1L_ADD(cyc[6], c_start)
+  if (t == 0 && blockIdx.x < 8192)
+    for (int q = 0; q < 8; ++q) g_k1l_cycles[blockIdx.x * 8 + q] = cyc[q];
+#else
+  (void)cyc;
 #endif
-  cluster_sync();  // no CTA leaves while a peer may still read its column sums
 }
 
-template <int BK>
-int launch_large(const void* ws, const void* F, const void* Mt, const void* nbr, void* Xout,
-                 void* iters, void* state, int K, int n, int s, int Cp, int CB, int CS, int S,
-                 int threads, int smem, float tol, int maxiter, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(stencil_pcg_large_kernel<BK>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// the state's floats (see hommx_stencil_pcg_large_f32)
+long long large_state_floats(int n, int s, int Cp, int CB, int BN) {
+  const long long NC = s * CB, BPT = BN / NC, NB = Cp / CB, CT = (NB + BPT - 1) / BPT;
+  const long long NBs = CT * BPT, NCt = CT * BN, npad = (n + LBK - 1) / LBK * LBK;
+  const long long RT = (n + LBM - 1) / LBM;
+  return LCTL + LMAX_GRID + (3 + LPIECES) * CT * npad * BN + 2 * RT * NCt +
+         2 * LEPIECES * NCt + 9 * NCt + 4 * NBs + CT + RT * CT;
+}
+
+long long large_smem_bytes(int BN, int stages) {
+  return 4LL * (stages * LBK * (LBM + BN) + 32 * BN);
+}
+
+// the instance of BN columns a tile: 16 columns a block at 128 (s = 1, 2),
+// 12 at 48 (s = 3)
+template <int BN>
+constexpr int large_nc() {
+  return BN == 128 ? 16 : 12;
+}
+
+template <int BN>
+int large_occupancy(int smem, int* per_sm, int* sms) {
+  const auto kern = stencil_pcg_large_kernel<BN, large_nc<BN>()>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((Cp / CB) * CS);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CS;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, stencil_pcg_large_kernel<BK>, static_cast<const float*>(ws),
-                         static_cast<const float*>(F), static_cast<const float*>(Mt),
-                         static_cast<const int*>(nbr), static_cast<float*>(Xout),
-                         static_cast<float*>(state), static_cast<int*>(iters), K, n, s, Cp, CB,
-                         CS, S, tol, maxiter);
+  int dev = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, 2 * BN, smem);
+}
+
+template <int BN>
+int launch_large(const LargeArgs& a, int grid, int smem, void* stream) {
+  if (a.s * a.CB != large_nc<BN>()) return (int)cudaErrorInvalidValue;
+  int per_sm = 0, sms = 0;
+  cudaError_t e = (cudaError_t)large_occupancy<BN>(smem, &per_sm, &sms);
+  if (e != cudaSuccess) return (int)e;
+  int g = grid < per_sm * sms ? grid : per_sm * sms;  // every CTA resident
+  if (g > LMAX_GRID) g = LMAX_GRID;
+  if (g < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the control words and the grid barrier's flags
+  if ((e = cudaMemsetAsync(a.state, 0, 4 * (LCTL + LMAX_GRID), st)) != cudaSuccess) return (int)e;
+  LargeArgs args = a;
+  void* params[] = {&args};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(stencil_pcg_large_kernel<BN, large_nc<BN>()>), dim3(g),
+      dim3(2 * BN), params, (size_t)smem, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1124,41 +1458,62 @@ extern "C" int hommx_stencil_pcg_f32(const void* ws, const void* F, const void* 
   }
 }
 
-// The large instance's configuration (CB cells a block, CS CTAs a block
-// that split its rows, S ring buffers, threads = the consumer warps'
-// threads + one producer warp, smem) is the wrapper's launch_config(n, s,
-// C); Minv comes
-// tiled ([row tile][k tile][k / 4][row][4], BK = 4, 8, 16 at 4, 8, 12 or
-// more columns); state holds (npad + 3 n) s CB floats a block.  Refused as
-// above.
+// The large instance's configuration (BN columns a product tile, SK k
+// slices, the ring's stages, threads = 2 BN, smem, the grid it asks for) is
+// the wrapper's launch_config(n, s, C); the grid is cut to the CTAs that
+// this card holds at once (the grid barrier needs every CTA resident).
+// Minv comes tiled ([row tile of 128][k tile of 16][k][row], zero past n);
+// state holds state_floats floats: LCTL control words and LMAX_GRID flags of
+// the grid barrier, R, P, X and SK arrays
+// of the product (column tiles x npad x BN each), the column sums and
+// their totals, the per-column scalars and the per-block and per-tile
+// counters.  Refused as above.
 extern "C" int hommx_stencil_pcg_large_f32(const void* ws, const void* F, const void* Mt,
                                            const void* nbr, void* Xout, void* iters,
                                            void* state, int K, int n, int s, int Cp, int CB,
-                                           int CS, int S, int threads, int smem, float tol,
+                                           int BN, int stages, int threads, int smem,
+                                           int grid, long long state_floats, float tol,
                                            int maxiter, void* stream) {
   const int bad = (int)cudaErrorInvalidValue;
   const int NC = s * CB;
-  if (s < 1 || CB < 1 || K < 1 || n < 1 || NC % 4 != 0 || NC > LMAX_NC || CS < 1 ||
-      CS > LMAX_CS || Cp < CB || Cp % CB != 0 || S < 2 || S > LMAX_STAGES)
+  if (s < 1 || s > MAX_S || K < 1 || n < 1 || CB < 4 || NC % 4 != 0 || NC > LMAX_NC ||
+      BN % NC != 0 || Cp < CB || Cp % CB != 0 || stages < 2 || stages > LMAX_STAGES ||
+      threads != 2 * BN || grid < 1)
     return bad;
-  const int CG = NC / 4, Tc = CG == 3 ? 192 : 256, RG = Tc / CG;
-  const int BK = NC >= 12 ? 16 : NC, BM = LTILE / BK;  // RG rows x LTM = BM
-  if (threads != Tc + 32 || RG * LTM != BM) return bad;
-  const int nr = ((n + CS - 1) / CS + BM - 1) / BM * BM;
-  if ((long)nr * (CS - 1) >= n) return bad;  // every CTA owns rows
-  const long need = 4L * ((long)S * (LTILE + BK * NC) + (Tc / 32) * warp_cols(CG) * 2 * 4);
-  if (need != smem) return bad;
-  switch (BK) {
-    case 4:
-      return launch_large<4>(ws, F, Mt, nbr, Xout, iters, state, K, n, s, Cp, CB, CS, S,
-                             threads, smem, tol, maxiter, stream);
-    case 8:
-      return launch_large<8>(ws, F, Mt, nbr, Xout, iters, state, K, n, s, Cp, CB, CS, S,
-                             threads, smem, tol, maxiter, stream);
+  const int BPT = BN / NC;
+  if ((Cp / CB + BPT - 1) / BPT > LMAX_CT) return bad;
+  if (large_smem_bytes(BN, stages) != smem) return bad;
+  if (large_state_floats(n, s, Cp, CB, BN) != state_floats) return bad;
+  const LargeArgs a = {static_cast<const float*>(ws), static_cast<const float*>(F),
+                       static_cast<const float*>(Mt), static_cast<const int*>(nbr),
+                       static_cast<float*>(Xout), static_cast<int*>(iters),
+                       static_cast<float*>(state), K, n, s, Cp, CB, stages, tol, maxiter};
+  switch (BN) {
+    case 128:
+      return launch_large<128>(a, grid, smem, stream);
+    case 48:
+      return launch_large<48>(a, grid, smem, stream);
     default:
-      return launch_large<16>(ws, F, Mt, nbr, Xout, iters, state, K, n, s, Cp, CB, CS, S,
-                              threads, smem, tol, maxiter, stream);
+      return bad;
   }
+}
+
+// The CTAs of the large instance at BN columns a tile and smem bytes that
+// this card holds at once (the grid a launch is cut to), or minus the
+// cudaError_t of the query.
+extern "C" int hommx_stencil_pcg_large_grid(int BN, int smem) {
+  int per_sm = 0, sms = 0, e;
+  switch (BN) {
+    case 128:
+      e = large_occupancy<128>(smem, &per_sm, &sms);
+      break;
+    case 48:
+      e = large_occupancy<48>(smem, &per_sm, &sms);
+      break;
+    default:
+      return -(int)cudaErrorInvalidValue;
+  }
+  return e != 0 ? -e : per_sm * sms;
 }
 
 #ifdef K1L_PROBE

@@ -15,10 +15,11 @@ version with ``block=`` that size computes what the kernel computes.
 The source has two instances.  The small one keeps a whole Minv k-slab of
 n rows in shared memory and takes n up to 1198, 1024 and 896 at s = 1, 2
 and 3.  The large one takes every n above that up to 4096 (the 64² square,
-the 16³ cube): a block of 16 columns (12 at s = 3) is a cluster of CTAs
-that split its rows, each streaming its rows of Minv in 16 KB tiles, with R,
-P and the iterates in a per-block state in global memory.  Above n = 4096
-the launch configuration raises (ROADMAP B7).
+the 16³ cube): one cooperative launch runs the chunk's PCG in phases split
+by grid barriers, its preconditioner product one register-tiled GEMM over
+the chunk's columns (tiles of whole blocks, :func:`large_schedule`), with
+R, P and the iterates in a per-chunk state in global memory.  Above n =
+4096 the launch configuration raises (ROADMAP B7).
 
 Dispatch is by device alone: a CUDA tensor goes to the kernel, a CPU
 tensor to :func:`stencil_pcg_plain`.  The kernel is float32 only, as on the
@@ -61,16 +62,24 @@ SLABS = 2  # Minv slab buffers
 # dynamic shared memory a block may take: the H100's 227 KB less a margin
 # for the kernel's static per-column arrays
 SMEM_LIMIT = 232_448 - 2048
-# the large instance: a block's rows split across a cluster of CTAs, each
-# streaming its rows of Minv in 16 KB tiles (with the matching rows of R)
-# through a ring of buffers
+# the large instance: one cooperative launch whose product tiles (LBM rows
+# of Minv x tile_cols columns of whole blocks, k in ring stages of LBK)
+# span the chunk's blocks; product and vector passes split evenly over the
+# CTAs (large_schedule)
 LARGE_MAX_N = 4096
-LARGE_MAX_NC = 16  # columns a block: s·CB in {4, 8, 12, 16}
-TILE = 4096  # floats a tile: TILE / tile_cols rows x tile_cols columns
-MAX_STAGES = 16
-STAGES = 4  # ring buffers (2-19% faster than 6 or 12 on the H100, PERF.md)
-MAX_CLUSTER = 8
-SMS = 132  # streaming multiprocessors of the H100 SXM, for the cluster size
+LBM = 128  # rows of a product tile
+LBK = 16  # k of a ring stage (a Minv tile of LBK x LBM floats, 8 KB)
+STAGES = 3  # ring stages
+MAX_STAGES = 8
+MAX_COL_TILES = 1024
+PIECES = 8  # k pieces a product tile at most: its CTAs (at most 6 a tile)
+SEGMENTS = 32  # segments of a block in the vector passes at most (30 a block slot)
+STATE_CTL = 16 + 2048  # control words and the grid barrier's flags (one a CTA, 2048 at most)
+SMS = 132  # streaming multiprocessors of the H100 SXM
+SMEM_SM = 233_472  # shared memory of an SM; a CTA's static arrays and reserve take < 4 KB
+LARGE_CELLS = 2048  # the chunk routes' cap: the chunk assumed when none is given
+# CTAs an SM that the kernel's __launch_bounds__ asks of the registers, by tile_cols
+LARGE_MIN_BLOCKS = {128: 1, 48: 4}
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
@@ -82,12 +91,15 @@ KERNEL = CudaKernel(
             _vp, _vp, _vp, _vp, _vp, _vp,
             _i, _i, _i, _i, _i, _i, _i, ctypes.c_float, _i, _vp,
         ],
-        # ws, F, Mt, nbr, X_out, iters, state, K, n, s, Cp, CB, CS,
-        # stages, threads, smem, tol, maxiter, stream
+        # ws, F, Mt, nbr, X_out, iters, state, K, n, s, Cp, CB, tile_cols,
+        # stages, threads, smem, grid, state_floats, tol, maxiter, stream
         "hommx_stencil_pcg_large_f32": [
             _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-            _i, _i, _i, _i, _i, _i, _i, _i, _i, ctypes.c_float, _i, _vp,
+            _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, ctypes.c_longlong,
+            ctypes.c_float, _i, _vp,
         ],
+        # tile_cols, smem: the CTAs of the large instance the card holds
+        "hommx_stencil_pcg_large_grid": [_i, _i],
     },
 )
 
@@ -103,18 +115,23 @@ class K1Config:
     rows × 4 columns; shared memory R (n padded to a slab multiple) and P
     (n) of s·B columns, two Minv slabs of n rows and the partial column
     sums of each warp's column groups.  The large instance (``stages`` >
-    0): a block is a cluster of ``cluster`` CTAs that split its n rows;
-    threads are the consumer warps and one producer warp; rows_per_thread
-    rows a thread holds of each Minv panel; shared memory a ring of
-    ``stages`` buffers (a Minv tile and the rows of R it multiplies) and
-    the partial sums."""
+    0): one cooperative launch of ``grid`` CTAs (as many as the H100 holds
+    at once; the launcher cuts it to what the card holds) of 2 ×
+    ``tile_cols`` threads; a product tile is LBM rows × ``tile_cols``
+    columns (whole blocks) of Minv R, its k tiles split over up to PIECES
+    CTAs (:func:`large_schedule`), with rows_per_thread (8) × 8
+    accumulators a thread; shared memory a ring of ``stages`` stages (an
+    LBK × LBM Minv tile and LBK rows of R) and the column sums;
+    ``state_bytes`` of global memory for the chunk's state."""
 
     cells_per_block: int
     threads: int
     rows_per_thread: int
     smem_bytes: int
-    cluster: int = 1
     stages: int = 0
+    tile_cols: int = 0
+    grid: int = 0
+    state_bytes: int = 0
 
     @property
     def large(self) -> bool:
@@ -134,73 +151,132 @@ def _smem_bytes(n: int, s: int, cb: int, threads: int) -> int:
     return 4 * (npad * nc + n * nc + SLABS * n * SLAB_ROW + (threads // 32) * wc * 2 * 4)
 
 
-def tile_cols(nc: int) -> int:
-    """Minv columns (k) a tile of the large instance holds at nc columns a
-    block: its consumer threads hold 4 rows each of TILE / tile_cols rows."""
-    return 16 if nc >= 12 else nc
+def _large_smem_bytes(tile_cols: int, stages: int) -> int:
+    """The ring (``stages`` × an LBK × LBM Minv tile and LBK × tile_cols of
+    R) and the column sums of 16 thread rows × 2 quantities × tile_cols."""
+    return 4 * (stages * LBK * (LBM + tile_cols) + 32 * tile_cols)
 
 
-def _large_consumers(nc: int) -> int:
-    """Consumer threads of the large instance: 256, or 192 at 12 columns
-    (64 rows of 3 column groups)."""
-    return 192 if nc == 12 else 256
+def _large_grid(tile_cols: int, smem: int) -> int:
+    """CTAs that the H100 holds at once: the fewer of the CTAs an SM that
+    the registers allow (``__launch_bounds__``) and that shared memory
+    allows, on every SM."""
+    return SMS * min(LARGE_MIN_BLOCKS[tile_cols], SMEM_SM // (smem + 4096))
 
 
-def _large_smem_bytes(nc: int, stages: int) -> int:
-    ring = stages * (TILE + tile_cols(nc) * nc)
-    return 4 * (ring + (_large_consumers(nc) // 32) * _warp_cols(nc // 4) * 8)
-
-
-def _rows_split(n: int, nc: int, cluster: int) -> int:
-    """Rows a CTA of the cluster owns: whole panels of TILE / tile_cols."""
-    bm = TILE // tile_cols(nc)
-    rows = -(-n // cluster)
-    return -(-rows // bm) * bm
-
-
-def large_candidate(n: int, s: int, cb: int, cluster: int, stages: int = STAGES) -> K1Config | None:
-    """A configuration of the large instance: cb cells a block whose rows
-    ``cluster`` CTAs split, with ``stages`` ring buffers; None where it
-    cannot run."""
+def _large_dims(n: int, s: int, cells: int, tile_cols: int) -> dict:
+    """The kernel's sizes for a chunk of ``cells`` cells."""
+    cb = {1: 16, 2: 8, 3: 4}[s]
     nc = s * cb
-    if nc % 4 or nc > LARGE_MAX_NC or not 1 <= cluster <= MAX_CLUSTER:
+    nb = -(-cells // cb)
+    bpt = tile_cols // nc
+    ct = -(-nb // bpt)
+    npad = -(-n // LBK) * LBK
+    return {"cb": cb, "nc": nc, "nb": nb, "bpt": bpt, "ct": ct, "nct": ct * tile_cols,
+            "npad": npad, "kt": npad // LBK, "rt": -(-n // LBM)}
+
+
+def _large_state_floats(n: int, s: int, cells: int, tile_cols: int) -> int:
+    """STATE_CTL control words (the grid barrier's generation and flags);
+    R, P, X and PIECES product arrays, each column tiles × npad ×
+    tile_cols; the column sums of the product (2 × row tiles) and of the
+    passes (2 × SEGMENTS), their totals (4 a column); fnorm and rz, best rel
+    by parity (5 a column); stopped, stall, iterations and the rows done (4
+    a block slot), the row tiles done (1 a column tile) and the k tiles
+    done (1 a product tile) — as the launcher counts them."""
+    d = _large_dims(n, s, cells, tile_cols)
+    nct = d["nct"]
+    return (STATE_CTL + (3 + PIECES) * d["ct"] * d["npad"] * tile_cols + 2 * d["rt"] * nct
+            + 2 * SEGMENTS * nct + 9 * nct + 4 * d["ct"] * d["bpt"] + d["ct"] + d["rt"] * d["ct"])
+
+
+def large_candidate(n: int, s: int, cells: int, stages: int = STAGES) -> K1Config | None:
+    """The large instance's configuration for a chunk of ``cells`` cells
+    with ``stages`` ring stages: 8 blocks a product tile (128 columns; 4
+    blocks, 48 columns at s = 3); None where it cannot run."""
+    cb = {1: 16, 2: 8, 3: 4}[s]
+    tile_cols = 48 if s == 3 else 128
+    if not 2 <= stages <= MAX_STAGES or _large_dims(n, s, cells, tile_cols)["ct"] > MAX_COL_TILES:
+        return None  # more column tiles than the kernel lists
+    smem = _large_smem_bytes(tile_cols, stages)
+    if smem > SMEM_LIMIT:
         return None
-    if _rows_split(n, nc, cluster) * (cluster - 1) >= n:
-        return None  # a CTA without rows
-    smem = _large_smem_bytes(nc, stages)
-    if not 2 <= stages <= MAX_STAGES or smem > SMEM_LIMIT:
-        return None
-    return K1Config(cb, _large_consumers(nc) + 32, 4, smem, cluster, stages)
+    return K1Config(cb, 2 * tile_cols, 8, smem, stages, tile_cols,
+                    _large_grid(tile_cols, smem), 4 * _large_state_floats(n, s, cells, tile_cols))
 
 
 def _large_config(n: int, s: int, cells: int) -> K1Config:
-    """The large instance's configuration: 16 columns a block (12 at
-    s = 3), so each Minv tile a CTA receives serves 16 (12) columns.  A CTA
-    takes in Minv at a bounded rate, so where a chunk has fewer blocks than
-    the card has SMs, the blocks' rows are split over a cluster of CTAs:
-    the fewest (1, 2, 4 or 8) that put 1.5 CTAs on every SM (two fit one),
-    or the most that every CTA has rows for."""
-    cb = {1: 16, 2: 8, 3: 4}[s]
-    blocks = -(-cells // cb) if cells else SMS
-    best = large_candidate(n, s, cb, 1)
-    if blocks < SMS:
-        for cluster in (2, 4, 8):
-            cfg = large_candidate(n, s, cb, cluster)
-            if cfg is None:
-                break
-            best = cfg
-            if 2 * blocks * cluster >= 3 * SMS:
-                break
-    return best
+    """The large instance's configuration for a chunk of ``cells`` cells
+    (0: LARGE_CELLS); raises where the chunk needs more column tiles than
+    the kernel lists."""
+    cfg = large_candidate(n, s, cells or LARGE_CELLS)
+    if cfg is None:
+        raise ValueError(
+            f"stencil PCG kernel: a chunk of {cells} cells needs more than {MAX_COL_TILES} "
+            f"column tiles; use a smaller chunk"
+        )
+    return cfg
+
+
+def _even_split(units: int, grid: int, per: int) -> list:
+    """The kernel's split of ``units`` (items of ``per`` units each, end to
+    end) over ``grid`` CTAs: CTA c takes [c·units // grid, (c+1)·units //
+    grid); its pieces as (c, item, first unit, end unit, place among the
+    item's CTAs)."""
+
+    def owner(u):
+        return ((u + 1) * grid - 1) // units
+
+    out = []
+    for c in range(grid):
+        u, hi = c * units // grid, (c + 1) * units // grid
+        while u < hi:
+            item, u0 = divmod(u, per)
+            u1 = min(per, u0 + hi - u)
+            out.append((c, item, u0, u1, c - owner(item * per)))
+            u += u1 - u0
+    return out
+
+
+def large_schedule(n: int, s: int, cells: int, cfg: K1Config, grid: int | None = None) -> tuple:
+    """The large instance's work as the kernel divides it, every block
+    running, on ``grid`` CTAs (``cfg.grid``).  The product: its 128-row
+    tiles tau = rt·CT + ct of KT k tiles each, split end to end over the
+    first min(grid, 6·tiles) CTAs (stream-K); a piece is (CTA, row range,
+    column range, k-tile range, place among the tile's CTAs).  The vector
+    passes: the block slots' n rows each, split the same way over the first
+    min(grid, 30·slots) CTAs; a segment is (CTA, block, row range, place).
+    Columns are the chunk's column slots: block b holds b·s·B .. (b+1)·s·B
+    − 1; slots past the chunk's blocks are skipped by the passes."""
+    d = _large_dims(n, s, cells, cfg.tile_cols)
+    grid = grid or cfg.grid
+    tiles, slots = d["rt"] * d["ct"], d["ct"] * d["bpt"]
+    product = [(c, (rt * LBM, min(n, (rt + 1) * LBM)),
+                (ct * cfg.tile_cols, (ct + 1) * cfg.tile_cols), (k0, k1), pc)
+               for c, tau, k0, k1, pc in _even_split(tiles * d["kt"], min(grid, 6 * tiles),
+                                                     d["kt"])
+               for rt, ct in [divmod(tau, d["ct"])]]
+    passes = [(c, b, (r0, r1), pc)
+              for c, b, r0, r1, pc in _even_split(slots * n, min(grid, 30 * slots), n)]
+    return product, passes
+
+
+def large_grid_on_card(cfg: K1Config) -> int:
+    """The CTAs of ``cfg`` that the current card holds at once (the grid a
+    launch is cut to), from the CUDA occupancy query; builds the kernel."""
+    got = KERNEL.library().hommx_stencil_pcg_large_grid(cfg.tile_cols, cfg.smem_bytes)
+    if got < 0:
+        raise RuntimeError(f"stencil_pcg.cu: occupancy query failed with cudaError_t {-got}")
+    return got
 
 
 @functools.lru_cache(maxsize=256)
 def launch_config(n: int, s: int, cells: int = 0) -> K1Config:
     """The kernel's launch configuration for n unknowns and s right-hand
-    sides per cell, in a chunk of ``cells`` cells (0: one that fills the
-    card; only the large instance's cluster size depends on it, not the
-    cells a block).  The stencil's K does not enter: weights and neighbour
-    table are read from global memory.
+    sides per cell, in a chunk of ``cells`` cells (0: LARGE_CELLS; only the
+    large instance's tiles, grid and state depend on it, not the cells a
+    block).  The stencil's K does not enter: weights and neighbour table
+    are read from global memory.
 
     The small instance where it fits: it prefers the most cells per block
     (each block streams all of Minv on every apply, so fewer, wider blocks
@@ -302,17 +378,16 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _tiled(Minv: torch.Tensor, bk: int) -> torch.Tensor:
+def _tiled(Minv: torch.Tensor) -> torch.Tensor:
     """Minv in the large instance's tile order, zero-padded:
-    ``[row tile][k tile][k // 4][row][k % 4]`` with tiles of TILE / bk rows
-    and bk columns, so each tile is one contiguous 16 KB copy and a
-    thread's float4 holds 4 k of one row."""
+    ``[row tile][k tile][k][row]`` with tiles of LBM rows and LBK columns,
+    so each tile is one contiguous 8 KB copy laid out as the product reads
+    it (a thread's float4 holds 4 rows of one k)."""
     n = Minv.shape[0]
-    bm = TILE // bk
-    pt, kt = -(-n // bm), -(-n // bk)
-    M = Minv.new_zeros((pt * bm, kt * bk))
+    rt, kt = -(-n // LBM), -(-n // LBK)
+    M = Minv.new_zeros((rt * LBM, kt * LBK))
     M[:n, :n] = Minv
-    return M.view(pt, bm, kt, bk // 4, 4).permute(0, 2, 3, 1, 4).contiguous()
+    return M.view(rt, LBM, kt, LBK).permute(0, 2, 3, 1).contiguous()
 
 
 def stencil_pcg_cuda(ws, F, Minv, shape, offsets, tol, maxiter, per_block=False):
@@ -353,15 +428,13 @@ def stencil_pcg_cuda(ws, F, Minv, shape, offsets, tol, maxiter, per_block=False)
     X = torch.empty((s, n, Cp), dtype=torch.float32, device=dev)
     iters = torch.empty((Cp // B,), dtype=torch.int32, device=dev)
     if cfg.large:
-        nc = s * B
-        npad = -(-n // tile_cols(nc)) * tile_cols(nc)
-        state = torch.empty((Cp // B) * (npad + 3 * n) * nc, dtype=torch.float32, device=dev)
+        state = torch.empty(cfg.state_bytes // 4, dtype=torch.float32, device=dev)
         KERNEL.launch(
             "hommx_stencil_pcg_large_f32", dev.index,
-            Wk.data_ptr(), Ff.data_ptr(), _tiled(Minv, tile_cols(nc)).data_ptr(), nbr.data_ptr(),
+            Wk.data_ptr(), Ff.data_ptr(), _tiled(Minv).data_ptr(), nbr.data_ptr(),
             X.data_ptr(), iters.data_ptr(), state.data_ptr(),
-            K, n, s, Cp, B, cfg.cluster, cfg.stages, cfg.threads, cfg.smem_bytes,
-            float(tol), int(maxiter),
+            K, n, s, Cp, B, cfg.tile_cols, cfg.stages, cfg.threads, cfg.smem_bytes,
+            cfg.grid, state.numel(), float(tol), int(maxiter),
         )
     else:
         KERNEL.launch(

@@ -188,16 +188,14 @@ def _warp_cols(cg):
 def _hand_smem(n, s, cfg):
     """The shared memory each instance's launcher counts, by hand: the
     small one's R (n padded to 16), P, two Minv slabs of n rows of 20
-    floats and the column sums; the large one's ring (a 4096-float tile
-    and bk rows of R each) and the column sums."""
+    floats and the column sums; the large one's ring (a 16 x 128 Minv tile
+    and 16 rows of R, tile_cols wide, a stage) and the column sums of 16
+    thread rows x 2 quantities x tile_cols."""
     if not cfg.large:
         nc = s * cfg.cells_per_block
         red = (cfg.threads // 32) * _warp_cols(nc // 4) * 8
         return 4 * (-(-n // 16) * 16 * nc + n * nc + 2 * n * 20 + red)
-    nc = s * cfg.cells_per_block
-    bk = 16 if nc >= 12 else nc
-    red = ((cfg.threads - 32) // 32) * _warp_cols(nc // 4) * 8
-    return 4 * (cfg.stages * (4096 + bk * nc) + red)
+    return 4 * (cfg.stages * 16 * (128 + cfg.tile_cols) + 32 * cfg.tile_cols)
 
 
 @pytest.mark.parametrize("s", [1, 2, 3])
@@ -205,7 +203,8 @@ def test_launch_config_covers_every_cell_up_to_4096(s):
     """Every n from 1 to 4096 has a configuration within the shared memory
     a block may take, counted as the launcher counts it; above the small
     instance's reach the large one, 16 columns a block (12 at s = 3), and
-    at every chunk size each CTA of the cluster owns rows."""
+    at every chunk size product tiles of 8 blocks (4 at s = 3), two threads
+    a tile column."""
     last_small = {1: 1198, 2: 1024, 3: 896}[s]
     for n in range(1, 4097):
         cfg = k1.launch_config(n, s)
@@ -213,11 +212,13 @@ def test_launch_config_covers_every_cell_up_to_4096(s):
         assert cfg.smem_bytes == _hand_smem(n, s, cfg)
         assert cfg.large == (n > last_small)
         if cfg.large:
-            assert s * cfg.cells_per_block == (12 if s == 3 else 16)
+            nc = s * cfg.cells_per_block
+            assert nc == (12 if s == 3 else 16)
             for cells in (1, 37, 442, 2048):
                 c = k1.launch_config(n, s, cells)
-                rows = k1._rows_split(n, s * c.cells_per_block, c.cluster)
-                assert rows * (c.cluster - 1) < n and c.cells_per_block == cfg.cells_per_block
+                assert c.cells_per_block == cfg.cells_per_block
+                assert c.tile_cols == (4 * nc if s == 3 else 8 * nc)
+                assert c.threads == 2 * c.tile_cols and c.smem_bytes == _hand_smem(n, s, c)
 
 
 @pytest.mark.parametrize(
@@ -238,43 +239,100 @@ def test_small_instance_configurations_are_kept(n, s, want):
         assert cfg == k1.K1Config(*want) and not cfg.large
 
 
+def _state_floats(n, nb, nc, bn):
+    """The large instance's state by hand: 16 control words and 2048 flags
+    of the grid barrier; R, P, X and 8 product arrays (k pieces) of column
+    tiles x n (padded to 16) x bn; the column sums of 128-row product tiles
+    and of the passes' 32 segments (2 quantities each); their totals (4),
+    fnorm, rz and best rel by parity (5): 9 a column; four counters a block
+    slot, one a column tile, one a product tile."""
+    bpt = bn // nc
+    ct = -(-nb // bpt)
+    npad, rt, nct = -(-n // 16) * 16, -(-n // 128), ct * bn
+    return (16 + 2048 + 11 * ct * npad * bn + 2 * rt * nct + 64 * nct + 9 * nct
+            + 4 * ct * bpt + ct + rt * ct)
+
+
 @pytest.mark.parametrize(
     "n, s, cells, want",
     [
-        # 33²: 8 cells (16 columns) a block, 256 + 32 threads, 4 buffers of
-        # a 256 x 16 tile and 16 rows of R, the column sums of 8 warps of 4
-        # groups; 1665 cells give 209 blocks, more than the 132 SMs: no split
-        (1089, 2, 1665, (8, 288, 4, 4 * (4 * (4096 + 16 * 16) + 8 * 4 * 8), 1, 4)),
-        # 16³: 4 cells (12 columns) a block, 192 + 32 threads, 4 buffers of
-        # a 256 x 16 tile and 16 rows of R; 73 cells give 19 blocks, split
-        # over 8 CTAs (152 CTAs; 512 rows each)
-        (4096, 3, 73, (4, 224, 4, 4 * (4 * (4096 + 16 * 12) + 6 * 1 * 8), 8, 4)),
-        # 64²: 442 cells give 56 blocks, split over 4 CTAs (224 CTAs, 1.5 an SM)
-        (4096, 2, 442, (8, 288, 4, 4 * (4 * (4096 + 16 * 16) + 8 * 4 * 8), 4, 4)),
-        # 12³: 44 blocks; 8 CTAs of 256 rows would leave the last none
-        (1728, 3, 173, (4, 224, 4, 4 * (4 * (4096 + 16 * 12) + 6 * 1 * 8), 4, 4)),
+        # 33²: 209 blocks of 8 cells (16 columns); 128-column tiles (8
+        # blocks: 27 column tiles); 256 threads, a ring of 3 x (16 x 128 +
+        # 16 x 128) floats and 16 x 2 x 128 column sums; 1 CTA an SM
+        # (registers)
+        (1089, 2, 1665, (8, 256, 8, 4 * (3 * 16 * 256 + 32 * 128), 3, 128, 132,
+                         4 * _state_floats(1089, 209, 16, 128))),
+        # 16³: 19 blocks of 4 cells (12 columns); 48-column tiles (4 blocks:
+        # 5 column tiles); 96 threads, a ring of 3 x (16 x 128 + 16 x 48);
+        # 4 CTAs an SM (registers)
+        (4096, 3, 73, (4, 96, 8, 4 * (3 * 16 * 176 + 32 * 48), 3, 48, 528,
+                       4 * _state_floats(4096, 19, 12, 48))),
+        # 64²: 56 blocks of 8 cells: 7 column tiles
+        (4096, 2, 442, (8, 256, 8, 4 * (3 * 16 * 256 + 32 * 128), 3, 128, 132,
+                        4 * _state_floats(4096, 56, 16, 128))),
+        # 12³: 44 blocks: 11 column tiles
+        (1728, 3, 173, (4, 96, 8, 4 * (3 * 16 * 176 + 32 * 48), 3, 48, 528,
+                        4 * _state_floats(1728, 44, 12, 48))),
     ],
 )
 def test_large_launch_config_matches_hand_count(n, s, cells, want):
     assert k1.launch_config(n, s, cells) == k1.K1Config(*want)
 
 
+@pytest.mark.parametrize(
+    "n, s, cells", [(4096, 2, 442), (4096, 3, 73), (1089, 2, 1665), (1728, 3, 173),
+                    (4096, 2, 37), (1199, 1, 2048), (2000, 3, 5)]
+)
+def test_large_schedule_covers_each_block_once(n, s, cells):
+    """On the H100's grid and on smaller ones: the product's pieces cover
+    every (row, column, k tile) of every block once, in column tiles of
+    whole blocks; each CTA's k tiles differ from any other's by at most
+    one, a tile's pieces are its CTAs in order and at most 8; the vector
+    passes' segments cover every (block, row) once, each CTA's rows differ
+    from any other's by at most one, at most 32 a block."""
+    cb = {1: 16, 2: 8, 3: 4}[s]
+    nc, nb, kt = s * cb, -(-cells // cb), -(-n // 16)
+    cfg = k1.launch_config(n, s, cells)
+    bn = cfg.tile_cols
+    for grid in (cfg.grid, 132, 97):
+        product, passes = k1.large_schedule(n, s, cells, cfg, grid)
+        load, tiles = {}, {}
+        for c, rows, cols, ks, pc in product:
+            assert cols[0] % nc == 0 and (cols[1] - cols[0]) % nc == 0  # whole blocks
+            load[c] = load.get(c, 0) + ks[1] - ks[0]
+            tiles.setdefault((rows, cols), []).append((c, pc, ks))
+        want = {((r, min(n, r + 128)), (c, c + bn))
+                for r in range(0, n, 128) for c in range(0, nb * nc, bn)}
+        assert set(tiles) == want  # every row and block column once
+        assert max(load.values()) - min(load.values()) <= 1
+        for owners in tiles.values():  # the k tiles end to end, piece by piece
+            assert [pc for _, pc, _ in owners] == list(range(len(owners))) and len(owners) <= 8
+            edges = [k for _, _, ks in owners for k in ks]
+            assert edges[0] == 0 and edges[-1] == kt
+            assert all(edges[i] == edges[i + 1] for i in range(1, len(edges) - 1, 2))
+        rows, load, segs = np.zeros((-(-nb * nc // bn) * bn // nc, n), dtype=np.int64), {}, {}
+        for c, b, (r0, r1), pc in passes:
+            rows[b, r0:r1] += 1
+            load[c] = load.get(c, 0) + r1 - r0
+            segs.setdefault(b, []).append(pc)
+        assert (rows == 1).all() and max(load.values()) - min(load.values()) <= 1
+        assert all(pcs == list(range(len(pcs))) and len(pcs) <= 32 for pcs in segs.values())
+
+
 def test_tiled_minv_layout():
-    """The large instance's Minv: [row tile][k tile][k // 4][row][k % 4]
-    with tiles of 4096 / bk rows and bk columns, zero past n."""
+    """The large instance's Minv: [row tile][k tile][k][row] with tiles of
+    128 rows and 16 columns, zero past n."""
     import itertools
 
     n = 1100
     M = torch.as_tensor(np.random.default_rng(5).standard_normal((n, n)))
-    for bk in (4, 8, 16):
-        Mt = k1._tiled(M, bk)
-        bm = 4096 // bk
-        assert Mt.shape == (-(-n // bm), -(-n // bk), bk // 4, bm, 4)
-        for pt, kt, q, r, e in itertools.product(
-            range(Mt.shape[0]), (0, 7, Mt.shape[1] - 1), range(bk // 4), (0, 13, bm - 1), range(4)
-        ):
-            row, col = pt * bm + r, kt * bk + 4 * q + e
-            assert Mt[pt, kt, q, r, e] == (M[row, col] if row < n and col < n else 0.0)
+    Mt = k1._tiled(M)
+    assert Mt.shape == (-(-n // 128), -(-n // 16), 16, 128)
+    for rt, kt, kk, r in itertools.product(
+        range(Mt.shape[0]), (0, 7, Mt.shape[1] - 1), range(16), (0, 13, 127)
+    ):
+        row, col = rt * 128 + r, kt * 16 + kk
+        assert Mt[rt, kt, kk, r] == (M[row, col] if row < n and col < n else 0.0)
 
 
 def test_plain_large_block_on_33x33_chunk():

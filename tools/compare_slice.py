@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """K1, K2, K3 and the two slices of two trees, in turns, on one NVIDIA GPU.
 
-    python3 tools/compare_slice.py --base DIR [--groups poisson,elasticity] [--out FILE]
+    python3 tools/compare_slice.py --base DIR [--groups poisson,elasticity,k1] [--out FILE]
 
 Run from the repository root on a machine with one CUDA card; it fails
 without one.  ``DIR`` is another checkout of the repository (for instance
@@ -24,6 +24,12 @@ builds that tree's kernels and runs its own ``chip_smoke.py`` phases.
   on that chunk and on the 8640-cell elasticity micro stage's eight
   chunks), then ``slice_elasticity`` (the beam, cold then warm, and the
   stage's seconds).
+- ``k1``: ``k1_times`` and ``k1_large_times`` (this script's own code,
+  both trees' ``stencil_pcg_cuda``): K1's small instance on the main path's
+  chunks and its large one on the auto-sized chunks of the 33², 64² and
+  16³ micro meshes, timed, and on two 64² chunks whose alternate blocks
+  hold high-contrast cells, held block by block against the per-block
+  plain version.
 
 It prints one JSON line per turn and phase record, and with ``--out FILE``
 writes all records there.
@@ -64,6 +70,73 @@ def k1_times(device) -> None:
         _, it = stencil_pcg_cuda(*args)
         emit({"phase": "k1_time", "case": name, "iters": int(it),
               "ms": time_ms(lambda: stencil_pcg_cuda(*args), reps=20)})
+
+
+def _harsh_coeff(x, y):
+    """The flagship coefficient times 100 in a disc of radius 1/4 at the
+    middle of cells with x₀ < 1/2 (contrast up to ~2000)."""
+    import torch
+    from chip_smoke import flagship
+
+    inc = ((y[0] - 0.5) ** 2 + (y[1] - 0.5) ** 2 < 0.0625) & (x[0] < 0.5)
+    return flagship(x, y) * torch.where(inc, 100.0, 1.0)
+
+
+def k1_large_times(device) -> None:
+    """K1's large instance: the CUDA-event time on an auto-sized chunk of
+    the 33², 64² and 16³ micro meshes (flagship), and on two 64² chunks
+    whose alternate blocks hold contrast cells (contrast 100 as in
+    ``chip_smoke.contrast_coeff``, defined here too since older trees lack
+    it, and ``_harsh_coeff``), the A* distance to the
+    per-block plain version and the per-block iteration counts of the
+    kernel, the plain version and the plain version in float64 (stop
+    tolerance 1e-5); the same inputs in every tree."""
+    import numpy as np
+    import torch
+    from chip_smoke import emit, flagship, time_ms
+
+    from hommx_tpu_torch import MicroEngine, create_unit_cube, create_unit_square
+    from hommx_tpu_torch.micro.chunk import chunk_system
+    from hommx_tpu_torch.micro.stencil_pcg import launch_config, stencil_pcg_cuda, stencil_pcg_plain
+
+    def contrast100(x, y):
+        inc = (y[0] - 0.5) ** 2 + (y[1] - 0.5) ** 2 < 0.0625
+        return torch.where(x[0] < 0.5, torch.where(inc, 100.0, 1.0), flagship(x, y))
+
+    rng = np.random.default_rng(6)
+    for name, mesh in (("2d33", create_unit_square(33, 33)), ("2d64", create_unit_square(64, 64)),
+                       ("3d16", create_unit_cube(16))):
+        eng = MicroEngine(mesh, device=device, dtype=torch.float32)
+        C = eng._auto_chunk(1 << 20)
+        cases = [(name, flagship, rng.uniform(0, 1, (C, eng.d)))]
+        if name == "2d64":
+            cb = launch_config(eng.n_reduced, eng.s, C).cells_per_block
+            half = (np.arange(C) // cb) % 2 == 0
+            x0 = np.where(half, rng.uniform(0, 0.5, C), rng.uniform(0.5, 1, C))
+            cen = np.stack([x0, rng.uniform(0, 1, C)], axis=1)
+            cases += [(f"{name}_contrast100", contrast100, cen),
+                      (f"{name}_harsh", _harsh_coeff, cen)]
+        for tag, coeff, cen in cases:
+            centers = torch.as_tensor(cen, dtype=torch.float32, device=device)
+            cs = chunk_system(eng, coeff, centers)
+            ws_s, Fs = cs.scaled()
+            args = (ws_s, Fs, cs.Minv, cs.st.shape, cs.st.offsets, eng.pcg_tol, eng.pcg_maxiter)
+            Yk, itk = stencil_pcg_cuda(*args, per_block=True)
+            itk = [int(v) for v in itk.cpu()]
+            rec = {"phase": "k1_large_time", "case": tag, "iters": max(itk),
+                   "ms": time_ms(lambda: stencil_pcg_cuda(*args), reps=10)}
+            if tag != name:  # the per-block plain version, float32 and float64
+                cb = launch_config(eng.n_reduced, eng.s, C).cells_per_block
+                Yp, itp = stencil_pcg_plain(*args, block=cb, per_block=True)
+                args64 = ([w.double() for w in ws_s], Fs.double(), cs.Minv.double(), *args[3:5],
+                          1e-5, eng.pcg_maxiter)
+                _, it64 = stencil_pcg_plain(*args64, block=cb, per_block=True)
+                Ak, Ap = cs.astar(eng, Yk, max(itk)), cs.astar(eng, Yp, max(itp))
+                rec.update({"iters_per_block": [list(v) for v in zip(itk, itp, it64)],
+                            "astar_rel_err": float((Ak - Ap).abs().max() / Ap.abs().max())})
+            emit(rec)
+        del eng
+        torch.cuda.empty_cache()
 
 
 def k3_times(device, chunk: int = 1080, cells: int = 8640) -> None:
@@ -118,6 +191,9 @@ def turn(tree: str, groups: list) -> int:
         chip_smoke.phase_stencil(device)
         k1_times(device)
         chip_smoke.phase_slice(device)
+    if "k1" in groups:
+        k1_times(device)
+        k1_large_times(device)
     if "elasticity" in groups:
         chip_smoke.phase_chol(device)
         k3_times(device)
@@ -129,12 +205,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--base", help="the other tree, run first and last")
     ap.add_argument("--groups", default="poisson,elasticity",
-                    help="comma-separated phase groups: poisson, elasticity")
+                    help="comma-separated phase groups: poisson, elasticity, k1")
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     ap.add_argument("--out", help="write all records to this JSON file")
     args = ap.parse_args()
     groups = [g for g in args.groups.split(",") if g]
-    if not groups or set(groups) - {"poisson", "elasticity"}:
+    if not groups or set(groups) - {"poisson", "elasticity", "k1"}:
         ap.error(f"--groups: unknown group in {args.groups!r}")
     if args.turn:
         return turn(args.turn, groups)

@@ -19,9 +19,13 @@ a 1000-cell chunk of the 8³ mesh it prints one JSON line per measurement:
 
 With ``--large`` it probes the large instance instead (n above the small
 one's reach): on one auto-sized chunk of the 33², 64², 10³ and 16³ micro
-meshes, K1 at cluster sizes 1, 2 and 4 against the per-block plain version,
-with its single-call time, the bound and the float32 ``torch.matmul`` of
-Minv by the chunk's loads.
+meshes, K1 with 2, 3, 4 and 6 ring stages against the per-block plain
+version, with its single-call time, the bound and the float32
+``torch.matmul`` of Minv by the chunk's loads;
+then, from a copy built with ``K1L_PROBE`` (clock64 per CTA), the cycles of
+a CTA in the products, its waits for tiles and at grid barriers, the
+stencil and the other vector passes and the dots, and the product's
+rate beside ``torch.matmul``'s at the same shape.
 
 With ``--out FILE`` all records also go there.
 """
@@ -121,35 +125,45 @@ def _sweep(k1, n, s, C, args, variants, chosen, lib_us, keep):
               "prec_library_us": lib_us})
 
 
-def sweep_large(k1, device, keep, clusters=(1, 2, 4, 8)):
-    """The large instance on one auto-sized chunk of each mesh: its
-    launch_config, then each cluster size with 4, 6 and 12 ring buffers, and
-    half its cells a block."""
+LARGE_CASES = (("2d33", "square", 33), ("2d64", "square", 64), ("3d10", "cube", 10),
+               ("3d16", "cube", 16))
+
+
+def _large_case(name, kind, m, device, rng):
+    """(engine, chunk size, chunk system, args, torch.matmul µs) of one case."""
+    import torch
+    from chip_smoke import time_ms
+
+    from hommx_tpu_torch import MicroEngine, create_unit_cube, create_unit_square
+
+    mesh = create_unit_square(m, m) if kind == "square" else create_unit_cube(m)
+    eng = MicroEngine(mesh, device=device, dtype=torch.float32)
+    C = eng._auto_chunk(1 << 20)
+    cs, args = chunk_args(eng, C, rng, device)
+    R2 = args[1].reshape(eng.n_reduced, eng.s * C).contiguous()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib_us = 1e3 * time_ms(lambda: torch.matmul(cs.Minv, R2), reps=20)
+    return eng, C, cs, args, lib_us
+
+
+def sweep_large(k1, device, keep):
+    """The large instance on one auto-sized chunk of each case: its
+    launch_config, then 2, 3, 4 and 6 ring stages (``large_candidate``)."""
     import numpy as np
     import torch
     from chip_smoke import K1_RTOL, bound, time_ms
 
-    from hommx_tpu_torch import MicroEngine, create_unit_cube, create_unit_square
-
     rng = np.random.default_rng(0)
     orig = k1.launch_config
     try:
-        for name, mesh in (("2d33", create_unit_square(33, 33)), ("2d64", create_unit_square(64, 64)),
-                           ("3d10", create_unit_cube(10)), ("3d16", create_unit_cube(16))):
-            eng = MicroEngine(mesh, device=device, dtype=torch.float32)
-            n, s = eng.n_reduced, eng.s
-            C = eng._auto_chunk(1 << 20)
-            cs, args = chunk_args(eng, C, rng, device)
-            K = len(cs.st.offsets)
-            R2 = args[1].reshape(n, s * C).contiguous()
-            torch.backends.cuda.matmul.allow_tf32 = False
-            lib_us = 1e3 * time_ms(lambda: torch.matmul(cs.Minv, R2), reps=20)
+        for name, kind, m in LARGE_CASES:
+            eng, C, cs, args, lib_us = _large_case(name, kind, m, device, rng)
+            n, s, K = eng.n_reduced, eng.s, len(cs.st.offsets)
             chosen = orig(n, s, C)
             variants = [chosen]
-            shapes = [(chosen.cells_per_block, cl, st) for cl in clusters for st in (4, 6, 12)]
-            for cb, cl, st in shapes + [(chosen.cells_per_block // 2, chosen.cluster, 6)]:
-                cfg = k1.large_candidate(n, s, cb, cl, st) if cb else None
-                if cfg is not None and cfg not in variants:
+            for st in (2, 3, 4, 6):
+                cfg = k1.large_candidate(n, s, C, st)
+                if cfg not in (None, chosen):
                     variants.append(cfg)
             for cfg in variants:
                 k1.launch_config = lambda n_, s_, c_=0, cfg=cfg: cfg
@@ -158,13 +172,14 @@ def sweep_large(k1, device, keep, clusters=(1, 2, 4, 8)):
                 Yp, itp = k1.stencil_pcg_plain(*args, block=cfg.cells_per_block, per_block=True)
                 Ak, Ap = cs.astar(eng, Y, max(its)), cs.astar(eng, Yp, max(itp))
                 rel = float((Ak - Ap).abs().max() / Ap.abs().max())
-                ms = time_ms(lambda: k1.stencil_pcg_cuda(*args), reps=5, warmup=1)
+                ms = time_ms(lambda: k1.stencil_pcg_cuda(*args), reps=10, warmup=1)
                 b = cfg.cells_per_block
                 flops = sum(min(b, C - i * b) * ((it + 2) * 2.0 * n * n * s
                                                  + (it + 1) * 2.0 * K * n * s)
                             for i, it in enumerate(its))
                 bound_ms, by = bound(flops, 4.0 * (K * n * C + 2 * n * s * C + n * n))
                 keep({"tag": "large", "case": name, "n": n, "s": s, "cells": C, **cfg.__dict__,
+                      "grid_on_card": k1.large_grid_on_card(cfg),
                       "chosen": cfg == chosen, "ms": ms, "bound_ms": bound_ms, "bound_by": by,
                       "share_of_bound": bound_ms / ms, "iters_max": max(its),
                       "iters_plain_max": max(itp),
@@ -176,21 +191,22 @@ def sweep_large(k1, device, keep, clusters=(1, 2, 4, 8)):
         k1.launch_config = orig
 
 
-LARGE_PHASES = ("prec", "prec_wait", "producer", "producer_wait", "stencil", "total", "applies")
+LARGE_PHASES = ("product", "tile_wait", "grid_wait", "stencil", "update", "dots", "total",
+                "stages")
 
 
 def large_phases(k1, device, keep):
-    """The large instance's cycle split, from instrumented copies
-    (``K1L_PROBE`` defined; ``K1L_MIN_BLOCKS`` 1 and 2, the least CTAs an SM
-    that ``__launch_bounds__`` asks of the registers; ``K1L_NO_FMA``, the
-    product's arithmetic left out, so only its cycles mean anything), at its
-    launch configuration on the 64² and 16³ chunks (the median and the
-    maximum over CTAs)."""
+    """The large instance's cycle split per CTA, from a copy built with
+    ``K1L_PROBE`` (thread 0's clock64; the median and the maximum over the
+    CTAs), at its launch configuration on each case, and the product's
+    rate: its FLOPs (ring stages x 2 x 128 x tile_cols x 16) over the
+    busiest CTA's product cycles, at the clock that the longest CTA's
+    cycles over the launch's time give, beside ``torch.matmul`` of Minv by
+    the chunk's loads (TF32 off) at the same shape."""
     import numpy as np
     import torch
     from chip_smoke import time_ms
 
-    from hommx_tpu_torch import MicroEngine, create_unit_cube, create_unit_square
     from hommx_tpu_torch._cuda import CudaKernel
 
     rng = np.random.default_rng(0)
@@ -198,34 +214,41 @@ def large_phases(k1, device, keep):
     build.mkdir(parents=True, exist_ok=True)
     sig = dict(k1.KERNEL.signatures)
     sig["hommx_k1l_phases"] = [ctypes.c_void_p]
-    kernels = {}
-    variants = {"b1": "#define K1L_MIN_BLOCKS 1\n", "b2": "", "b2_nofma": "#define K1L_NO_FMA\n"}
-    for tag, head in variants.items():
-        src = build / f"stencil_pcg_{tag}.cu"
-        src.write_text("#define K1L_PROBE\n" + head + k1.KERNEL.source.read_text())
-        kernels[tag] = CudaKernel(src, sig)
+    src = build / "stencil_pcg_probe.cu"
+    src.write_text("#define K1L_PROBE\n" + k1.KERNEL.source.read_text())
+    kern = CudaKernel(src, sig)
     orig = k1.KERNEL
     try:
-        for name, mesh in (("2d64", create_unit_square(64, 64)), ("3d16", create_unit_cube(16))):
-            eng = MicroEngine(mesh, device=device, dtype=torch.float32)
-            C = eng._auto_chunk(1 << 20)
-            _, args = chunk_args(eng, C, rng, device)
-            cfg = k1.launch_config(eng.n_reduced, eng.s, C)
-            for tag, kern in kernels.items():
-                k1.KERNEL = kern
-                ms = time_ms(lambda: k1.stencil_pcg_cuda(*args), reps=5, warmup=1)
-                buf = torch.zeros(8192 * 8, dtype=torch.int64, device=device)
-                kern.launch("hommx_k1l_phases", device.index, buf.data_ptr())
-                torch.cuda.synchronize()
-                nb = -(-C // cfg.cells_per_block) * cfg.cluster
-                ph = buf[: nb * 8].reshape(nb, 8)[:, : len(LARGE_PHASES)].double()
-                keep({"tag": "large_phases", "case": name, "build": tag, **cfg.__dict__,
-                      "instrumented_ms": ms, "ptxas": [ln.strip() for ln in kern.build_log.splitlines()
-                                                       if "large" in ln or "registers" in ln][-6:],
-                      "cycles_median": dict(zip(LARGE_PHASES,
-                                                ph.median(dim=0).values.tolist())),
-                      "cycles_max": dict(zip(LARGE_PHASES, ph.max(dim=0).values.tolist()))})
-            del eng, args
+        k1.KERNEL = kern
+        for name, kind, m in LARGE_CASES:
+            eng, C, cs, args, lib_us = _large_case(name, kind, m, device, rng)
+            n, s = eng.n_reduced, eng.s
+            cfg = k1.launch_config(n, s, C)
+            _, its = k1.stencil_pcg_cuda(*args, per_block=True)
+            ms = time_ms(lambda: k1.stencil_pcg_cuda(*args), reps=5, warmup=1)
+            buf = torch.zeros(8192 * 8, dtype=torch.int64, device=device)
+            kern.launch("hommx_k1l_phases", device.index, buf.data_ptr())
+            torch.cuda.synchronize()
+            grid = min(cfg.grid, k1.large_grid_on_card(cfg))
+            ph = buf[: grid * 8].reshape(grid, 8).double()
+            hz = float(ph[:, 6].max()) / (ms / 1e3)
+            flops = float(ph[:, 7].sum()) * 2.0 * 128 * cfg.tile_cols * 16
+            prod_s = float(ph[:, 0].max()) / hz
+            applies = int(its.max()) + 2
+            keep({"tag": "large_phases", "case": name, "n": n, "s": s, "cells": C,
+                  **cfg.__dict__, "grid_launched": grid, "instrumented_ms": ms,
+                  "iters_max": int(its.max()), "clock_ghz": hz / 1e9,
+                  "ptxas": [ln.strip() for ln in kern.build_log.splitlines()
+                            if "registers" in ln or "spill" in ln][-8:],
+                  "cycles_median": dict(zip(LARGE_PHASES, ph.median(dim=0).values.tolist())),
+                  "cycles_max": dict(zip(LARGE_PHASES, ph.max(dim=0).values.tolist())),
+                  "cycles_min": dict(zip(LARGE_PHASES, ph.min(dim=0).values.tolist())),
+                  "product_gflop": flops / 1e9, "product_ms": prod_s * 1e3,
+                  "product_ms_per_apply": prod_s * 1e3 / applies,
+                  "product_tflops": flops / prod_s / 1e12,
+                  "matmul_us": lib_us,
+                  "matmul_tflops": 2.0 * n * n * s * C / (lib_us / 1e6) / 1e12})
+            del eng, cs, args
             torch.cuda.empty_cache()
     finally:
         k1.KERNEL = orig
