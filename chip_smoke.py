@@ -1026,14 +1026,6 @@ def phase_chol(device, chunk: int = 1080):
 K3_LARGE = {}
 
 
-def _k3_workspace_rmw_bytes(C: int, n: int) -> int:
-    """Bytes the large instance moves through its workspace in the
-    trailing updates: every lower tile (i, j), p < j <= i, read and
-    written once a panel p, 8 KB a tile, C cells."""
-    P = -(-n // 32)
-    return C * sum((P - 1 - p) * (P - p) // 2 for p in range(P)) * 8192
-
-
 def _k3_large_cases(device, sizes=((5, 720), (6, 309), (8, 76)), square=(16, 683),
                     spd=((289, 6, 64), (512, 3, 128), (648, 6, 64), (1536, 6, 16),
                          (3000, 6, 4)), checked: int = 32) -> list:
@@ -1044,10 +1036,12 @@ def _k3_large_cases(device, sizes=((5, 720), (6, 309), (8, 76)), square=(16, 683
     the 5³, 6³ and 8³ cubes (n = 375, 648, 1536) at the chunks a 4320-cell
     beam gives them, and the 2D inclusion's on the 16² square (n = 512, s =
     3) at the 2048-cell run's chunk, timed (the kernel, its plain version,
-    torch.linalg.solve, the bound, the workspace's traffic), the float64
-    checks on ``checked`` of their cells; (h3) a ragged 37 cells of the 5³
-    cube (four CTAs a cell); (h4) 16 cells of the 6³ cube with cell 3's
-    last pivot made negative.  Returns the failed cases."""
+    torch.linalg.solve, the bound, the workspace's traffic by
+    ``chol_kernel.workspace_traffic_bytes``), the float64 checks on
+    ``checked`` of their cells, and at the 6³ cube two identical launches
+    bitwise equal; (h3) a ragged 37 cells of the 5³ cube (four CTAs a
+    cell); (h4) 16 cells of the 6³ cube with cell 3's last pivot made
+    negative.  Returns the failed cases."""
     import numpy as np
     import torch
 
@@ -1073,13 +1067,14 @@ def _k3_large_cases(device, sizes=((5, 720), (6, 309), (8, 76)), square=(16, 683
         rec, ok = _k3_compare(K, F, ok_cells, astar, strict)
         rec = {"phase": "chol_solve", "case": name, "cells": C, "n": n, "s": s,
                "large": cfg.large, "panels": cfg.panels, "cluster": cfg.cluster,
+               "apart": cfg.apart,
                "workspace_bytes": cfg.workspace_bytes,
                "checked_cells": C if ok_cells is None else len(ok_cells), **rec}
         if timed:
             Fb = F.permute(2, 0, 1).contiguous()
             flops = C * (n**3 / 3 + 4.0 * n * n * s + 2.0 * n * n * s)
             bound_ms, bound_by = bound(flops, 4.0 * C * (n * n + 2 * n * s))
-            rmw = _k3_workspace_rmw_bytes(C, n)
+            rmw = chol_kernel.workspace_traffic_bytes(n, C)
             rec.update({"card": _card_line(), "smem_bytes": cfg.smem_bytes,
                         "occupancy": list(chol_kernel.large_occupancy(cfg)),
                         "ms": time_ms(lambda: fused_chol_solve_cuda(K, F), reps=10),
@@ -1105,6 +1100,11 @@ def _k3_large_cases(device, sizes=((5, 720), (6, 309), (8, 76)), square=(16, 683
         rec = check(f"h2_beam_cube{m}_C{C}", K, F, astar=astar, timed=True)
         if m == 6:
             K3_LARGE.update(rec)
+            # no sum runs in atomic order: two identical launches agree bitwise
+            same = bool(torch.equal(fused_chol_solve_cuda(K, F), fused_chol_solve_cuda(K, F)))
+            emit({"phase": "chol_solve", "case": f"h5_bitwise_cube6_C{C}", "bitwise_equal": same})
+            if not same:
+                failed.append(f"h5_bitwise_cube6_C{C}")
         if m == 5:  # (h3) a ragged cell count
             K37, F37, astar37 = _cell_systems(eng, beam_coeff(False), beam_centers[:37],
                                               beam_rotation)

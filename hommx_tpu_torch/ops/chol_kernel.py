@@ -15,12 +15,15 @@ source has two instances, and :func:`chol_launch_config` names the one that
 runs.  The small one keeps a cell's lower 32 × 32 tiles in shared memory and
 takes n up to :func:`max_small_n` (288 at s ≤ 8).  The large one takes every
 n above that: the tiles live in a per-cell global workspace that the
-wrapper allocates (``K3Config.workspace_bytes`` a cell), and a cell of a chunk
-smaller than the card is a cluster of CTAs; its only limit is memory.  The
-kernel refuses only s outside 1..8.  The kernel has no backward of its
-own: the Cholesky route (micro/chunk.py) wraps it in the implicit-function
-rule, as the reference wraps it in ``lax.custom_linear_solve``, so the
-adjoint is one more launch on the adjoint right-hand sides.
+wrapper allocates (``K3Config.workspace_bytes`` a cell), the factor runs by
+outer panels of ``K3Config.outer`` tile columns (each trailing tile read and
+written once an outer panel: :func:`workspace_traffic_bytes`), and a cell of
+a chunk smaller than the card is a cluster of CTAs; its only limit is
+memory.  The kernel refuses only s outside 1..8.  The kernel has no
+backward of its own: the Cholesky route (micro/chunk.py) wraps it in the
+implicit-function rule, as the reference wraps it in
+``lax.custom_linear_solve``, so the adjoint is one more launch on the
+adjoint right-hand sides.
 The TPU-only parts of the reference module (``probe_compile``,
 ``fused_chol_available`` and the VMEM budget) are not ported.
 """
@@ -48,6 +51,7 @@ __all__ = [
     "kernel_smem_bytes",
     "large_occupancy",
     "max_small_n",
+    "workspace_traffic_bytes",
     "KERNEL",
 ]
 
@@ -63,9 +67,13 @@ SMEM_LIMIT = 232_448
 SM_SMEM = 233_472
 BLOCK_RESERVED = 1024
 MAX_BLOCKS_PER_SM = 2  # __launch_bounds__(256, 2)
-# the large instance: a staging region of 24 tiles, Dinv_p and one diagonal
-# tile in shared memory at every n; at most 8 CTAs a cell
-LARGE_SMEM = 4 * (24 + 2) * NB * NB
+# the large instance: outer panels of 4 tile columns (128 columns), whose
+# strip keeps its 10-tile lower diagonal block, 4 rows of 4 tiles and one
+# tile of its forward substitution in shared memory at every n (the
+# trailing update's 16 + 2 x 4 staged tiles and the substitutions' fit in
+# the same 27); at most 8 CTAs a cell
+OUTER = 4
+LARGE_SMEM = 4 * (OUTER * (OUTER + 1) // 2 + 4 * OUTER + 1) * NB * NB
 MAX_CLUSTER = 8
 SMS = 132  # streaming multiprocessors of the H100 SXM, for the cluster size
 
@@ -75,9 +83,9 @@ KERNEL = CudaKernel(
     {
         # K, F, X, C, n, s, eps, threads, P, tile_stride, smem, stream
         "hommx_chol_solve_f32": [_vp, _vp, _vp, _i, _i, _i, ctypes.c_float, _i, _i, _i, _i, _vp],
-        # K, F, X, W, V, C, n, s, eps, threads, P, CS, smem, stream
+        # K, F, X, W, V, C, n, s, eps, threads, P, CS, apart, outer, smem, stream
         "hommx_chol_solve_large_f32": [
-            _vp, _vp, _vp, _vp, _vp, _i, _i, _i, ctypes.c_float, _i, _i, _i, _i, _vp,
+            _vp, _vp, _vp, _vp, _vp, _i, _i, _i, ctypes.c_float, _i, _i, _i, _i, _i, _i, _vp,
         ],
         # smem, out: resident blocks per SM (not a launch)
         "hommx_chol_blocks_per_sm": [_i, ctypes.POINTER(ctypes.c_int)],
@@ -102,7 +110,10 @@ class K3Config:
     block a cell (``cluster`` 0).  The large one runs a cluster of
     ``cluster`` CTAs a cell, with ``workspace_bytes`` of global workspace
     a cell (the packed tiles and two (32·P, s) arrays:
-    :func:`kernel_smem_bytes`)."""
+    :func:`kernel_smem_bytes`), and factors by outer panels of ``outer``
+    tile columns; the CTAs of its first ``apart`` clusters solve a cell
+    each, so that a chunk a little over a full wave runs its last cells on
+    ``cluster`` CTAs each (:func:`_cluster`)."""
 
     threads: int
     panels: int
@@ -111,6 +122,8 @@ class K3Config:
     blocks_per_sm: int
     cluster: int = 0
     workspace_bytes: int = 0
+    outer: int = 0
+    apart: int = 0
 
     @property
     def large(self) -> bool:
@@ -126,14 +139,25 @@ def kernel_smem_bytes(n: int, s: int) -> int:
     return 4 * (P * (P + 1) // 2 * NB * NB + 2 * P * NB * s)
 
 
-def _cluster(cells: int) -> int:
-    """CTAs a cell of the large instance: the fewest of 1, 2, 4, 8 that
-    give every SM a CTA for a chunk of ``cells`` (0: a chunk that fills
-    the card)."""
-    for cs in (1, 2, 4):
-        if not cells or cells * cs >= SMS:
-            return cs
-    return MAX_CLUSTER
+def _cluster(cells: int, blocks: int) -> tuple:
+    """(CTAs a cell, clusters whose CTAs solve a cell each) of the large
+    instance for a chunk of ``cells`` (0: a chunk that fills the card) at
+    ``blocks`` CTAs an SM.  Below one CTA an SM: the fewest of 1, 2, 4, 8
+    CTAs a cell that give every SM one.  Above a full wave (``blocks`` ·
+    132 slots), where the last wave's cells fit the slots at two CTAs
+    each: clusters of 2, the full waves' CTAs a cell each and the last
+    wave's cells a cluster each.  Else one CTA a cell.  (Clusters of 4
+    and 8 would take the last wave's cells faster, but the H100 holds only
+    62 and 30 of them at once, fewer than a full wave's 66 and 33.)"""
+    slots = blocks * SMS
+    if not cells:
+        return 1, 0
+    if cells < SMS:
+        return next((cs for cs in (1, 2, 4) if cells * cs >= SMS), MAX_CLUSTER), 0
+    last = cells % slots  # the full waves' cells, a multiple of the even slots, pair up
+    if cells > slots and 0 < 2 * last <= slots:
+        return 2, (cells - last) // 2
+    return 1, 0
 
 
 @functools.lru_cache(maxsize=256)
@@ -156,7 +180,24 @@ def chol_launch_config(n: int, s: int, cells: int = 0) -> K3Config:
     # the large instance's global workspace a cell holds what the small
     # one's shared memory would: the packed tiles and two (32·P, s) arrays
     blocks = min(MAX_BLOCKS_PER_SM, SM_SMEM // (LARGE_SMEM + BLOCK_RESERVED))
-    return K3Config(THREADS, P, NB, LARGE_SMEM, blocks, _cluster(cells), smem)
+    cluster, apart = _cluster(cells, blocks)
+    return K3Config(THREADS, P, NB, LARGE_SMEM, blocks, cluster, smem, OUTER, apart)
+
+
+def workspace_traffic_bytes(n: int, cells: int) -> int:
+    """Bytes the large instance's factor reads and writes of its tiles'
+    workspace for ``cells`` cells of n unknowns: each lower tile read and
+    written once in the strip of its outer panel, and each tile right of
+    a strip once more in that strip's trailing update (8 KB a tile each
+    time).  Not counted: the strip rows that the trailing products stage
+    as operands (tiles just written, read mostly from L2) and the
+    substitutions' reads."""
+    P = -(-n // NB)
+    tiles = P * (P + 1) // 2
+    for p0 in range(0, P - OUTER, OUTER):
+        m = P - p0 - OUTER
+        tiles += m * (m + 1) // 2
+    return cells * tiles * 2 * NB * NB * 4
 
 
 def max_small_n(s: int) -> int:
@@ -247,7 +288,8 @@ def fused_chol_solve_cuda(Ks, Fs, eps: float = 1e-30):
         KERNEL.launch(
             "hommx_chol_solve_large_f32", Fs.device.index,
             Kc.data_ptr(), Fc.data_ptr(), X.data_ptr(), W.data_ptr(), V.data_ptr(),
-            C, n, s, float(eps), cfg.threads, P, cfg.cluster, cfg.smem_bytes,
+            C, n, s, float(eps), cfg.threads, P, cfg.cluster, cfg.apart, cfg.outer,
+            cfg.smem_bytes,
         )
         return X
     KERNEL.launch(

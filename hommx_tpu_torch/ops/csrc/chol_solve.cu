@@ -73,41 +73,65 @@
 //
 // The large instance (chol_solve_large_kernel, hommx_chol_solve_large_f32)
 // takes every n the small one cannot hold (n > 288 at s <= 8: the 5^3-8^3
-// cubes, the 13^2-16^2 squares and up), with the same algorithm, layouts
-// and helpers.  A cell's packed lower tiles do not fit on chip (338 KB at
-// n = 375, 4.7 MB at n = 1536), so they live in a per-cell global workspace
-// that the wrapper allocates; the right-hand sides and the first solution
-// live beside them.  Per panel p:
-// - every CTA of the cell loads Dinv_p (tile (p, p) of the workspace);
-// - the panel tiles L_ip = A_ip Dinv_p^T are split over the cell's workers
-//   (warps of all its CTAs), computed in shared memory and written back;
-// - the trailing update A_ij -= L_ip L_jp^T streams each tile through
-//   registers (read, subtract, write: the workspace is read-modify-written
-//   through L2), with L_ip and L_jp staged in shared memory: the whole
-//   column when its m = P-1-p tiles fit the 24-tile region, else in parts,
-//   a J window of 16 tiles against I windows of 8 below it.  Worker 0
-//   (warp 0 of rank 0) takes tile (p+1, p+1) alone, factors it at once and
-//   stores Dinv_{p+1}, as warp 0 does in the small instance.
-// Panel 0 reads its tiles straight from Ks (the upper triangle, with the
-// identity padding written on load), so Ks is copied into the workspace by
-// its first trailing update, not by a pass of its own.
-// Where a chunk has fewer cells than the card has SMs, a cell is a cluster
-// of CS CTAs (1, 2, 4 or 8) that split the panel tiles and the trailing
-// update; two cluster barriers a panel order the workspace (every read of it
-// goes through L2: cp.async.cg, ld.global.cg).  No mbarrier is waited on.
-// Rank 0 then runs the substitutions (the small instance's warp products on
-// tiles staged from the workspace, 16 at a time: forward right-looking,
-// backward left-looking, both down one contiguous tile column per panel)
-// and the refinement residual against the full Ks, and writes X.
-// Shared memory is 26 tiles (106,496 B) at every n, so two CTAs share an
-// SM.  What bounds it: the factor's n^3/3 FLOP at the FP32 rate and the
-// workspace's ~P^3/6 tile read-modify-writes (8 KB each; 151 MB a cell at
-// n = 1536), which at chunk sizes spill L2 to HBM.  Where the time goes
-// (tools/k3_probe.py --large, H100): on the 6^3 beam's 309-cell chunk the
-// trailing update takes ~60% of a CTA's cycles, the substitutions ~19% and
-// the residual ~10%; for one 8^3 cell on 8 CTAs, rank 0's substitutions and
-// residual take ~42% of its cycles while the other ranks have finished.
-// More CTAs a cell than the fewest that give every SM one ran slower.
+// cubes, the 13^2-16^2 squares and up), with the same algorithm, layouts and
+// diagonal-tile helpers.  A cell's packed lower tiles do not fit on chip
+// (338 KB at n = 375, 4.7 MB at n = 1536), so they live in a per-cell global
+// workspace that the wrapper allocates; the right-hand sides and the first
+// solution live beside them.  What bounds it: the factor's n^3/3 FLOP at the
+// FP32 rate, and the workspace's traffic, which at chunk sizes spills the
+// 50 MB L2 to HBM (0.29 GB of workspace for the 6^3 cube's 309 cells).
+// Updating every trailing tile once a 32-wide panel read and wrote ~P^3/6
+// tiles of 8 KB a cell (1540 at the 6^3 cube: 3.9 GB a chunk, 2.4x the FLOP
+// bound at the HBM rate), one 32-deep product for each 8 KB moved.  So the
+// factor runs by outer panels of kOuter = 4 tile columns (128 columns):
+// - The strip.  Its lower diagonal block (10 tiles, 40 KB) is loaded and
+//   factored in shared memory by the small instance's right-looking loop
+//   (Dinv in its diagonal tiles), in every CTA of the cell; rank 0 writes it
+//   back.  The rows below it, kGroup = 4 at a time (16 tiles), are read once,
+//   solved against it (L_ik = (A_ik - sum_{k' < k} L_ik' L_kk'^T) Dinv_k^T,
+//   one warp a tile) and written once; the groups are split over the
+//   cluster.  The first forward substitution rides along (y of the block's
+//   rows, then b_i -= L_ik y_k for the rows below), so the first solve
+//   reads the factor once, backward.
+// - The trailing update.  Every lower tile right of the strip, A_ij -=
+//   sum_k L_ik L_jk^T over the strip's 128 columns, runs by blocks of 4 x 4
+//   tiles (128 x 128): the lower triangle's blocks in column order, split
+//   over the cluster; a block column's strip rows (16 tiles, every depth)
+//   staged once, a block row's (4 tiles a depth) double-buffered by
+//   cp.async so that the next depth (or the next block's first) arrives
+//   while the product runs.  Each thread holds an 8 x 8 accumulator (rows
+//   and columns in two 4-wide slices, 32 apart, so that eight lanes read
+//   128 contiguous bytes or one broadcast word): four float4 reads of
+//   shared memory per 64 FMAs (the small instance's tile product: three per
+//   32).  Two warps own a 64 x 64 quadrant and skip it where it holds no
+//   lower tile (a diagonal block's upper quadrant, rows past the edge).
+//   Each trailing tile is read, updated by a 128-deep sum and written once
+//   an outer panel: 536 tiles read and written a 6^3 cell instead of 1540,
+//   strip included (ops/chol_kernel.py::workspace_traffic_bytes).  Full
+//   FP32 on the CUDA cores; every sum runs in a fixed order, so identical
+//   launches are bitwise equal.
+// Outer panel 0 reads its tiles straight from Ks (the upper triangle, with
+// the identity padding written on load), so Ks is copied into the workspace
+// by the first strip and trailing update, not by a pass of its own.  Where a
+// chunk has fewer cells than the card has SMs, a cell is a cluster of CS
+// CTAs (1, 2, 4 or 8) that split the strip's row groups and the trailing
+// blocks; two cluster barriers an outer panel order the workspace (every
+// read of it goes through L2: cp.async.cg, ld.global.cg).  No mbarrier is
+// waited on.  Where a chunk is a little over a full wave (the 6^3 beam's 309
+// cells against 264 slots), clusters of two CTAs solve a cell a CTA in the
+// full waves and the last wave's cells two CTAs each (`apart`), so that the
+// last wave runs shorter.  Rank 0 then runs the substitutions by the same
+// outer panels (a few round trips to memory an outer panel instead of one
+// or more a 32-wide panel), the cell's CTAs split the refinement residual
+// against the full Ks by rows, and rank 0 runs the second solve and writes
+// X.  Shared memory is 27 tiles (110,592 B) at every n, so two CTAs share an
+// SM (__launch_bounds__(256, 2): at most 128 registers a thread; one CTA
+// with 255 ran 19-60% slower).  Where the time goes (tools/k3_probe.py
+// --large, H100, 309 cells of the 6^3 cube): the trailing products ~25% of
+// a CTA's cycles at ~41 TFLOP/s over the card's slots, the strip ~29%
+// (the block's factor, a chain of four 32 x 32 factorizations, 11%), the
+// substitutions 17%, the residual 13%; the last wave runs with under half
+// the slots busy for ~30% of the kernel.
 
 #include <cuda_runtime.h>
 
@@ -123,15 +147,31 @@ constexpr int kMaxRhs = 8;        // at most kWarps: one warp per right-hand sid
 constexpr int kMaxPanels = 9;     // n <= 288
 constexpr unsigned FULL = 0xffffffffu;
 
-// The large instance: a staging region of kStage tiles, split into a J
-// window of kStage - kWinB tiles and I windows of kWinB where a panel's
-// column does not fit it whole; kSolveTiles tiles at a time in the
-// substitutions; at most kMaxCluster CTAs a cell.
-constexpr int kStage = 24;
-constexpr int kWinB = 8;
-constexpr int kSolveTiles = 16;
-constexpr int kLargeTiles = kStage + 2;  // + Dinv_p and worker 0's diagonal tile
+// The large instance: outer panels of kOuter tile columns, whose strip
+// keeps its lower diagonal block (kDiagTiles), kGroup rows (kOuter tiles
+// each) and its part of the first forward substitution (one tile) in
+// shared memory; trailing blocks of kBlk x kBlk tiles, whose
+// operands take kBlk * kOuter tiles (B, every depth) and 2 * kBlk (A, one
+// depth, double-buffered); the substitutions' block and rows of an outer
+// panel, their x segments, partial sums and vectors; at most kMaxCluster
+// CTAs a cell.
+constexpr int kOuter = 4;
+constexpr int kDiagTiles = kOuter * (kOuter + 1) / 2;
+constexpr int kGroup = 4;
+constexpr int kBlk = 4;
+constexpr int kSolveRows = 3;  // substitutions: rows a stage staged with the block
+constexpr int kWideRows = 5;   // .. and without it
+constexpr int kLargeTiles = kDiagTiles + kGroup * kOuter + 1;  // 27: + y of the strip
 constexpr int kMaxCluster = 8;
+static_assert(kBlk * kOuter + 2 * kBlk <= kLargeTiles, "the trailing update's operands");
+static_assert((kDiagTiles + kOuter * kSolveRows) * TILE +
+                      (kSolveRows + kWarps + kOuter + 1) * kMaxRhs * NB <=
+                  kLargeTiles * TILE,
+              "the substitutions' block, rows, x segments, partial sums and vectors");
+static_assert(kOuter * kWideRows <= kDiagTiles + kOuter * kSolveRows, "the wide stages");
+static_assert(kSolveRows <= kWarps && kWideRows <= kWarps && kWarps % kOuter == 0,
+              "a warp a row, two warps a column");
+static_assert(kGroup <= kWarps, "one warp a row in the strip's panel step");
 
 // Phase marks.  They expand to nothing here; tools/k3_probe.py builds a copy
 // with K3_PROBE defined, in which thread 0 of every block adds up clock64
@@ -549,177 +589,543 @@ __device__ __forceinline__ void cluster_sync() {
           : "memory");
 }
 
-// Rows gi .. gi+7 of the padded operator's column gj, from K[gj][gi ..]
+// Phase marks of the large instance.  They cost nothing here; in the
+// K3_PROBE build thread 0 of every CTA adds up clock64 cycles per phase (0
+// the strip's diagonal block: load, factor, store; 1 the strip's rows:
+// solve and store; 2 trailing products; 3 trailing read-modify-writes of
+// the workspace; 4 substitutions (rank 0); 5 refinement residual; 6
+// output; 7 staging waits of the trailing update (its B rows and A
+// buffers); 8 cluster barriers; 9 loading the strip's rows) and records its
+// start and end on %globaltimer (ns): 12 int64 a CTA.
+#ifdef K3_PROBE
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ long long g_k3l[K3_PROBE_CELLS * 12];
+
+struct LargeProbe {
+  long long t, start, c[10];
+  __device__ void begin() {
+    t = clock64();
+    start = global_ns();
+    for (int q = 0; q < 10; ++q) c[q] = 0;
+  }
+  __device__ void mark(int k) {
+    if (threadIdx.x == 0) {
+      const long long x = clock64();
+      c[k] += x - t;
+      t = x;
+    }
+  }
+  __device__ void end() {
+    if (threadIdx.x == 0 && blockIdx.x < K3_PROBE_CELLS) {
+      long long* const g = g_k3l + blockIdx.x * 12;
+      for (int q = 0; q < 10; ++q) g[q] = c[q];
+      g[10] = start;
+      g[11] = global_ns();
+    }
+  }
+};
+#else
+struct LargeProbe {
+  __device__ void begin() {}
+  __device__ void mark(int) {}
+  __device__ void end() {}
+};
+#endif
+
+// The block, one 16-byte chunk a thread: tile (I, J) of the padded operator
+// into dst (column-major) by cp.async, from Ks (from_k; the identity
+// padding written on load) or from its workspace tile Wt.  The caller
+// commits and waits.
+__device__ __forceinline__ void fetch_tile(float* dst, const float* Kc, const float* Wt, int n,
+                                           int I, int J, bool from_k, bool vec, int tid) {
+  static_assert(4 * kThreads == TILE, "one 16-byte chunk a thread");
+  if (from_k)  // 4 tid = column (tid >> 3) * NB + row (tid & 7) * 4
+    load_chunk(dst + 4 * tid, Kc, n, I * NB + (tid & 7) * 4, J * NB + (tid >> 3), vec);
+  else
+    cp_async16(dst + 4 * tid, Wt + 4 * tid);
+}
+
+// The block: a shared-memory tile into its workspace tile.
+__device__ __forceinline__ void store_tile(float* dst, const float* src, int tid) {
+  st4(dst + 4 * tid, ld4(src + 4 * tid));
+}
+
+// Rows gi .. gi+3 of the padded operator's column gj, from K[gj][gi ..]
 // (symmetric Ks, row-major): what load_chunk loads, into registers.
-__device__ __forceinline__ void load8(float (&v)[8], const float* Kc, int n, int gi, int gj,
-                                      bool vec) {
+__device__ __forceinline__ float4 load4(const float* Kc, int n, int gi, int gj, bool vec) {
+  if (vec && gj < n && gi < n)  // n % 4 == 0: the four are inside or outside whole
+    return __ldg(reinterpret_cast<const float4*>(Kc + (size_t)gj * n + gi));
+  float v[4];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int g0 = gi + 4 * h;
-    if (vec && gj < n && g0 < n) {  // n % 4 == 0: the four are inside or outside whole
-      const float4 x = __ldg(reinterpret_cast<const float4*>(Kc + (size_t)gj * n + g0));
-      v[4 * h] = x.x;
-      v[4 * h + 1] = x.y;
-      v[4 * h + 2] = x.z;
-      v[4 * h + 3] = x.w;
+  for (int e = 0; e < 4; ++e) {
+    const int g = gi + e;
+    v[e] = gj < n && g < n ? __ldg(Kc + (size_t)gj * n + g) : (g == gj ? 1.f : 0.f);
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// The strip of the outer panel of tile columns p0 .. p0+w-1 (w <= kOuter),
+// in shared memory S: its lower diagonal block DB (tile (p0+a, p0+b) at
+// tile_index(a, b, w)) factored by the small instance's right-looking loop
+// in every CTA (warp 0 factors the next diagonal tile while the others
+// update), Dinv in its diagonal tiles, rank 0 writing it back; then the rows
+// below, kGroup at a time (group g by rank g mod CS): tiles (i, p0+k) at
+// G + (r * kOuter + k) * TILE for row i = i0 + r, read once, solved against
+// DB depth by depth (L_ik = A_ik Dinv_k^T, then A_ij -= L_ik L_jk^T for
+// j > k), written once.  The first forward substitution rides along: y
+// of the block's rows (Y: y_a of right-hand side q at (a * kMaxRhs + q) *
+// NB) from their right-hand sides in Bv, which rank 0 stores in Xv (the
+// cluster's other CTAs may still read those rows of Bv), then b_i -= sum_k
+// L_ik y_k for the rows below, each by the CTA that solves the row.
+__device__ void large_strip(float* S, float* Wc, const float* Kc, float* Bv, float* Xv, int n,
+                            int npad, int s, int P, int p0, int w, int rank, int CS, bool from_k,
+                            bool vec, float eps, LargeProbe& pr) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* const DB = S;
+  float* const G = S + kDiagTiles * TILE;
+  float* const Y = G + kGroup * kOuter * TILE;
+  for (int b = 0; b < w; ++b)
+    for (int a = b; a < w; ++a)
+      fetch_tile(DB + tile_index(a, b, w) * TILE, Kc,
+                 Wc + (size_t)tile_index(p0 + a, p0 + b, P) * TILE, n, p0 + a, p0 + b, from_k,
+                 vec, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (warp == 0) factor_diag(DB, lane, eps);
+  __syncthreads();
+  for (int a = 0; a < w; ++a) {
+    const float* const Da = DB + tile_index(a, a, w) * TILE;
+    for (int i = a + 1 + warp; i < w; i += kWarps)
+      panel_tile(DB + tile_index(i, a, w) * TILE, Da, lane);
+    __syncthreads();
+    const int m = w - 1 - a;
+    if (warp == 0) {
+      if (m > 0) {
+        float* const Dn = DB + tile_index(a + 1, a + 1, w) * TILE;
+        const float* const Ln = DB + tile_index(a + 1, a, w) * TILE;
+        update_tile(Dn, Ln, Ln, lane);
+        __syncwarp();
+        factor_diag(Dn, lane, eps);
+      }
     } else {
+      // tiles (i, j), a < j <= i < w, by tile columns; u = 0 is warp 0's
+      for (int u = warp; u < m * (m + 1) / 2; u += kWarps - 1) {
+        int j = a + 1, i = u;
+        while (i >= w - j) {
+          i -= w - j;
+          ++j;
+        }
+        i += j;
+        update_tile(DB + tile_index(i, j, w) * TILE, DB + tile_index(i, a, w) * TILE,
+                    DB + tile_index(j, a, w) * TILE, lane);
+      }
+    }
+    __syncthreads();
+  }
+  if (rank == 0)
+    for (int b = 0; b < w; ++b)
+      for (int a = b; a < w; ++a)
+        store_tile(Wc + (size_t)tile_index(p0 + a, p0 + b, P) * TILE,
+                   DB + tile_index(a, b, w) * TILE, tid);
+  // y_a = Dinv_a (b_a - sum_{b < a} L_ab y_b), one warp a right-hand side
+  if (warp < s) {
+    for (int a = 0; a < w; ++a) {
+      float v = __ldcg(Bv + warp * npad + (p0 + a) * NB + lane);
+      for (int b = 0; b < a; ++b)
+        v -= dot32<false>(DB + tile_index(a, b, w) * TILE + lane, Y + (b * kMaxRhs + warp) * NB,
+                          lane);
+      float* const y = Y + (a * kMaxRhs + warp) * NB;
+      y[lane] = v;
+      __syncwarp();
+      const float ya = dot32<false>(DB + tile_index(a, a, w) * TILE + lane, y, lane);
+      __syncwarp();
+      y[lane] = ya;
+      __syncwarp();
+      if (rank == 0) Xv[warp * npad + (p0 + a) * NB + lane] = ya;
+    }
+  }
+  __syncthreads();
+  pr.mark(0);
+  for (int i0 = p0 + w + rank * kGroup; i0 < P; i0 += CS * kGroup) {
+    const int rows = min(kGroup, P - i0);
+    __syncthreads();  // G is free
+    for (int r = 0; r < rows; ++r)
+      for (int k = 0; k < w; ++k)
+        fetch_tile(G + (r * kOuter + k) * TILE, Kc,
+                   Wc + (size_t)tile_index(i0 + r, p0 + k, P) * TILE, n, i0 + r, p0 + k, from_k,
+                   vec, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    pr.mark(9);
+    for (int k = 0; k < w; ++k) {
+      if (warp < rows)
+        panel_tile(G + (warp * kOuter + k) * TILE, DB + tile_index(k, k, w) * TILE, lane);
+      __syncthreads();
+      const int right = w - 1 - k;  // tiles right of depth k in each row
+      for (int u = warp; u < rows * right; u += kWarps) {
+        const int r = u / right, j = k + 1 + u % right;
+        update_tile(G + (r * kOuter + j) * TILE, G + (r * kOuter + k) * TILE,
+                    DB + tile_index(j, k, w) * TILE, lane);
+      }
+      __syncthreads();
+    }
+    for (int u = warp; u < rows * s; u += kWarps) {  // b_i -= L_ik y_k, k in order
+      const int r = u / s, q = u - r * s;
+      float* const b = Bv + q * npad + (i0 + r) * NB + lane;
+      float v = __ldcg(b);
+      for (int k = 0; k < w; ++k)
+        v -= dot32<false>(G + (r * kOuter + k) * TILE + lane, Y + (k * kMaxRhs + q) * NB, lane);
+      *b = v;
+    }
+    for (int r = 0; r < rows; ++r)
+      for (int k = 0; k < w; ++k)
+        store_tile(Wc + (size_t)tile_index(i0 + r, p0 + k, P) * TILE,
+                   G + (r * kOuter + k) * TILE, tid);
+    pr.mark(1);
+  }
+}
+
+// Block t of a lower triangle of nb x nb blocks, in column order: block row
+// bi, block column bj.
+__device__ __forceinline__ void block_at(int t, int nb, int& bi, int& bj) {
+  bj = 0;
+  while (t >= nb - bj) {
+    t -= nb - bj;
+    ++bj;
+  }
+  bi = bj + t;
+}
+
+// One depth (32) of a 128 x 128 block product, acc(r, c) += sum_k A(r, k)
+// B(c, k), A and B four column-major tiles each (rows 32 u .. 32 u + 31 in
+// tile u).  The thread's rows are rows rr .. rr+3 of tiles ta and ta + 1,
+// its columns columns cc .. cc+3 of tiles tb and tb + 1: four float4 reads
+// of shared memory per 64 FMAs.
+__device__ __forceinline__ void block_product(float (&acc)[8][8], const float* A, const float* B,
+                                              int ta, int rr, int tb, int cc) {
+  const float* const A0 = A + ta * TILE + rr;
+  const float* const B0 = B + tb * TILE + cc;
+#pragma unroll 2  // 4 spilled more in the epilogue and ran 3-4% slower
+  for (int k = 0; k < NB; ++k) {
+    const float4 a0 = ld4(A0 + k * NB), a1 = ld4(A0 + TILE + k * NB);
+    const float4 b0 = ld4(B0 + k * NB), b1 = ld4(B0 + TILE + k * NB);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int g = g0 + e;
-        v[4 * h + e] = gj < n && g < n ? __ldg(Kc + (size_t)gj * n + g) : (g == gj ? 1.f : 0.f);
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] += av[r] * bv[c];
+  }
+}
+
+// The trailing update of the outer panel at p0 (a full kOuter wide): every
+// lower tile (i, j), r0 <= j <= i < P (r0 = p0 + kOuter), A_ij -= sum over
+// k < kOuter of L_{i,p0+k} L_{j,p0+k}^T, by blocks of kBlk x kBlk tiles, the
+// lower triangle's blocks in column order, block t by rank t mod CS.  In S:
+// Bs, the block column's strip rows at every depth (tile (j0+u, p0+k) at
+// (k * kBlk + u) * TILE), staged when the column changes; As, two buffers of
+// a block row's tiles at one depth (tile (i0+u, p0+k) at (b * kBlk + u) *
+// TILE), the next depth (or the next block's first) staged while the
+// current one runs; a diagonal block's A is its Bs.  Each pair of warps
+// owns a 64 x 64 quadrant (tiles ta, ta + 1 by tb, tb + 1) and skips it
+// where none of its tiles is a lower tile before P (the diagonal block's
+// upper quadrant, an edge block's rows past P); a tile of a computed
+// quadrant past P or above the diagonal is not stored.  The old tile comes
+// from Ks in outer panel 0, from the workspace after.
+__device__ void large_trailing(float* S, float* Wc, const float* Kc, int n, int P, int p0,
+                               int rank, int CS, bool from_k, bool vec, LargeProbe& pr) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // warps 2q, 2q+1 take quadrant q; eight lanes read 128 contiguous bytes
+  // of A (rr) and one word of B (cc)
+  const int ta = 2 * ((warp >> 1) & 1), rr = (lane & 7) * 4;
+  const int tb = 2 * (warp >> 2), cc = ((lane >> 3) + 4 * (warp & 1)) * 4;
+  float* const Bs = S;
+  float* const As = S + kBlk * kOuter * TILE;
+  const int r0 = p0 + kOuter, nb = (P - r0 + kBlk - 1) / kBlk, blocks = nb * (nb + 1) / 2;
+  // A's tiles of block t at depth k into buffer b (none on a diagonal
+  // block or past the last block): one commit group either way
+  auto stage_a = [&](int t, int k, int b) {
+    if (t < blocks) {
+      int bi, bj;
+      block_at(t, nb, bi, bj);
+      if (bi != bj)
+        for (int i = r0 + bi * kBlk, u = 0; u < kBlk && i < P; ++u, ++i)
+          cp_async16(As + (b * kBlk + u) * TILE + 4 * tid,
+                     Wc + (size_t)tile_index(i, p0 + k, P) * TILE + 4 * tid);
+    }
+    cp_async_commit();
+  };
+  int staged_bj = -1, step = 0;
+  stage_a(rank, 0, 0);
+  for (int t = rank; t < blocks; t += CS) {
+    int bi, bj;
+    block_at(t, nb, bi, bj);
+    const int i0 = r0 + bi * kBlk, j0 = r0 + bj * kBlk;
+    if (bj != staged_bj) {  // every warp is past the last product's barrier
+      staged_bj = bj;
+      for (int k = 0; k < kOuter; ++k)
+        for (int j = j0, u = 0; u < kBlk && j < P; ++u, ++j)
+          cp_async16(Bs + (k * kBlk + u) * TILE + 4 * tid,
+                     Wc + (size_t)tile_index(j, p0 + k, P) * TILE + 4 * tid);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    // the quadrant holds a lower tile before P (uniform in the warp)
+    const bool mine = i0 + ta < P && j0 + tb <= min(i0 + ta + 1, P - 1);
+    float acc[8][8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+    for (int k = 0; k < kOuter; ++k, ++step) {
+      if (k + 1 < kOuter)
+        stage_a(t, k + 1, (step + 1) & 1);
+      else
+        stage_a(t + CS, 0, (step + 1) & 1);
+      cp_async_wait<1>();
+      __syncthreads();
+      pr.mark(7);
+      const float* const B = Bs + k * kBlk * TILE;
+      if (mine)
+        block_product(acc, bi == bj ? B : As + (step & 1) * kBlk * TILE, B, ta, rr, tb, cc);
+      __syncthreads();  // buffer step & 1 is free
+      pr.mark(2);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int i = i0 + ta + h, j = j0 + tb + v;
+        if (mine && i < P && j <= i) {
+          float* const Wt = Wc + (size_t)tile_index(i, j, P) * TILE;
+          float4 old[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            old[c] = from_k ? load4(Kc, n, i * NB + rr, j * NB + cc + c, vec)
+                            : ldcg4(Wt + (cc + c) * NB + rr);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int q = 4 * v + c;
+            st4(Wt + (cc + c) * NB + rr,
+                make_float4(old[c].x - acc[4 * h][q], old[c].y - acc[4 * h + 1][q],
+                            old[c].z - acc[4 * h + 2][q], old[c].w - acc[4 * h + 3][q]));
+          }
+        }
+      }
+    }
+    pr.mark(3);
+  }
+  cp_async_wait<0>();
+}
+
+// v[q] += dot32<transposed>(W, y + q * NB, r) for the right-hand sides q <
+// s, with the same partial sums and rounding, each W read once for all.
+template <bool transposed>
+__device__ __forceinline__ void dot32_rhs(float (&v)[kMaxRhs], const float* W, const float* y,
+                                          int s, int r) {
+  float p[kMaxRhs][4];
+#pragma unroll
+  for (int q = 0; q < kMaxRhs; ++q) p[q][0] = p[q][1] = p[q][2] = p[q][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NB / 4; ++kk) {
+    const int k = 4 * (transposed ? (kk + r) & (NB / 4 - 1) : kk);
+    const float4 w4 = transposed ? ld4(W + k)
+                                 : make_float4(W[k * NB], W[(k + 1) * NB], W[(k + 2) * NB],
+                                               W[(k + 3) * NB]);
+#pragma unroll
+    for (int q = 0; q < kMaxRhs; ++q) {
+      if (q < s) {
+        const float4 y4 = ld4(y + q * NB + k);
+        p[q][0] += w4.x * y4.x;
+        p[q][1] += w4.y * y4.y;
+        p[q][2] += w4.z * y4.z;
+        p[q][3] += w4.w * y4.w;
       }
     }
   }
-}
-
-// One warp: tile (I, J) of the padded operator into dst (column-major) by
-// cp.async, from Ks (from_k: panel 0, before any update) or from the
-// workspace tile Wt; the caller commits and waits.
-__device__ __forceinline__ void warp_fetch_tile(float* dst, const float* Kc, const float* Wt,
-                                                int n, int I, int J, bool from_k, bool vec,
-                                                int lane) {
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int t = lane + 32 * e, lc = t >> 3, lr = (t & 7) * 4;  // 4 t = lc * NB + lr
-    if (from_k)
-      load_chunk(dst + 4 * t, Kc, n, I * NB + lr, J * NB + lc, vec);
-    else
-      cp_async16(dst + 4 * t, Wt + 4 * t);
-  }
-}
-
-__device__ __forceinline__ void warp_store_tile(float* dst, const float* src, int lane) {
-#pragma unroll
-  for (int e = 0; e < 8; ++e) st4(dst + 4 * (lane + 32 * e), ld4(src + 4 * (lane + 32 * e)));
-}
-
-// The block: tiles (a .. b-1, p), contiguous in the workspace's tile column
-// p, into dst by cp.async (committed; the caller waits).
-__device__ __forceinline__ void stage_tiles(float* dst, const float* Wc, int P, int p, int a,
-                                            int b, int tid) {
-  const float* src = Wc + (size_t)tile_index(a, p, P) * TILE;
-  for (int t = tid; t < (b - a) * (TILE / 4); t += kThreads) cp_async16(dst + 4 * t, src + 4 * t);
-  cp_async_commit();
-}
-
-// One warp, tile (I, J) of the trailing update: A_IJ - Li Lj^T, with A_IJ
-// read from Ks (from_k) or the workspace tile Wt and the result written to
-// dst, the workspace tile (global) or, for the diagonal tile that worker 0
-// factors next, shared memory; A's loads are issued before the product.
-__device__ void update_tile_ws(float* dst, const float* Li, const float* Lj, const float* Kc,
-                               const float* Wt, int n, int I, int J, bool from_k, bool vec,
-                               int lane) {
-  int r0, c0;
-  lane_block(lane, r0, c0);
-  float old[4][8];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    if (from_k) {
-      load8(old[c], Kc, n, I * NB + r0, J * NB + c0 + c, vec);
-    } else {
-      const float* col = Wt + (c0 + c) * NB + r0;
-      const float4 x0 = ldcg4(col), x1 = ldcg4(col + 4);
-      old[c][0] = x0.x, old[c][1] = x0.y, old[c][2] = x0.z, old[c][3] = x0.w;
-      old[c][4] = x1.x, old[c][5] = x1.y, old[c][6] = x1.z, old[c][7] = x1.w;
-    }
-  }
-  float acc[8][4];
-  tile_product(acc, Li, Lj, r0, c0);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    float* col = dst + (c0 + c) * NB + r0;
-    st4(col, make_float4(old[c][0] - acc[0][c], old[c][1] - acc[1][c], old[c][2] - acc[2][c],
-                         old[c][3] - acc[3][c]));
-    st4(col + 4, make_float4(old[c][4] - acc[4][c], old[c][5] - acc[5][c],
-                             old[c][6] - acc[6][c], old[c][7] - acc[7][c]));
-  }
+  for (int q = 0; q < kMaxRhs; ++q) v[q] += (p[q][0] + p[q][1]) + (p[q][2] + p[q][3]);
 }
 
 // L L^T X = B in place on Bv ((npad, s) by columns q * npad, global), from
-// the factored workspace; the block, with R (kStage tiles) and D (one tile)
-// of shared memory.  Forward right-looking: y_p = Dinv_p b_p, then
-// b_i -= L_ip y_p for i > p; backward left-looking: x_p = Dinv_p^T (b_p -
-// sum_{i > p} L_ip^T x_i).  Both walk tile column p, kSolveTiles tiles at a
-// time, one warp a tile for all s right-hand sides.
-__device__ void cho_solve_ws(const float* Wc, float* Bv, float* R, float* D, int P, int npad,
-                             int s, int tid) {
+// the factored workspace, by the factor's outer panels of kOuter tile
+// columns, with shared memory S: each outer panel costs a few round trips
+// to memory instead of one or more a 32-wide panel.  Forward: the block's
+// rows first (y_a = Dinv_a (b_a - sum_{b < a} L_ab y_b), one warp a
+// right-hand side), then b_i -= sum_k L_ik y_k for the rows below, a warp a
+// row, kSolveRows rows a stage (the first staged with the block).
+// Backward: the partial sums sum_{i below} L_ik^T x_i first, two warps a
+// tile column k, the rows' x beside their tiles, then the block's rows
+// (x_a = Dinv_a^T (b_a - partial_a - sum_{b > a} L_ba^T x_b)), the block
+// staged with the last rows.  Bv is read through L2 (other CTAs of the
+// cluster write parts of it).  Without `forward`, the backward half alone
+// (Bv holds L^-1 B).
+__device__ void cho_solve_ws(const float* Wc, float* Bv, float* S, int P, int npad, int s,
+                             bool forward, int tid) {
   const int lane = tid & 31, warp = tid >> 5;
-  float* const xseg = R + kSolveTiles * TILE;   // kSolveTiles x kMaxRhs x 32
-  float* const part = xseg + kSolveTiles * kMaxRhs * NB;  // kWarps x kMaxRhs x 32
-  float* const yin = part + kWarps * kMaxRhs * NB;         // kMaxRhs x 32
-  float* const yout = yin + kMaxRhs * NB;                  // kMaxRhs x 32
-  for (int p = 0; p < P; ++p) {
-    stage_tiles(D, Wc, P, p, p, p + 1, tid);
-    if (tid < s * NB) yin[tid] = Bv[(tid >> 5) * npad + p * NB + (tid & 31)];
+  float* const DB = S;                                    // tile (p0+a, p0+b) at tile_index(a, b, w)
+  float* const G = DB + kDiagTiles * TILE;                // row r, depth k at (k kSolveRows + r)
+  float* const xs = G + kOuter * kSolveRows * TILE;       // x of row r, q at (r kMaxRhs + q) NB
+  float* const part = xs + kSolveRows * kMaxRhs * NB;     // warp w, q at (w kMaxRhs + q) NB
+  float* const Y = part + kWarps * kMaxRhs * NB;          // y or x of block row a, q
+  float* const tmp = Y + kOuter * kMaxRhs * NB;           // q at q NB
+  // n tiles from src into dst, uncommitted
+  auto copy = [&](float* dst, const float* src, int ntiles) {
+    for (int t = tid; t < ntiles * (TILE / 4); t += kThreads) cp_async16(dst + 4 * t, src + 4 * t);
+  };
+  auto copy_block = [&](int p0, int w) {
+    for (int b = 0; b < w; ++b)
+      copy(DB + tile_index(b, b, w) * TILE, Wc + (size_t)tile_index(p0 + b, p0 + b, P) * TILE,
+           w - b);
+  };
+  auto copy_rows = [&](float* dst, int cap, int p0, int w, int i0, int rows) {
+    for (int k = 0; k < w; ++k)
+      copy(dst + k * cap * TILE, Wc + (size_t)tile_index(i0, p0 + k, P) * TILE, rows);
+  };
+  for (int p0 = 0; forward && p0 < P; p0 += kOuter) {
+    const int w = min(kOuter, P - p0);
+    int i0 = p0 + w, rows = max(0, min(kSolveRows, P - i0)), cap = kSolveRows;
+    float* Gr = G;
+    copy_block(p0, w);
+    copy_rows(Gr, cap, p0, w, i0, rows);
+    cp_async_commit();
+    float bb[kOuter];
+#pragma unroll
+    for (int a = 0; a < kOuter; ++a)
+      bb[a] = warp < s && a < w ? __ldcg(Bv + warp * npad + (p0 + a) * NB + lane) : 0.f;
     cp_async_wait<0>();
     __syncthreads();
     if (warp < s) {
-      const float y = dot32<false>(D + lane, yin + warp * NB, lane);
-      yout[warp * NB + lane] = y;
-      Bv[warp * npad + p * NB + lane] = y;
-    }
-    for (int a = p + 1; a < P; a += kSolveTiles) {
-      const int b = min(a + kSolveTiles, P);
-      stage_tiles(R, Wc, P, p, a, b, tid);
-      cp_async_wait<0>();
-      __syncthreads();  // also: yout is written
-      for (int i = a + warp; i < b; i += kWarps) {
-        const float* const T = R + (i - a) * TILE + lane;
-        for (int q = 0; q < s; ++q)
-          Bv[q * npad + i * NB + lane] -= dot32<false>(T, yout + q * NB, lane);
+#pragma unroll
+      for (int a = 0; a < kOuter; ++a) {
+        if (a < w) {
+          float v = bb[a];
+          for (int b = 0; b < a; ++b)
+            v -= dot32<false>(DB + tile_index(a, b, w) * TILE + lane,
+                              Y + (b * kMaxRhs + warp) * NB, lane);
+          tmp[warp * NB + lane] = v;
+          __syncwarp();
+          const float y = dot32<false>(DB + tile_index(a, a, w) * TILE + lane, tmp + warp * NB,
+                                       lane);
+          Y[(a * kMaxRhs + warp) * NB + lane] = y;
+          Bv[warp * npad + (p0 + a) * NB + lane] = y;
+          __syncwarp();
+        }
       }
-      __syncthreads();
     }
     __syncthreads();
+    while (rows > 0) {
+      if (warp < rows) {  // b_i -= sum_k L_ik y_k
+        const int i = i0 + warp;
+        float bq[kMaxRhs];
+#pragma unroll
+        for (int q = 0; q < kMaxRhs; ++q) bq[q] = q < s ? __ldcg(Bv + q * npad + i * NB + lane) : 0.f;
+        for (int k = 0; k < w; ++k) {  // in panel order, as one panel at a time would
+          float v[kMaxRhs];
+#pragma unroll
+          for (int q = 0; q < kMaxRhs; ++q) v[q] = 0.f;
+          dot32_rhs<false>(v, Gr + (k * cap + warp) * TILE + lane, Y + k * kMaxRhs * NB, s, lane);
+#pragma unroll
+          for (int q = 0; q < kMaxRhs; ++q) bq[q] -= v[q];
+        }
+#pragma unroll
+        for (int q = 0; q < kMaxRhs; ++q)
+          if (q < s) Bv[q * npad + i * NB + lane] = bq[q];
+      }
+      __syncthreads();  // the rows' tiles are free
+      i0 += rows;
+      // later stages take the block's room too: kWideRows rows
+      Gr = S;
+      cap = kWideRows;
+      rows = max(0, min(cap, P - i0));
+      if (rows > 0) {
+        copy_rows(Gr, cap, p0, w, i0, rows);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+    }
   }
-  for (int p = P - 1; p >= 0; --p) {
+  for (int p0 = (P - 1) / kOuter * kOuter; p0 >= 0; p0 -= kOuter) {
+    const int w = min(kOuter, P - p0);
+    const int k = warp & (kOuter - 1), h = warp / kOuter;  // this warp's column, row parity
     float acc[kMaxRhs];
 #pragma unroll
     for (int q = 0; q < kMaxRhs; ++q) acc[q] = 0.f;
-    stage_tiles(D, Wc, P, p, p, p + 1, tid);
-    for (int a = p + 1; a < P; a += kSolveTiles) {
-      const int b = min(a + kSolveTiles, P);
-      stage_tiles(R, Wc, P, p, a, b, tid);
-      for (int t = tid; t < (b - a) * s * NB; t += kThreads) {
-        const int k = t / (s * NB), q = (t / NB) % s, r = t & 31;
-        xseg[(k * kMaxRhs + q) * NB + r] = Bv[q * npad + (a + k) * NB + r];
+    for (int i0 = p0 + w, last = 0; !last;) {
+      const int rows = max(0, min(kSolveRows, P - i0));
+      last = i0 + rows >= P;
+      copy_rows(G, kSolveRows, p0, w, i0, rows);
+      if (last) copy_block(p0, w);
+      cp_async_commit();
+      for (int t = tid; t < rows * s * NB; t += kThreads) {  // the rows' x, final
+        const int r = t / (s * NB), q = (t / NB) % s, l = t & 31;
+        xs[(r * kMaxRhs + q) * NB + l] = __ldcg(Bv + q * npad + (i0 + r) * NB + l);
       }
       cp_async_wait<0>();
       __syncthreads();
-      for (int i = a + warp; i < b; i += kWarps) {
-        const float* const T = R + (i - a) * TILE + lane * NB;
-#pragma unroll
-        for (int q = 0; q < kMaxRhs; ++q)
-          if (q < s) acc[q] += dot32<true>(T, xseg + ((i - a) * kMaxRhs + q) * NB, lane);
-      }
+      if (k < w)
+        for (int r = h; r < rows; r += kWarps / kOuter)
+          dot32_rhs<true>(acc, G + (k * kSolveRows + r) * TILE + lane * NB,
+                          xs + r * kMaxRhs * NB, s, lane);
       __syncthreads();
+      i0 += rows;
     }
 #pragma unroll
     for (int q = 0; q < kMaxRhs; ++q)
       if (q < s) part[(warp * kMaxRhs + q) * NB + lane] = acc[q];
-    if (tid < s * NB) yin[tid] = Bv[(tid >> 5) * npad + p * NB + (tid & 31)];
-    cp_async_wait<0>();
+    float bb[kOuter];
+#pragma unroll
+    for (int a = 0; a < kOuter; ++a)
+      bb[a] = warp < s && a < w ? __ldcg(Bv + warp * npad + (p0 + a) * NB + lane) : 0.f;
     __syncthreads();
     if (warp < s) {
-      float r = yin[warp * NB + lane];
-      for (int w = 0; w < kWarps; ++w) r -= part[(w * kMaxRhs + warp) * NB + lane];
-      yout[warp * NB + lane] = r;
-      __syncwarp();
-      Bv[warp * npad + p * NB + lane] = dot32<true>(D + lane * NB, yout + warp * NB, lane);
+#pragma unroll
+      for (int a = kOuter - 1; a >= 0; --a) {
+        if (a < w) {
+          float v = bb[a];
+          for (int g = a; g < kWarps; g += kOuter) v -= part[(g * kMaxRhs + warp) * NB + lane];
+          for (int b = a + 1; b < w; ++b)
+            v -= dot32<true>(DB + tile_index(b, a, w) * TILE + lane * NB,
+                             Y + (b * kMaxRhs + warp) * NB, lane);
+          tmp[warp * NB + lane] = v;
+          __syncwarp();
+          const float x = dot32<true>(DB + tile_index(a, a, w) * TILE + lane * NB,
+                                      tmp + warp * NB, lane);
+          Y[(a * kMaxRhs + warp) * NB + lane] = x;
+          Bv[warp * npad + (p0 + a) * NB + lane] = x;
+          __syncwarp();
+        }
+      }
     }
     __syncthreads();
   }
 }
 
-// The refinement's right-hand side Bv = F - Ks Xv over the full Ks (rows
-// i < n; padded rows get zero), one warp per kRows rows, the lanes across
-// the columns, Xv read from global memory (written by this block).
+// The refinement's right-hand side Bv = F - Ks Xv over the full Ks for rows
+// i < n of the row groups g = rank, rank + CS, .. of kWarps * kRows rows
+// (padded rows get zero): one warp per kRows rows, the lanes across the
+// columns, each lane's products added in column order and the lanes'
+// sums by a tree, as the small instance's residual does; Xv (written by
+// rank 0 before a cluster barrier, and not read before it by the others)
+// through L1.  (Four columns a lane by float4 ran no faster and moved X
+// further from float64 on the beam's ill-conditioned cells.)
 __device__ void residual_ws(const float* __restrict__ Kc, const float* __restrict__ F,
                             const float* Xv, float* Bv, int C, int c, int n, int npad, int s,
-                            int tid) {
+                            int rank, int CS, int tid) {
   constexpr int kRows = 4;
   const int lane = tid & 31, warp = tid >> 5;
-  for (int i0 = warp * kRows; i0 < npad; i0 += kWarps * kRows) {
+  for (int g0 = rank * kWarps * kRows; g0 < npad; g0 += CS * kWarps * kRows) {
+    const int i0 = g0 + warp * kRows;
+    if (i0 >= npad) break;  // uniform in the warp
     float acc[kRows][kMaxRhs];
 #pragma unroll
     for (int h = 0; h < kRows; ++h)
@@ -749,150 +1155,77 @@ __device__ void residual_ws(const float* __restrict__ Kc, const float* __restric
   }
 }
 
-// One cell per cluster of CS CTAs (grid C * CS).  W: the cells' packed
-// lower tiles (C x P(P+1)/2 x TILE floats); V: per cell the right-hand
-// sides Bv and the first solution Xv ((npad, s) each, by columns).
+// A cell per cluster of CS CTAs, but for the first `apart` clusters, whose
+// CTAs solve a cell each (grid apart CS + (C - apart CS) CS): a chunk a
+// little over a full wave runs its last cells on CS CTAs each.  W: the cells' packed lower tiles (C x P(P+1)/2 x TILE floats); V:
+// per cell the right-hand sides Bv and the first solution Xv ((npad, s)
+// each, by columns).  Every CTA of a cluster meets the same cluster
+// barriers: the cells of an `apart` cluster have the same P.
 __global__ void __launch_bounds__(kThreads, 2)
 chol_solve_large_kernel(const float* __restrict__ K, const float* __restrict__ F,
                         float* __restrict__ X, float* __restrict__ W, float* __restrict__ V,
-                        int C, int n, int s, int P, int CS, float eps, bool vec) {
+                        int C, int n, int s, int P, int CS, int apart, float eps, bool vec) {
   extern __shared__ float4 smem4[];
-  float* const D = reinterpret_cast<float*>(smem4);  // Dinv_p
-  float* const E = D + TILE;                         // worker 0's diagonal tile
-  float* const R = E + TILE;                         // kStage tiles
+  float* const S = reinterpret_cast<float*>(smem4);
   const int npad = P * NB;
-  const int c = blockIdx.x / CS;
-  const int rank = (int)cluster_rank();
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int NW = CS * kWarps, gw = warp * CS + rank;  // workers of the cell; 0: rank 0, warp 0
+  const int g = blockIdx.x / CS, hw = (int)cluster_rank();
+  const bool alone = g < apart;
+  const int c = alone ? g * CS + hw : apart * CS + (g - apart);
+  const int rank = alone ? 0 : hw, cs = alone ? 1 : CS;  // within the cell
+  const int tid = threadIdx.x;
   const float* const Kc = K + (size_t)c * n * n;
   float* const Wc = W + (size_t)c * (P * (P + 1) / 2) * TILE;
-  K3_MARK_START
-
-  // Dinv_0, in every CTA
-  {
-    const int lc = tid >> 3, lr = (tid & 7) * 4;
-    load_chunk(D + lc * NB + lr, Kc, n, lr, lc, vec);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (warp == 0) factor_diag(D, lane, eps);
-    __syncthreads();
-    if (rank == 0 && warp == 0) warp_store_tile(Wc, D, lane);
-  }
-  K3_MARK(0)
-
-  for (int p = 0; p + 1 < P; ++p) {
-    const bool from_k = p == 0;  // panel 0 reads Ks
-    if (p > 0) {
-      stage_tiles(D, Wc, P, p, p, p + 1, tid);
-      cp_async_wait<0>();
-      __syncthreads();
-    }
-    K3_MARK(1)
-    // panel tiles L_ip = A_ip Dinv_p^T, i > p, one worker each
-    for (int i = p + 1 + gw; i < P; i += NW) {
-      float* const S = R + warp * TILE;
-      float* const Wt = Wc + (size_t)tile_index(i, p, P) * TILE;
-      warp_fetch_tile(S, Kc, Wt, n, i, p, from_k, vec, lane);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncwarp();
-      panel_tile(S, D, lane);
-      __syncwarp();
-      warp_store_tile(Wt, S, lane);
-      __syncwarp();
-    }
-    cluster_sync();
-    K3_MARK(2)
-    // trailing update, p < j <= i < P, by windows of staged panel tiles
-    const int m = P - 1 - p;
-    const int wa = m <= kStage ? m : kStage - kWinB;
-    for (int ja = p + 1; ja < P; ja += wa) {
-      const int jb = min(ja + wa, P), w = jb - ja;
-      stage_tiles(R, Wc, P, p, ja, jb, tid);
-      cp_async_wait<0>();
-      __syncthreads();
-      K3_MARK(7)
-      const bool first = ja == p + 1;
-      int u0 = gw, du = NW;
-      if (first) {
-        if (gw == 0) {  // tile (p+1, p+1): update, factor, store Dinv_{p+1}
-          update_tile_ws(E, R, R, Kc, Wc + (size_t)tile_index(p + 1, p + 1, P) * TILE, n,
-                         p + 1, p + 1, from_k, vec, lane);
-          __syncwarp();
-          factor_diag(E, lane, eps);
-          __syncwarp();
-          warp_store_tile(Wc + (size_t)tile_index(p + 1, p + 1, P) * TILE, E, lane);
-          u0 = w * (w + 1) / 2;  // no more of this triangle
-        } else {
-          u0 = gw;
-          du = NW - 1;
-        }
-      }
-      for (int u = u0; u < w * (w + 1) / 2; u += du) {
-        int jj = 0, ii = u;
-        while (ii >= w - jj) {
-          ii -= w - jj;
-          ++jj;
-        }
-        const int i = ja + jj + ii, j = ja + jj;
-        float* const Wt = Wc + (size_t)tile_index(i, j, P) * TILE;
-        update_tile_ws(Wt, R + (i - ja) * TILE, R + (j - ja) * TILE, Kc, Wt, n, i, j, from_k,
-                       vec, lane);
-      }
-      K3_MARK(3)
-      float* const RB = R + wa * TILE;
-      int b = 0;
-      for (int ia = jb; ia < P; ia += kWinB, ++b) {
-        if (b % CS != rank) continue;  // uniform in the CTA
-        const int ib = min(ia + kWinB, P);
-        __syncthreads();  // RB is free
-        stage_tiles(RB, Wc, P, p, ia, ib, tid);
-        cp_async_wait<0>();
-        __syncthreads();
-        K3_MARK(7)
-        for (int u = warp; u < (ib - ia) * w; u += kWarps) {
-          const int i = ia + u / w, j = ja + u % w;
-          float* const Wt = Wc + (size_t)tile_index(i, j, P) * TILE;
-          update_tile_ws(Wt, RB + (i - ia) * TILE, R + (j - ja) * TILE, Kc, Wt, n, i, j, from_k,
-                         vec, lane);
-        }
-        K3_MARK(3)
-      }
-      __syncthreads();  // R is free
-    }
-    cluster_sync();
-    K3_MARK(3)
-  }
-  if (rank != 0) {
-    K3_MARK_END
-    return;
-  }
-
-  // ---- rank 0: solve, keep X, residual against the full Ks, solve again --
   float* const Bv = V + (size_t)c * 2 * npad * s;
   float* const Xv = Bv + (size_t)npad * s;
-  for (int t = tid; t < npad * s; t += kThreads) {
-    const int q = t / npad, i = t - q * npad;
-    Bv[t] = i < n ? F[((size_t)i * s + q) * C + c] : 0.f;
+  LargeProbe pr;
+  pr.begin();
+  if (rank == 0)
+    for (int t = tid; t < npad * s; t += kThreads) {
+      const int q = t / npad, i = t - q * npad;
+      Bv[t] = i < n ? F[((size_t)i * s + q) * C + c] : 0.f;
+    }
+  cluster_sync();
+
+  // ---- the factor and the first forward substitution, by outer panels of
+  // kOuter tile columns ------------------------------------------------------
+  for (int p0 = 0; p0 < P; p0 += kOuter) {
+    const int w = min(kOuter, P - p0);
+    large_strip(S, Wc, Kc, Bv, Xv, n, npad, s, P, p0, w, rank, cs, p0 == 0, vec, eps, pr);
+    if (p0 + w == P) break;
+    cluster_sync();
+    pr.mark(8);
+    large_trailing(S, Wc, Kc, n, P, p0, rank, cs, p0 == 0, vec, pr);
+    cluster_sync();
+    pr.mark(8);
   }
-  __syncthreads();
-  cho_solve_ws(Wc, Bv, R, D, P, npad, s, tid);
-  K3_MARK(4)
-  for (int t = tid; t < npad * s; t += kThreads) Xv[t] = Bv[t];
-  __syncthreads();
-  residual_ws(Kc, F, Xv, Bv, C, c, n, npad, s, tid);
-  __syncthreads();
-  K3_MARK(5)
-  cho_solve_ws(Wc, Bv, R, D, P, npad, s, tid);
-  K3_MARK(4)
+
+  // ---- rank 0 ends the first solve (backward, from y in Xv) and keeps X;
+  // the cell's CTAs split the residual against the full Ks by rows; rank 0
+  // solves again --------------------------------------------------------------
+  if (rank == 0) {
+    for (int t = tid; t < npad * s; t += kThreads) Bv[t] = __ldcg(Xv + t);
+    __syncthreads();
+    cho_solve_ws(Wc, Bv, S, P, npad, s, false, tid);
+    pr.mark(4);
+    for (int t = tid; t < npad * s; t += kThreads) Xv[t] = __ldcg(Bv + t);
+  }
+  cluster_sync();
+  pr.mark(8);
+  residual_ws(Kc, F, Xv, Bv, C, c, n, npad, s, rank, cs, tid);
+  cluster_sync();
+  pr.mark(5);
+  if (rank != 0) {
+    pr.end();
+    return;
+  }
+  cho_solve_ws(Wc, Bv, S, P, npad, s, true, tid);
+  pr.mark(4);
   for (int t = tid; t < n * s; t += kThreads) {
     const int i = t / s, q = t - i * s;
-    X[(size_t)t * C + c] = Xv[q * npad + i] + Bv[q * npad + i];
+    X[(size_t)t * C + c] = __ldcg(Xv + q * npad + i) + __ldcg(Bv + q * npad + i);
   }
-  K3_MARK(6)
-  K3_MARK_END
+  pr.mark(6);
+  pr.end();
 }
 
 // Dynamic shared memory of one block: the packed lower tiles and two
@@ -910,8 +1243,9 @@ cudaError_t set_attributes(int smem) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-// The large instance's shared memory, the same at every n: the staging
-// region, Dinv_p and worker 0's diagonal tile.
+// The large instance's shared memory, the same at every n: the strip's
+// diagonal block and one group of rows, which the trailing update's operands
+// and the substitutions' staging reuse.
 long large_smem_bytes() { return 4L * kLargeTiles * TILE; }
 
 cudaError_t set_large_attributes(int smem) {
@@ -923,10 +1257,10 @@ cudaError_t set_large_attributes(int smem) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-void large_launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int C, int CS,
+void large_launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int ctas, int CS,
                          int smem, cudaStream_t stream) {
   cfg = {};
-  cfg.gridDim = dim3(C * CS);
+  cfg.gridDim = dim3(ctas);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -961,18 +1295,20 @@ int hommx_chol_solve_f32(const float* K, const float* F, float* X, int C, int n,
   return (int)cudaGetLastError();
 }
 
-// The large instance: the configuration (threads, P, CS CTAs a cell, smem)
-// is the wrapper's chol_launch_config(n, s, C); W (C x P(P+1)/2 x 1024
-// floats) and V (C x 2 x 32P x s floats) are its workspaces, allocated by
-// the wrapper, 16-byte aligned.  A configuration this kernel does not run,
-// including a shared-memory count that differs from its own, is refused
-// with cudaErrorInvalidValue.
+// The large instance: the configuration (threads, P, CS CTAs a cell, outer
+// panel width in tile columns, smem) is the wrapper's chol_launch_config(n,
+// s, C); W (C x P(P+1)/2 x 1024 floats) and V (C x 2 x 32P x s floats) are
+// its workspaces, allocated by the wrapper, 16-byte aligned.  A
+// configuration this kernel does not run, including a shared-memory count
+// or an outer panel width that differs from its own, is refused with
+// cudaErrorInvalidValue.
 int hommx_chol_solve_large_f32(const float* K, const float* F, float* X, float* W, float* V,
                                int C, int n, int s, float eps, int threads, int P, int CS,
-                               int smem, cudaStream_t stream) {
+                               int apart, int outer, int smem, cudaStream_t stream) {
   const int bad = (int)cudaErrorInvalidValue;
   if (C <= 0 || n <= 0 || s <= 0 || s > kMaxRhs || threads != kThreads ||
       P != (n + NB - 1) / NB || CS < 1 || CS > kMaxCluster || (CS & (CS - 1)) != 0 ||
+      apart < 0 || apart * CS > C || outer != kOuter ||
       large_smem_bytes() != smem || reinterpret_cast<std::uintptr_t>(W) % 16 != 0 ||
       reinterpret_cast<std::uintptr_t>(V) % 16 != 0)
     return bad;
@@ -981,9 +1317,9 @@ int hommx_chol_solve_large_f32(const float* K, const float* F, float* X, float* 
   const bool vec = n % 4 == 0 && reinterpret_cast<std::uintptr_t>(K) % 16 == 0;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  large_launch_config(cfg, attr, C, CS, smem, stream);
+  large_launch_config(cfg, attr, apart * CS + (C - apart * CS) * CS, CS, smem, stream);
   const cudaError_t e = cudaLaunchKernelEx(&cfg, chol_solve_large_kernel, K, F, X, W, V, C, n,
-                                           s, P, CS, eps, vec);
+                                           s, P, CS, apart, eps, vec);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -998,7 +1334,7 @@ int hommx_chol_large_occupancy(int CS, int smem, int* blocks_per_sm, int* cluste
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  large_launch_config(cfg, attr, 1, CS, smem, 0);
+  large_launch_config(cfg, attr, CS, CS, smem, 0);
   return (int)cudaOccupancyMaxActiveClusters(clusters, chol_solve_large_kernel, &cfg);
 }
 
@@ -1016,6 +1352,13 @@ int hommx_chol_blocks_per_sm(int smem, int* out) {
 int hommx_k3_phases(void* dst, cudaStream_t stream) {
   return (int)cudaMemcpyFromSymbolAsync(dst, g_k3_cycles, sizeof(g_k3_cycles), 0,
                                         cudaMemcpyDeviceToDevice, stream);
+}
+
+// The large instance's per-CTA records (K3_PROBE_CELLS x 12 int64: ten
+// phases' cycles, start and end in ns) into dst.
+int hommx_k3_large_phases(void* dst, cudaStream_t stream) {
+  return (int)cudaMemcpyFromSymbolAsync(dst, g_k3l, sizeof(g_k3l), 0, cudaMemcpyDeviceToDevice,
+                                        stream);
 }
 #endif
 

@@ -94,8 +94,9 @@ def test_kernel_size_limit():
     (n = 288) fit the 232,448 bytes a block may take, 10 do not; there the
     large instance takes over with the same bytes as its global workspace.
     The engine's host-side guard admits every n (n = 375 and 1536 at s = 6
-    run the large instance) and refuses only s outside 1..8, naming the
-    range, before any device work."""
+    run the large instance, by outer panels of 4 tile columns in 27 tiles
+    of shared memory) and refuses only s outside 1..8, naming the range,
+    before any device work."""
     assert k3.kernel_smem_bytes(192, 6) == 4 * (21 * 32 * 32 + 2 * 192 * 6) == 95232
     assert k3.max_small_n(6) == 288
     assert k3.kernel_smem_bytes(288, 6) == 4 * (45 * 1024 + 2 * 288 * 6) == 198144 <= 232448
@@ -103,9 +104,10 @@ def test_kernel_size_limit():
     assert k3.chol_launch_config(289, 6).workspace_bytes == 240640
     for n in (375, 1536):
         cfg = k3.check_k3_fits(n, 6)
-        assert cfg.large and cfg.panels == -(-n // 32)
+        assert cfg.large and cfg.panels == -(-n // 32) and cfg.outer == 4
         assert cfg.workspace_bytes == k3.kernel_smem_bytes(n, 6)
-    assert not k3.check_k3_fits(288, 6).large
+        assert cfg.smem_bytes == 4 * (10 + 4 * 4 + 1) * 1024
+    assert not k3.check_k3_fits(288, 6).large and k3.check_k3_fits(288, 6).outer == 0
     with pytest.raises(NotImplementedError, match="takes 1 to 8 right-hand sides"):
         k3.check_k3_fits(375, 9)
 
@@ -146,36 +148,83 @@ def test_chol_launch_config_raises_above_limit():
 
 
 @pytest.mark.parametrize(
-    "n,s,cells,panels,tiles,cluster",
+    "n,s,cells,panels,tiles,cluster,apart",
     [
-        # the 13² square (1440-cell chunk): 11 panels, one CTA a cell
-        (338, 3, 1440, 11, 66, 1),
-        # the 5³ cube (720-cell chunk)
-        (375, 6, 720, 12, 78, 1),
+        # the 13² square (1440-cell chunk): 11 panels; 1440 = 5 x 264 + 120,
+        # a last wave of 120 cells fits 264 slots at 2 CTAs a cell: 660
+        # clusters of 2 solve 1320 cells a CTA each, the last 120 cells take
+        # two CTAs each
+        (338, 3, 1440, 11, 66, 2, 660),
+        # the 5³ cube (720-cell chunk): 720 = 2 x 264 + 192 > 132, one CTA a cell
+        (375, 6, 720, 12, 78, 1, 0),
         # the 16² square (720-cell chunk)
-        (512, 3, 720, 16, 136, 1),
-        # the 6³ cube: 309 cells fill the card's 132 SMs alone
-        (648, 6, 309, 21, 231, 1),
+        (512, 3, 720, 16, 136, 1, 0),
+        # the 6³ cube: 309 = 264 + 45 cells: 132 clusters of 2 solve 264
+        # cells a CTA each, then 45 cells on two CTAs each
+        (648, 6, 309, 21, 231, 2, 132),
         # the 8³ cube: 76 cells, two CTAs a cell give 152 >= 132
-        (1536, 6, 76, 48, 1176, 2),
+        (1536, 6, 76, 48, 1176, 2, 0),
         # one 8³ cell (high_res_micro's sequence): a cluster of 8
-        (1536, 6, 1, 48, 1176, 8),
-        # n = 3000: 94 panels, staged in parts (a J window of 16 tiles and I
-        # windows of 8); 40 cells, four CTAs a cell give 160
-        (3000, 6, 40, 94, 4465, 4),
+        (1536, 6, 1, 48, 1176, 8, 0),
+        # n = 3000: 94 panels, 24 outer panels (the last 2 tile columns
+        # wide); 40 cells, four CTAs a cell give 160
+        (3000, 6, 40, 94, 4465, 4, 0),
     ],
 )
-def test_large_launch_config_hand_counts(n, s, cells, panels, tiles, cluster):
+def test_large_launch_config_hand_counts(n, s, cells, panels, tiles, cluster, apart):
     """The large instance: 256 threads, P = ceil(n/32) panels, P(P+1)/2
     packed tiles of 4 KB and two (32 P, s) arrays of global workspace a
-    cell, 26 staged tiles of shared memory (106,496 B: a 24-tile region,
-    Dinv_p and the next diagonal tile) at every n, so two CTAs an SM
-    (2 x (106,496 + 1,024) <= 233,472), and the fewest CTAs a cell (1, 2,
-    4, 8) that give each of the 132 SMs one."""
+    cell, outer panels of 4 tile columns, and 27 tiles of shared memory
+    (110,592 B) at every n: the strip's lower diagonal block (4 x 5 / 2 =
+    10 tiles), a group of 4 rows of 4 tiles (16) and its part of the first
+    forward substitution (4 x 8 x 32 floats: 1); the trailing update's
+    operands (4 x 4 tiles of B, 2 x 4 of A: 24) and the substitutions'
+    staging (1 + 16 + 6.5) fit in them.  So two CTAs an SM (2 x (110,592 +
+    1,024) <= 233,472): 264 slots.  Below 132 cells, the fewest CTAs a cell
+    (1, 2, 4, 8) that give each of the 132 SMs one; above a full wave whose
+    last wave fits the slots at two CTAs a cell, clusters of 2, a cell a CTA
+    in the full waves (``apart`` clusters) and one cell a cluster in the
+    last."""
     cfg = k3.chol_launch_config(n, s, cells)
     assert panels * (panels + 1) // 2 == tiles
     assert cfg == k3.K3Config(threads=256, panels=panels, tile_stride=32,
-                              smem_bytes=26 * 32 * 32 * 4, blocks_per_sm=2, cluster=cluster,
-                              workspace_bytes=4 * (tiles * 1024 + 2 * 32 * panels * s))
-    assert cfg.smem_bytes == 106_496 and cfg.large
-    assert k3.chol_launch_config(n, s).cluster == 1  # a chunk that fills the card
+                              smem_bytes=(10 + 4 * 4 + 1) * 32 * 32 * 4, blocks_per_sm=2,
+                              cluster=cluster,
+                              workspace_bytes=4 * (tiles * 1024 + 2 * 32 * panels * s), outer=4,
+                              apart=apart)
+    assert cfg.smem_bytes == 110_592 and cfg.large
+    last = cells - apart * cluster  # cells a cluster each
+    assert apart * cluster + last * cluster >= min(cells, 132)  # CTAs launched
+    assert last * cluster <= 264 or apart == 0
+    assert (k3.chol_launch_config(n, s).cluster, k3.chol_launch_config(n, s).apart) == (1, 0)
+
+
+@pytest.mark.parametrize(
+    "n,panel_tiles,tiles",
+    [
+        # the 6³ cube: P = 21; the trailing parts m = 17, 13, 9, 5, 1 after the
+        # outer panels at 0, 4, 8, 12, 16: 153 + 91 + 45 + 15 + 1 = 305, and
+        # 231 strip tiles
+        (648, 1540, 305 + 231),
+        # the 8³ cube: P = 48; m = 44, 40, ..., 4: sum of m(m+1)/2 = 4180, and
+        # 1176 strip tiles
+        (1536, 18424, 4180 + 1176),
+        # the 16² square: P = 16; m = 12, 8, 4: 78 + 36 + 10 = 124, and 136
+        (512, 680, 124 + 136),
+        # the 5³ cube: P = 12; m = 8, 4: 36 + 10 = 46, and 78
+        (375, 286, 46 + 78),
+    ],
+)
+def test_workspace_traffic_hand_counts(n, panel_tiles, tiles):
+    """The large instance's workspace traffic: each lower tile read and
+    written once in its outer panel's strip, and each tile right of a
+    strip once in that strip's trailing update, 8 KB a time, per cell.
+    The design before it read and wrote every trailing tile once a 32-wide
+    panel: sum over p of (P - 1 - p)(P - p)/2 tiles.  The outer panels of
+    4 tile columns cut it at least 2.3x at each shape and 2.8x at the 6³
+    cube."""
+    P = -(-n // 32)
+    assert sum((P - 1 - p) * (P - p) // 2 for p in range(P)) == panel_tiles
+    assert k3.workspace_traffic_bytes(n, 1) == tiles * 8192
+    assert k3.workspace_traffic_bytes(n, 309) == 309 * tiles * 8192
+    assert panel_tiles / tiles >= (2.8 if n == 648 else 2.3)

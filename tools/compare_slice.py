@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """K1, K2, K3 and the two slices of two trees, in turns, on one NVIDIA GPU.
 
-    python3 tools/compare_slice.py --base DIR [--groups poisson,elasticity,k1] [--out FILE]
+    python3 tools/compare_slice.py --base DIR [--groups poisson,elasticity,k1,k3] [--out FILE]
 
 Run from the repository root on a machine with one CUDA card; it fails
 without one.  ``DIR`` is another checkout of the repository (for instance
@@ -30,6 +30,11 @@ builds that tree's kernels and runs its own ``chip_smoke.py`` phases.
   16³ micro meshes, timed, and on two 64² chunks whose alternate blocks
   hold high-contrast cells, held block by block against the per-block
   plain version.
+- ``k3``: ``k3_large_times`` (this script's own code, both trees'
+  ``fused_chol_solve_cuda``): K3's large instance at the four shapes of
+  ``chip_smoke.py`` phase 5 (h2) and on one 8³ cell (8 CTAs), and the small
+  instance on the beam's 1080-cell chunk, timed, with each result's
+  residual.
 
 It prints one JSON line per turn and phase record, and with ``--out FILE``
 writes all records there.
@@ -173,6 +178,64 @@ def k3_times(device, chunk: int = 1080, cells: int = 8640) -> None:
           "ms": time_ms(stage, reps=10)})
 
 
+def k3_large_times(device) -> None:
+    """K3's CUDA-event times on the small instance's 1080-cell beam chunk
+    (4³ cube; first, before the large shapes warm the card), at the large
+    instance's four shapes of ``chip_smoke.py`` phase 5 (h2) (the beam's
+    720, 309 and 76 cells on the 5³, 6³ and 8³ cubes, the 2D inclusion's
+    683 cells on the 16² square) and on one 8³ cell (a cluster of 8 CTAs),
+    the same inputs in every tree; the
+    large shapes' X also against the plain version (largest residual
+    ‖F − K X‖∞/‖F‖∞ in float64, of 16 sampled cells)."""
+    import numpy as np
+    import torch
+    from chip_smoke import (BEAM_H, BEAM_L, BEAM_W, _cell_systems, beam_coeff, beam_rotation,
+                            emit, inclusion_mu, time_ms)
+
+    from hommx_tpu_torch import MicroEngine, create_box, create_unit_cube, create_unit_square
+    from hommx_tpu_torch.ops.chol_kernel import chol_launch_config, fused_chol_solve_cuda
+    from hommx_tpu_torch.utils.validation import hooke_tensor
+
+    def engine(mesh):
+        return MicroEngine(mesh, bs=mesh.dim, coeff_kind="tensor4", dtype=torch.float32,
+                           device=device)
+
+    macro = create_box([[0, 0, 0], [BEAM_L, BEAM_W, BEAM_H]], [20, 6, 6])
+    beam = torch.as_tensor(macro.vertices[macro.cells].mean(axis=1), dtype=torch.float32,
+                           device=device)
+
+    def residual(K, F, X):
+        cells = np.linspace(0, K.shape[0] - 1, 16).round().astype(int).tolist()
+        Kd, Fd, Xd = K[cells].double(), F[:, :, cells].double(), X[:, :, cells].double()
+        R = Fd.permute(2, 0, 1) - Kd @ Xd.permute(2, 0, 1)
+        return float((R.abs().amax(dim=(1, 2)) / Fd.permute(2, 0, 1).abs().amax(dim=(1, 2))).max())
+
+    def timed(case, K, F, large):
+        cfg = chol_launch_config(K.shape[1], F.shape[1], K.shape[0])
+        X = fused_chol_solve_cuda(K, F)
+        emit({"phase": "k3_large_time", "case": case, "n": K.shape[1], "cells": K.shape[0],
+              "cluster": cfg.cluster, "apart": getattr(cfg, "apart", 0), "large": large,
+              "ms": time_ms(lambda: fused_chol_solve_cuda(K, F), reps=10),
+              "residual": residual(K, F, X)})
+
+    K, F, _ = _cell_systems(engine(create_unit_cube(4)), beam_coeff(False), beam[:1080],
+                            beam_rotation)
+    timed("small_beam_C1080", K, F, False)
+    for m, C in ((5, 720), (6, 309), (8, 76)):
+        K, F, _ = _cell_systems(engine(create_unit_cube(m)), beam_coeff(False), beam[:C],
+                                beam_rotation)
+        timed(f"beam_cube{m}_C{C}", K, F, True)
+        if m == 8:
+            timed("beam_cube8_C1", K[:1].contiguous(), F[:, :, :1].contiguous(), True)
+        del K, F
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(21)
+    c2 = torch.as_tensor(rng.uniform(0, 1, (683, 2)), dtype=torch.float32, device=device)
+    K, F, _ = _cell_systems(engine(create_unit_square(16)),
+                            hooke_tensor(2, inclusion_mu, lambda x, y: 1.0), c2)
+    timed("square16_C683", K, F, True)
+
+
 def turn(tree: str, groups: list) -> int:
     """One turn: the phases of the ``chip_smoke.py`` found in ``tree``."""
     import torch
@@ -198,6 +261,8 @@ def turn(tree: str, groups: list) -> int:
         chip_smoke.phase_chol(device)
         k3_times(device)
         chip_smoke.phase_slice_elasticity(device)
+    if "k3" in groups:
+        k3_large_times(device)
     return 0
 
 
@@ -205,12 +270,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--base", help="the other tree, run first and last")
     ap.add_argument("--groups", default="poisson,elasticity",
-                    help="comma-separated phase groups: poisson, elasticity, k1")
+                    help="comma-separated phase groups: poisson, elasticity, k1, k3")
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     ap.add_argument("--out", help="write all records to this JSON file")
     args = ap.parse_args()
     groups = [g for g in args.groups.split(",") if g]
-    if not groups or set(groups) - {"poisson", "elasticity", "k1"}:
+    if not groups or set(groups) - {"poisson", "elasticity", "k1", "k3"}:
         ap.error(f"--groups: unknown group in {args.groups!r}")
     if args.turn:
         return turn(args.turn, groups)
