@@ -495,7 +495,6 @@ def phase_build():
             fut.result()
     out = {"phase": "build", "wall_seconds": time.perf_counter() - t0}
     for key, kern in kernels.items():
-        out[f"{key}_seconds"] = kern.build_seconds
         out[f"{key}_ptxas"] = [line.strip() for line in kern.build_log.splitlines()
                                if any(w in line for w in ("entry function", "registers", "spill"))]
     emit(out)

@@ -25,7 +25,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 import torch
@@ -66,25 +65,26 @@ class CudaKernel:
         signatures: launcher name -> list of ctypes argument types (every
             launcher returns ``int``, the launch's ``cudaError_t``).
 
-    ``launches`` counts successful launches made through :meth:`launch` or
-    a function from :meth:`launcher`, and ``counts`` the same per launcher
-    name (a source with several instances, such as the float32 and float64
-    DIA SpMV); a run calls :meth:`reset_counts` and reads them back to show
+    ``counts`` counts successful launches made through :meth:`launch` or a
+    function from :meth:`launcher`, per launcher name (a source with several
+    instances, such as the float32 and float64 DIA SpMV), and ``launches``
+    their sum; a run calls :meth:`reset_counts` and reads them back to show
     which kernels it used.
     """
 
     def __init__(self, source: Path, signatures: dict):
         self.source = Path(source)
         self.signatures = dict(signatures)
-        self.launches = 0
         self.counts = {name: 0 for name in self.signatures}
-        self.build_seconds = None
         self.build_log = ""
         self._lib = None
         self._launchers = {}
 
+    @property
+    def launches(self) -> int:
+        return sum(self.counts.values())
+
     def reset_counts(self) -> None:
-        self.launches = 0
         self.counts = {name: 0 for name in self.signatures}
 
     def library(self) -> ctypes.CDLL:
@@ -97,7 +97,6 @@ class CudaKernel:
         digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         lib_path = _BUILD_DIR / f"{self.source.stem}-{digest}.so"
-        t0 = time.perf_counter()
         if not lib_path.exists():
             tmp = lib_path.with_suffix(f".so.build.{os.getpid()}")
             cmd = [nvcc_path(), *_NVCC_FLAGS, "-o", str(tmp), str(self.source)]
@@ -114,7 +113,6 @@ class CudaKernel:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        self.build_seconds = time.perf_counter() - t0
         return lib
 
     def launcher(self, name: str):
@@ -144,7 +142,6 @@ class CudaKernel:
                 raise RuntimeError(
                     f"{self.source.name}:{name} launch failed with cudaError_t {rc}"
                 )
-            self.launches += 1
             self.counts[name] = self.counts.get(name, 0) + 1
 
         return launch

@@ -59,7 +59,7 @@ from hommx_tpu_torch.micro.block_stencil import (
     mm_weights,
     torus_apply,
 )
-from hommx_tpu_torch.micro.krylov import _solve_linear, shared_prec
+from hommx_tpu_torch.micro.krylov import _clamp, _solve_unclamped, shared_prec
 from hommx_tpu_torch.micro.mg_prec import (
     _signed_offsets,
     build_mg_levels,
@@ -90,6 +90,7 @@ from hommx_tpu_torch.ops.assembly import GatherPlan, gather_sum, invert_scatter
 from hommx_tpu_torch.ops.chol_kernel import fused_chol_solve, fused_chol_solve_plain
 from hommx_tpu_torch.ops.elements import _inv_and_det
 from hommx_tpu_torch.ops.solvers import implicit_linear_solve
+from hommx_tpu_torch.utils.profiling import span
 
 __all__ = [
     "tensors_chunk_pcg",
@@ -128,53 +129,49 @@ class ChunkSystem:
         loop carries none."""
         return scale_weights(self.st, self.ws, self.sc[:, 0, :]), self.sc * self.F
 
+    def _matvec_s(self, P):
+        """The scaled operator's product S K S P."""
+        return self.sc * self.matvec(self.sc * P)
+
     def corrected(self, eng, Y, iters):
         """(A* (C, s, s), X (n, s, C)) from a given unclamped solve Y
-        (n, s, C) of the scaled system: the zero-corrector energy clamp, the
-        unscaling X = S Y and the bilinear contraction, divided by |Y|.  Y
-        is taken as it is: no implicit rule (see :meth:`solve`)."""
-        Fs = self.sc * self.F
-        return self._contract(eng, self._clamped(eng, lambda B: (Y, iters), Fs, False)[0])
+        (n, s, C) of the scaled system (``iters`` its count): the
+        zero-corrector energy clamp, the unscaling X = S Y and the bilinear
+        contraction, divided by |Y|.  Y is taken as it is: no implicit rule
+        (see :meth:`solve`)."""
+        return self._contract(eng, _clamp(self._matvec_s, self.prec, self.sc * self.F, Y))
 
     def astar(self, eng, Y, iters):
         """A* (C, s, s) from an unclamped solve Y of the scaled system."""
         return self.corrected(eng, Y, iters)[0]
 
-    def _clamped(self, eng, raw, Fs, implicit_diff, params=None, with_iters=False):
-        """The clamped solve Yc of the scaled system S K S Y = Fs (= S F) by
-        ``raw``, through :func:`_solve_linear` (the implicit rule with the
-        scaled weights ``params`` as the operator's tensors), and the
-        iteration count."""
-        sc, st = self.sc, self.st
-        operator = None
-        if params is not None:
-            operator = (lambda ws, P: torus_matvec(st.shape, st.offsets, ws, P), tuple(params))
-        return _solve_linear(
-            lambda P: sc * self.matvec(sc * P), self.prec, Fs,
-            eng.pcg_tol, eng.pcg_maxiter, with_iters, implicit_diff, raw=raw, operator=operator,
-        )
-
     def _contract(self, eng, Yc):
         X = self.sc * Yc
         return stencil_astar(self.st, self.ws, self.a, eng.E, self.F, X) / eng.volume_Y, X
 
-    def solve(self, eng, pcg, with_correctors=False, implicit_diff=True, with_iters=False):
+    def solve(self, eng, pcg, with_correctors=False, implicit_diff=True, with_iters=False,
+              scaled=None):
         """A* of the chunk with ``pcg`` as the Krylov solve of the scaled
         system (the signature of ``stencil_pcg``); with ``with_correctors``
         also the correctors X (n, s, C), with ``with_iters`` the iteration
         count.  The solve runs inside the implicit-function rule: the
-        scaled weights ``ws_s`` and loads ``Fs`` are its inputs and its
-        adjoint is one more ``pcg`` solve (a second K1 launch on the card).
-        With ``implicit_diff=False`` (or ``with_iters``) the solve carries
-        no gradient."""
-        ws_s, Fs = self.scaled()
+        scaled weights ``ws_s`` and loads ``Fs`` (``scaled``, or
+        :meth:`scaled`) are its inputs and its adjoint is one more ``pcg``
+        solve (a second K1 launch on the card).  With
+        ``implicit_diff=False`` (or ``with_iters``) the solve carries no
+        gradient.  The clamp, unscaling and contraction are the span
+        ``hommx.micro.astar``."""
+        ws_s, Fs = self.scaled() if scaled is None else scaled
         st = self.st
         raw = lambda B: pcg(  # noqa: E731
             ws_s, B, self.Minv, st.shape, st.offsets, eng.pcg_tol, eng.pcg_maxiter
         )
-        Yc, iters = self._clamped(eng, raw, Fs, implicit_diff, params=ws_s,
-                                  with_iters=with_iters)
-        A, X = self._contract(eng, Yc)
+        operator = (lambda ws, P: torus_matvec(st.shape, st.offsets, ws, P), tuple(ws_s))
+        Y, iters = _solve_unclamped(self._matvec_s, self.prec, Fs, eng.pcg_tol,
+                                    eng.pcg_maxiter, with_iters, implicit_diff, raw=raw,
+                                    operator=operator)
+        with span("hommx.micro.astar"):
+            A, X = self._contract(eng, _clamp(self._matvec_s, self.prec, Fs, Y))
         return _outputs(A, X, iters, with_correctors, with_iters)
 
 
@@ -252,9 +249,11 @@ def tensors_chunk_pcg(eng, coeff, centers, G_fn=None, with_correctors=False,
     plain version on CPU tensors.  Every other configuration takes
     :func:`_tensors_chunk_general`."""
     if eng._k1_route():
-        return chunk_system(eng, coeff, centers, G_fn).solve(
-            eng, stencil_pcg, with_correctors, implicit_diff, with_iters
-        )
+        with span("hommx.micro.prepare"):
+            system = chunk_system(eng, coeff, centers, G_fn)
+            scaled = system.scaled()
+        return system.solve(eng, stencil_pcg, with_correctors, implicit_diff, with_iters,
+                            scaled)
     return _tensors_chunk_general(eng, coeff, centers, G_fn, with_correctors, implicit_diff,
                                   with_iters)
 
@@ -282,165 +281,169 @@ def _tensors_chunk_general(eng, coeff, centers, G_fn, with_correctors, implicit_
     unscaled K⁻¹ and go onto the scaled system by the congruence
     S⁻¹P(S⁻¹·).  The operator is given to the implicit rule as a function
     of its tensors, so the gradient reaches the coefficient through it."""
-    C = centers.shape[0]
-    nE, r, s, n = eng.nE, eng.r, eng.s, eng.n_reduced
-    raw = torch.func.vmap(lambda x: eng._raw_coeff(coeff, x))(centers)
-    G = None if G_fn is None else _map_G(eng, G_fn, centers)
-    scalar_sep = eng.coeff_kind == "scalar"
-    densek = eng.pcg_strategy == "densek" and not scalar_sep
-    mg = eng.cell_prec == "mg"
-    fft = eng.cell_prec == "fft"
-    keep = (~eng.pin_mask).to(eng.dtype)[:, None, None]
-    pinf = eng.pin_mask.to(eng.dtype)[:, None, None]
-    E = eng.E
-    Ae = A_K = B_K = B_Phi = None
-    if scalar_sep:
-        a = raw  # (C, nE): canonical Ā_e = a[c, e]·I, kept separable
-        a_w = a.T[:, None, None, :]  # (nE, 1, 1, C)
-        if G is not None:
-            B_K = torch.einsum("cmr,cmt->crt", G, G)  # GᵀG
-            B_Phi = G
-    else:
-        Ae = raw  # (C, nE, r, r)
-        T = eng._grad_map(G)
-        if T is not None and T.ndim == 2:
-            T = T.expand(C, r, r)
-        B_Phi = T
-        # the FFT symbol reads A_K's mean, so the Kron fast path keeps it too
-        if not densek or mg or fft:
-            A_K = Ae if T is None else torch.einsum("cmr,cemt,ctn->cern", T, Ae, T)
-
-    stencil = eng._get_stencil() if scalar_sep else None
-    bst = eng._get_block_stencil() if not scalar_sep and (not densek or mg) else None
-    lowrank = (eng.coeff_rank > 0 and scalar_sep and B_K is None and eng.D is not None
-               and stencil is None)
-    W_mg = None  # the unscaled fine weights the V-cycle coarsens
-    dp = None  # the exact diag(K) (n, C) where the route has it
-    if densek:
-        chol = _chol_system_of(eng, Ae, T)
-        op = lambda p, P: torch.einsum("cnm,msc->nsc", p[0], P)  # noqa: E731
-        params, F = (chol.Kc,), chol.F
-        dp = torch.diagonal(chol.Kc, dim1=1, dim2=2).T
-        if mg:
-            W_mg = block_stencil_weights(bst, eng, A_K) if bst is not None else None
-    elif stencil is not None:
-        ws = stencil_weights(stencil, a, B_K)
-        shape, offsets = stencil.shape, stencil.offsets
-        op = lambda p, P: torus_matvec(shape, offsets, p, P)  # noqa: E731
-        params = tuple(ws)
-        if mg:
-            W_mg = torch.stack(ws)[:, :, None, None, :]
-    elif bst is not None:
-        Wb = block_stencil_weights(bst, eng, A_K)
-        nbr, bsz = bst.neighbours(eng.device), bst.bs
-
-        def op(p, P):
-            X = P.reshape(-1, bsz, s, C).permute(3, 0, 1, 2)
-            return torus_apply(nbr, p[0], X).permute(1, 2, 3, 0).reshape(n, s, C)
-
-        params, W_mg = (mm_weights(Wb),), Wb
-        dp = torch.einsum("niic->nic", Wb[bst.self_k]).reshape(n, C)
-    elif lowrank:
-        # a ≈ U V through R anchor cells (float64, interpolative: exact when
-        # the declared rank covers the coefficient), K p = Σ_k u_k (K_k p)
-        R = min(eng.coeff_rank, C)
-        anchors = torch.as_tensor(np.linspace(0, C - 1, R).astype(np.int64), device=eng.device)
-        a64 = a.to(torch.float64)
-        V = a64[anchors]  # (R, nE)
-        U = torch.linalg.pinv(V @ V.T, rtol=1e-12) @ (V @ a64.T)  # (R, C)
-        keepn = keep[:, 0, 0].to(torch.float64)
-        D2 = eng.D.reshape(nE * r, n).to(torch.float64)
-        w = torch.repeat_interleave(V, r, dim=1)  # (R, nE·r)
-        Kb = torch.einsum("kz,zn,zm->knm", w, D2, D2) * keepn[None, :, None] * keepn[None, None, :]
-
-        def op(p, P):
-            KP = torch.einsum("knm,msc->knsc", p[0], P * keep)
-            return torch.einsum("kc,knsc->nsc", p[1], KP) * keep + pinf * P
-
-        params = (Kb.to(eng.dtype), U.to(eng.dtype))
-    elif scalar_sep:
-        def op(p, P):
-            Dp = _expand(eng, P * keep)
-            if len(p) > 1:
-                Dp = torch.einsum("crt,etsc->ersc", p[1], Dp)
-            return _reduce(eng, Dp * p[0].T[:, None, None, :]) * keep + pinf * P
-
-        params = (a,) if B_K is None else (a, B_K)
-    else:
-        op = lambda p, P: _gather_matvec(eng, p[0], P)  # noqa: E731
-        params = (A_K,)
-
-    # loads F = −Σ_e D_eᵀ (TᵀĀ_e) E, keep-masked (densek: from its system)
-    if stencil is not None:
-        GE = None if G is None else torch.einsum("ctr,ts->crs", G, E)
-        F = stencil_rhs(stencil, a, E, TE=GE)
-    elif scalar_sep:
-        GE = E[None] if G is None else torch.einsum("ctr,ts->crs", G, E)
-        F = -_reduce(eng, a_w * GE.expand(C, r, s).permute(1, 2, 0)[None]) * keep
-    elif not densek:
-        F = _loads(eng, Ae if T is None else torch.einsum("cmr,cemt->cert", T, Ae)) * keep
-
-    if not eng.diag_scale:
-        sc = None
-    elif scalar_sep:
-        sc = _proxy_scale(eng, a, B_K)
-    else:
-        sc = _scale(eng, dp if dp is not None else _exact_diag(eng, A_K), eng._get_K0diag())
-
-    if fft:
-        base = _fft_prec(eng, a if scalar_sep else None, B_K, A_K)
-        if sc is None:
-            prec = base
+    with span("hommx.micro.prepare"):
+        C = centers.shape[0]
+        nE, r, s, n = eng.nE, eng.r, eng.s, eng.n_reduced
+        raw = torch.func.vmap(lambda x: eng._raw_coeff(coeff, x))(centers)
+        G = None if G_fn is None else _map_G(eng, G_fn, centers)
+        scalar_sep = eng.coeff_kind == "scalar"
+        densek = eng.pcg_strategy == "densek" and not scalar_sep
+        mg = eng.cell_prec == "mg"
+        fft = eng.cell_prec == "fft"
+        keep = (~eng.pin_mask).to(eng.dtype)[:, None, None]
+        pinf = eng.pin_mask.to(eng.dtype)[:, None, None]
+        E = eng.E
+        Ae = A_K = B_K = B_Phi = None
+        if scalar_sep:
+            a = raw  # (C, nE): canonical Ā_e = a[c, e]·I, kept separable
+            a_w = a.T[:, None, None, :]  # (nE, 1, 1, C)
+            if G is not None:
+                B_K = torch.einsum("cmr,cmt->crt", G, G)  # GᵀG
+                B_Phi = G
         else:
-            inv_sc = 1.0 / sc.detach()
-            prec = lambda R: inv_sc * base(inv_sc * R)  # noqa: E731
-    elif mg:
-        src = stencil if scalar_sep else bst
-        levels = eng._get_mg_levels(src.offsets, src.shape) if src is not None else None
-        if levels is None:
-            raise ValueError(
-                "cell_prec='mg' requires a structured box micro mesh whose reduced dofs form "
-                "the torus grid (P1 micro elements) and a nearest-neighbour stencil; use "
-                "cell_prec='k0inv' on this configuration"
-            )
-        check_coarsest(levels, 1 if scalar_sep else eng.bs)
-        vcycle = mg_prec(levels, mg_setup(levels, W_mg.detach()), nu=_mg_nu(eng))
-        if sc is None:
-            prec = vcycle
+            Ae = raw  # (C, nE, r, r)
+            T = eng._grad_map(G)
+            if T is not None and T.ndim == 2:
+                T = T.expand(C, r, r)
+            B_Phi = T
+            # the FFT symbol reads A_K's mean, so the Kron fast path keeps it too
+            if not densek or mg or fft:
+                A_K = Ae if T is None else torch.einsum("cmr,cemt,ctn->cern", T, Ae, T)
+
+        stencil = eng._get_stencil() if scalar_sep else None
+        bst = eng._get_block_stencil() if not scalar_sep and (not densek or mg) else None
+        lowrank = (eng.coeff_rank > 0 and scalar_sep and B_K is None and eng.D is not None
+                   and stencil is None)
+        W_mg = None  # the unscaled fine weights the V-cycle coarsens
+        dp = None  # the exact diag(K) (n, C) where the route has it
+        if densek:
+            chol = _chol_system_of(eng, Ae, T)
+            op = lambda p, P: torch.einsum("cnm,msc->nsc", p[0], P)  # noqa: E731
+            params, F = (chol.Kc,), chol.F
+            dp = torch.diagonal(chol.Kc, dim1=1, dim2=2).T
+            if mg:
+                W_mg = block_stencil_weights(bst, eng, A_K) if bst is not None else None
+        elif stencil is not None:
+            ws = stencil_weights(stencil, a, B_K)
+            shape, offsets = stencil.shape, stencil.offsets
+            op = lambda p, P: torus_matvec(shape, offsets, p, P)  # noqa: E731
+            params = tuple(ws)
+            if mg:
+                W_mg = torch.stack(ws)[:, :, None, None, :]
+        elif bst is not None:
+            Wb = block_stencil_weights(bst, eng, A_K)
+            nbr, bsz = bst.neighbours(eng.device), bst.bs
+
+            def op(p, P):
+                X = P.reshape(-1, bsz, s, C).permute(3, 0, 1, 2)
+                return torus_apply(nbr, p[0], X).permute(1, 2, 3, 0).reshape(n, s, C)
+
+            params, W_mg = (mm_weights(Wb),), Wb
+            dp = torch.einsum("niic->nic", Wb[bst.self_k]).reshape(n, C)
+        elif lowrank:
+            # a ≈ U V through R anchor cells (float64, interpolative: exact when
+            # the declared rank covers the coefficient), K p = Σ_k u_k (K_k p)
+            R = min(eng.coeff_rank, C)
+            anchors = torch.as_tensor(np.linspace(0, C - 1, R).astype(np.int64), device=eng.device)
+            a64 = a.to(torch.float64)
+            V = a64[anchors]  # (R, nE)
+            U = torch.linalg.pinv(V @ V.T, rtol=1e-12) @ (V @ a64.T)  # (R, C)
+            keepn = keep[:, 0, 0].to(torch.float64)
+            D2 = eng.D.reshape(nE * r, n).to(torch.float64)
+            w = torch.repeat_interleave(V, r, dim=1)  # (R, nE·r)
+            Kb = (torch.einsum("kz,zn,zm->knm", w, D2, D2) * keepn[None, :, None]
+                  * keepn[None, None, :])
+
+            def op(p, P):
+                KP = torch.einsum("knm,msc->knsc", p[0], P * keep)
+                return torch.einsum("kc,knsc->nsc", p[1], KP) * keep + pinf * P
+
+            params = (Kb.to(eng.dtype), U.to(eng.dtype))
+        elif scalar_sep:
+            def op(p, P):
+                Dp = _expand(eng, P * keep)
+                if len(p) > 1:
+                    Dp = torch.einsum("crt,etsc->ersc", p[1], Dp)
+                return _reduce(eng, Dp * p[0].T[:, None, None, :]) * keep + pinf * P
+
+            params = (a,) if B_K is None else (a, B_K)
         else:
-            # the V-cycle is built on the unscaled operator and applied to
-            # the scaled system by congruence (the scaling distorts the
-            # smooth modes that the interpolation must capture)
-            inv_sc = 1.0 / sc.detach()
-            prec = lambda R: inv_sc * vcycle(inv_sc * R)  # noqa: E731
-    else:
-        Minv = eng._get_K0inv()
-        prec = lambda R: shared_prec(Minv, R)  # noqa: E731
+            op = lambda p, P: _gather_matvec(eng, p[0], P)  # noqa: E731
+            params = (A_K,)
 
-    if sc is None:
-        op_s, params_s, Fs = op, params, F
-    else:
-        k = len(params)
-        op_s = lambda p, P: p[k] * op(p[:k], p[k] * P)  # noqa: E731
-        params_s, Fs = (*params, sc), sc * F
-    Y, iters = _solve_linear(lambda P: op_s(params_s, P), prec, Fs, eng.pcg_tol,
-                             eng.pcg_maxiter, with_iters, implicit_diff,
-                             operator=(op_s, params_s))
-    X = Y if sc is None else sc * Y
+        # loads F = −Σ_e D_eᵀ (TᵀĀ_e) E, keep-masked (densek: from its system)
+        if stencil is not None:
+            GE = None if G is None else torch.einsum("ctr,ts->crs", G, E)
+            F = stencil_rhs(stencil, a, E, TE=GE)
+        elif scalar_sep:
+            GE = E[None] if G is None else torch.einsum("ctr,ts->crs", G, E)
+            F = -_reduce(eng, a_w * GE.expand(C, r, s).permute(1, 2, 0)[None]) * keep
+        elif not densek:
+            F = _loads(eng, Ae if T is None else torch.einsum("cmr,cemt->cert", T, Ae)) * keep
 
-    # A* = (1/|Y|) Φᵀ Ā Φ with Φ = E + T·(D X): by the bilinear expansion on
-    # the stencil and dense-K routes, as the quadratic form otherwise
-    if densek:
-        A = chol.astar(eng, X)
-    elif stencil is not None:
-        A = stencil_astar(stencil, params, a, E, F, X) / eng.volume_Y
-    else:
-        Phi = _expand(eng, X)
-        if B_Phi is not None:
-            Phi = torch.einsum("crt,etsc->ersc", B_Phi, Phi)
-        Phi = E[None, :, :, None] + Phi
-        APhi = Phi * a_w if scalar_sep else torch.einsum("cert,etsc->ersc", Ae, Phi)
-        A = eng._expand_astar(torch.einsum("ernc,ermc->cnm", Phi, APhi) / eng.volume_Y)
+        if not eng.diag_scale:
+            sc = None
+        elif scalar_sep:
+            sc = _proxy_scale(eng, a, B_K)
+        else:
+            sc = _scale(eng, dp if dp is not None else _exact_diag(eng, A_K), eng._get_K0diag())
+
+        if fft:
+            base = _fft_prec(eng, a if scalar_sep else None, B_K, A_K)
+            if sc is None:
+                prec = base
+            else:
+                inv_sc = 1.0 / sc.detach()
+                prec = lambda R: inv_sc * base(inv_sc * R)  # noqa: E731
+        elif mg:
+            src = stencil if scalar_sep else bst
+            levels = eng._get_mg_levels(src.offsets, src.shape) if src is not None else None
+            if levels is None:
+                raise ValueError(
+                    "cell_prec='mg' requires a structured box micro mesh whose reduced dofs form "
+                    "the torus grid (P1 micro elements) and a nearest-neighbour stencil; use "
+                    "cell_prec='k0inv' on this configuration"
+                )
+            check_coarsest(levels, 1 if scalar_sep else eng.bs)
+            vcycle = mg_prec(levels, mg_setup(levels, W_mg.detach()), nu=_mg_nu(eng))
+            if sc is None:
+                prec = vcycle
+            else:
+                # the V-cycle is built on the unscaled operator and applied to
+                # the scaled system by congruence (the scaling distorts the
+                # smooth modes that the interpolation must capture)
+                inv_sc = 1.0 / sc.detach()
+                prec = lambda R: inv_sc * vcycle(inv_sc * R)  # noqa: E731
+        else:
+            Minv = eng._get_K0inv()
+            prec = lambda R: shared_prec(Minv, R)  # noqa: E731
+
+        if sc is None:
+            op_s, params_s, Fs = op, params, F
+        else:
+            k = len(params)
+            op_s = lambda p, P: p[k] * op(p[:k], p[k] * P)  # noqa: E731
+            params_s, Fs = (*params, sc), sc * F
+    matvec_s = lambda P: op_s(params_s, P)  # noqa: E731
+    Y, iters = _solve_unclamped(matvec_s, prec, Fs, eng.pcg_tol, eng.pcg_maxiter, with_iters,
+                                implicit_diff, operator=(op_s, params_s))
+    with span("hommx.micro.astar"):
+        Y = _clamp(matvec_s, prec, Fs, Y)
+        X = Y if sc is None else sc * Y
+
+        # A* = (1/|Y|) Φᵀ Ā Φ with Φ = E + T·(D X): by the bilinear expansion
+        # on the stencil and dense-K routes, as the quadratic form otherwise
+        if densek:
+            A = chol.astar(eng, X)
+        elif stencil is not None:
+            A = stencil_astar(stencil, params, a, E, F, X) / eng.volume_Y
+        else:
+            Phi = _expand(eng, X)
+            if B_Phi is not None:
+                Phi = torch.einsum("crt,etsc->ersc", B_Phi, Phi)
+            Phi = E[None, :, :, None] + Phi
+            APhi = Phi * a_w if scalar_sep else torch.einsum("cert,etsc->ersc", Ae, Phi)
+            A = eng._expand_astar(torch.einsum("ernc,ermc->cnm", Phi, APhi) / eng.volume_Y)
     return _outputs(A, X, iters, with_correctors, with_iters)
 
 
@@ -654,18 +657,23 @@ class CholSystem:
         term1 = torch.einsum("rs,crt,tm->csm", E, self.Abar, E)
         return eng._expand_astar((term1 - XtF - XtF.transpose(1, 2) + XtKX) / eng.volume_Y)
 
-    def solve(self, eng, solver, with_correctors=False, implicit_diff=True):
+    def solve(self, eng, solver, with_correctors=False, implicit_diff=True,
+              equilibrated=None):
         """A* of the chunk with ``solver`` (the signature of
         ``fused_chol_solve``) as the direct solve of the equilibrated
-        system; with ``with_correctors`` also the solve X (n, s, C).  The
-        solve runs inside the implicit-function rule with the operator
-        v ↦ Ks·v, as the reference's ``lax.custom_linear_solve`` around its
-        kernel: the adjoint is one more ``solver`` call (a second K3 launch
-        on the card).  The scaling stays differentiable through diag(Kc).
-        With ``implicit_diff=False`` the solve carries no gradient."""
-        Ks, Fs, sc = self.equilibrated(eng)
-        X = _chol_solve(solver, Ks, Fs, implicit_diff) * sc[:, None, :]
-        A = self.astar(eng, X)
+        system (``equilibrated``, or :meth:`equilibrated`); with
+        ``with_correctors`` also the solve X (n, s, C).  The solve runs
+        inside the implicit-function rule with the operator v ↦ Ks·v, as
+        the reference's ``lax.custom_linear_solve`` around its kernel: the
+        adjoint is one more ``solver`` call (a second K3 launch on the
+        card).  The scaling stays differentiable through diag(Kc).  With
+        ``implicit_diff=False`` the solve carries no gradient.  The
+        unscaling and contraction are the span ``hommx.micro.astar``."""
+        Ks, Fs, sc = self.equilibrated(eng) if equilibrated is None else equilibrated
+        Xs = _chol_solve(solver, Ks, Fs, implicit_diff)
+        with span("hommx.micro.astar"):
+            X = Xs * sc[:, None, :]
+            A = self.astar(eng, X)
         return (A, X) if with_correctors else A
 
 
@@ -676,11 +684,17 @@ def _chol_matvec(p, v):
 
 def _chol_solve(solver, Ks, Fs, implicit_diff=True):
     """``solver(Ks, Fs)`` under the implicit-function rule (or, with
-    ``implicit_diff=False``, with no gradient)."""
+    ``implicit_diff=False``, with no gradient); each solver call, the
+    adjoint's too, is the span ``hommx.micro.solve``."""
+
+    def raw(K, B):
+        with span("hommx.micro.solve"):
+            return solver(K, B)
+
     if not implicit_diff:
         with torch.no_grad():
-            return solver(Ks, Fs)
-    return implicit_linear_solve(_chol_matvec, (Ks,), Fs, lambda p, B: solver(p[0], B))
+            return raw(Ks, Fs)
+    return implicit_linear_solve(_chol_matvec, (Ks,), Fs, lambda p, B: raw(p[0], B))
 
 
 def chol_system(eng, coeff, centers: torch.Tensor, G_fn=None) -> CholSystem:
@@ -754,9 +768,10 @@ def tensors_chunk_chol(eng, coeff, centers, G_fn=None, with_correctors=False,
     ``with_correctors`` the solve X (n, s, C): the K3 CUDA kernel on CUDA
     tensors, its plain version on CPU tensors, under the implicit rule
     unless ``implicit_diff=False``."""
-    return chol_system(eng, coeff, centers, G_fn).solve(
-        eng, fused_chol_solve, with_correctors, implicit_diff
-    )
+    with span("hommx.micro.prepare"):
+        system = chol_system(eng, coeff, centers, G_fn)
+        equilibrated = system.equilibrated(eng)
+    return system.solve(eng, fused_chol_solve, with_correctors, implicit_diff, equilibrated)
 
 
 def tensors_chunk_chol_plain(eng, coeff, centers, G_fn=None):
@@ -898,15 +913,17 @@ def tensors_chol_batched(eng, coeff, centers, G_fn=None, chunk: int = 0,
     implicit rule (its adjoint: one more whole-batch launch) unless
     ``implicit_diff=False``."""
     nc = centers.shape[0]
-    Ks, Fs, Abar, chunk = chol_batched_system(eng, coeff, centers, G_fn, chunk)
+    with span("hommx.micro.prepare"):
+        Ks, Fs, Abar, chunk = chol_batched_system(eng, coeff, centers, G_fn, chunk)
     Xs = _chol_solve(fused_chol_solve, Ks, Fs, implicit_diff)  # (n, s, N)
     E = eng.E
     out = []
-    for i in range(0, Ks.shape[0], chunk):
-        X = Xs[:, :, i : i + chunk].permute(2, 0, 1)  # (C, n, s)
-        F = Fs[:, :, i : i + chunk].permute(2, 0, 1)
-        XtF = X.transpose(1, 2) @ F
-        XtKX = X.transpose(1, 2) @ (Ks[i : i + chunk] @ X)
-        term1 = torch.einsum("rs,crt,tm->csm", E, Abar[i : i + chunk], E)
-        out.append((term1 - XtF - XtF.transpose(1, 2) + XtKX) / eng.volume_Y)
-    return eng._expand_astar(torch.cat(out)[:nc])
+    with span("hommx.micro.astar"):
+        for i in range(0, Ks.shape[0], chunk):
+            X = Xs[:, :, i : i + chunk].permute(2, 0, 1)  # (C, n, s)
+            F = Fs[:, :, i : i + chunk].permute(2, 0, 1)
+            XtF = X.transpose(1, 2) @ F
+            XtKX = X.transpose(1, 2) @ (Ks[i : i + chunk] @ X)
+            term1 = torch.einsum("rs,crt,tm->csm", E, Abar[i : i + chunk], E)
+            out.append((term1 - XtF - XtF.transpose(1, 2) + XtKX) / eng.volume_Y)
+        return eng._expand_astar(torch.cat(out)[:nc])

@@ -15,11 +15,14 @@ from __future__ import annotations
 import torch
 
 from hommx_tpu_torch.ops.solvers import implicit_linear_solve
+from hommx_tpu_torch.utils.profiling import span
 
 __all__ = [
     "_amp_cap",
     "_block_pcg_matfree",
     "_solve_linear",
+    "_solve_unclamped",
+    "_clamp",
     "_clamp_good",
     "_chunk_pcg_raw",
     "_map_chunked",
@@ -56,44 +59,61 @@ def _block_pcg_matfree(matvec, F, Minv, tol, maxiter):
 def _solve_linear(matvec, prec, F, tol, maxiter, with_iters=False, implicit_diff=True,
                   raw=None, operator=None):
     """Chunk PCG followed by the zero-corrector energy clamp, with the
-    implicit-function rule (the reference's ``_solve_linear``).
+    implicit-function rule (the reference's ``_solve_linear``):
+    :func:`_solve_unclamped`, then :func:`_clamp`.  Returns (X, iters), the
+    iteration count of the forward solve."""
+    bX, iters = _solve_unclamped(matvec, prec, F, tol, maxiter, with_iters, implicit_diff,
+                                 raw, operator)
+    return _clamp(matvec, prec, F, bX), iters
+
+
+def _solve_unclamped(matvec, prec, F, tol, maxiter, with_iters=False, implicit_diff=True,
+                     raw=None, operator=None):
+    """The chunk PCG under the implicit-function rule, before the clamp.
 
     ``raw`` optionally replaces the Krylov loop with an equivalent solver
     ``raw(B) -> (bX_unclamped, iters)`` for the SAME operator (the fused
     stencil kernel K1, or its plain version).  The raw solve runs inside
     :func:`~hommx_tpu_torch.ops.solvers.implicit_linear_solve`, whose
     adjoint is the same raw solve: neither the loop nor a kernel launch is
-    ever differentiated.  ``operator = (op, params)`` gives the operator as
-    a function of the tensors it is differentiable in, ``op(params, P) ==
-    matvec(P)``; without it the operator is a constant of the rule and
-    only F gets a gradient.
-
-    The energy clamp is applied outside the implicit solve, as
-    ``where(good, X, 0)`` with ``good`` computed from the detached iterate:
-    a clamped column has primal 0 and gradient 0.  With ``with_iters`` or
-    ``implicit_diff=False`` (the reference's shard_map micro stage) the raw
-    solve runs without the rule and its output carries no gradient.
-    Returns (X, iters), the iteration count of the forward solve."""
-    raw_solve = raw if raw is not None else (
+    ever differentiated.  Each raw solve, the adjoint's too, is the span
+    ``hommx.micro.solve``.  ``operator = (op, params)`` gives the operator
+    as a function of the tensors it is differentiable in, ``op(params, P)
+    == matvec(P)``; without it the operator is a constant of the rule and
+    only F gets a gradient.  With ``with_iters`` or ``implicit_diff=False``
+    (the reference's shard_map micro stage) the raw solve runs without the
+    rule and its output carries no gradient.  Returns (bX, iters), the
+    iteration count of the forward solve."""
+    loop = raw if raw is not None else (
         lambda B: _chunk_pcg_raw(matvec, prec, B, tol, maxiter)
     )
+
+    def raw_solve(B):
+        with span("hommx.micro.solve"):
+            return loop(B)
+
     if with_iters or not implicit_diff:
         with torch.no_grad():
-            bX, iters = raw_solve(F)
-    else:
-        op, params = operator if operator is not None else (lambda p, P: matvec(P), ())
-        its = []
+            return raw_solve(F)
+    op, params = operator if operator is not None else (lambda p, P: matvec(P), ())
+    its = []
 
-        def solve(p, B):
-            X, k = raw_solve(B)
-            its.append(k)
-            return X
+    def solve(p, B):
+        X, k = raw_solve(B)
+        its.append(k)
+        return X
 
-        bX = implicit_linear_solve(op, tuple(params), F, solve)
-        iters = its[0]
+    bX = implicit_linear_solve(op, tuple(params), F, solve)
+    return bX, its[0]
+
+
+def _clamp(matvec, prec, F, bX):
+    """The zero-corrector energy clamp ``where(good, bX, 0)``, with ``good``
+    (:func:`_clamp_good`) computed from the detached iterate: a clamped
+    column has primal 0 and gradient 0."""
     with torch.no_grad():
         good = _clamp_good(matvec, prec, F, bX)
-    return torch.where(good[None], bX, torch.zeros((), dtype=bX.dtype, device=bX.device)), iters
+    return torch.where(good[None], bX, torch.zeros((), dtype=bX.dtype, device=bX.device))
 
 
 def _clamp_good(matvec, prec, F, bX):

@@ -42,6 +42,7 @@ import torch
 from hommx_tpu_torch._cuda import CudaKernel
 from hommx_tpu_torch.micro.krylov import _chunk_pcg_raw, shared_prec
 from hommx_tpu_torch.micro.stencil import torus_matvec
+from hommx_tpu_torch.utils.profiling import _profiler_enabled
 
 __all__ = [
     "stencil_pcg",
@@ -51,6 +52,7 @@ __all__ = [
     "check_k1_fits",
     "K1Config",
     "KERNEL",
+    "BLOCK_ITERS",
 ]
 
 # the kernel's constants (csrc/stencil_pcg.cu); the launcher recounts the
@@ -102,6 +104,13 @@ KERNEL = CudaKernel(
         "hommx_stencil_pcg_large_grid": [_i, _i],
     },
 )
+
+#: K1's per-block iteration counts while a ``torch.profiler`` session
+#: records, one entry a launch (nothing otherwise; no kernel, no sync):
+#: ``launcher``, ``n``, ``s``, ``K``, ``cells`` (the real cells C),
+#: ``cells_per_block`` and ``iters``, the (blocks,) int32 device tensor the
+#: kernel writes.  Whoever reads the trace drains it.
+BLOCK_ITERS: list = []
 
 
 @dataclasses.dataclass(frozen=True)
@@ -394,7 +403,8 @@ def stencil_pcg_cuda(ws, F, Minv, shape, offsets, tol, maxiter, per_block=False)
     """Launch the CUDA kernel; same contract as :func:`stencil_pcg_plain`
     with ``block=launch_config(n, s).cells_per_block`` (the iteration count
     comes back as a 0-d int32 CUDA tensor, or per block with
-    ``per_block``)."""
+    ``per_block``).  While a profiler records, the per-block counts are
+    also appended to :data:`BLOCK_ITERS`."""
     n, s, C = F.shape
     K = len(ws)
     dev = F.device
@@ -427,10 +437,11 @@ def stencil_pcg_cuda(ws, F, Minv, shape, offsets, tol, maxiter, per_block=False)
     )
     X = torch.empty((s, n, Cp), dtype=torch.float32, device=dev)
     iters = torch.empty((Cp // B,), dtype=torch.int32, device=dev)
+    launcher = "hommx_stencil_pcg_large_f32" if cfg.large else "hommx_stencil_pcg_f32"
     if cfg.large:
         state = torch.empty(cfg.state_bytes // 4, dtype=torch.float32, device=dev)
         KERNEL.launch(
-            "hommx_stencil_pcg_large_f32", dev.index,
+            launcher, dev.index,
             Wk.data_ptr(), Ff.data_ptr(), _tiled(Minv).data_ptr(), nbr.data_ptr(),
             X.data_ptr(), iters.data_ptr(), state.data_ptr(),
             K, n, s, Cp, B, cfg.tile_cols, cfg.stages, cfg.threads, cfg.smem_bytes,
@@ -438,11 +449,14 @@ def stencil_pcg_cuda(ws, F, Minv, shape, offsets, tol, maxiter, per_block=False)
         )
     else:
         KERNEL.launch(
-            "hommx_stencil_pcg_f32", dev.index,
+            launcher, dev.index,
             Wk.data_ptr(), Ff.data_ptr(), _aligned(Minv).data_ptr(), nbr.data_ptr(),
             X.data_ptr(), iters.data_ptr(),
             K, n, s, Cp, B, cfg.threads, cfg.smem_bytes, float(tol), int(maxiter),
         )
+    if _profiler_enabled():
+        BLOCK_ITERS.append({"launcher": launcher, "n": n, "s": s, "K": K, "cells": C,
+                            "cells_per_block": B, "iters": iters})
     return X[:, :, :C].permute(1, 0, 2), (iters if per_block else iters.max())
 
 

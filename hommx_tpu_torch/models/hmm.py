@@ -71,6 +71,7 @@ from hommx_tpu_torch.parallel.macro import (
 )
 from hommx_tpu_torch.parallel.sharding import ShardMesh, shard_cells
 from hommx_tpu_torch.utils.options import SolverOptions, cell_problem_engine_kwargs
+from hommx_tpu_torch.utils.profiling import span
 
 __all__ = [
     "BaseHMM",
@@ -245,12 +246,8 @@ class BaseHMM:
         self._b_load = None
 
     def _micro(self, centers: torch.Tensor) -> torch.Tensor:
-        fn = lambda cs: self._engine.tensors_for_centers(  # noqa: E731
-            self._coeff, cs, G_fn=self._G_fn(), chunk=self._chunk
-        )
-        if self._shard_mesh is None:
-            return fn(centers)
-        return shard_cells(self._shard_mesh, fn, centers).to(self._device)
+        return _micro_stage(self._engine, self._coeff, self._G_fn(), self._chunk,
+                            self._shard_mesh, centers)
 
     def homogenized_tensors(self) -> torch.Tensor:
         """A*(c_T) per macro cell, (nc, s, s) — the micro stage output,
@@ -407,7 +404,10 @@ class BaseHMM:
         solves by the same routes (K1 or K3, and the macro CG through K2 or
         the direct solve); ``torch.autograd.grad(..., create_graph=True)``
         gives second derivatives.  ``step.macro_solve.iterations`` lists the
-        macro solves' iteration counts, forward and adjoint, in order.
+        macro solves' iteration counts, forward and adjoint, in order.  A
+        call is the span ``hommx.step`` around ``hommx.micro``,
+        ``hommx.macro.assemble`` and ``hommx.macro.solve``
+        (utils/profiling.py).
 
         The pipeline does not deduplicate cell problems, as in the
         reference: every cell is solved on every call.
@@ -443,20 +443,16 @@ class BaseHMM:
         # as the reference: only the sharded explicit blocks drop the rule
         implicit_diff = shard_mesh is None or shard_mode == "auto"
 
-        def micro_stage(cs):
-            return engine.tensors_for_centers(coeff, cs, G_fn=G_fn, chunk=chunk,
-                                              implicit_diff=implicit_diff)
-
         def step(centers):
-            if shard_mesh is None:
-                A_star = micro_stage(centers)
-            else:
-                A_star = shard_cells(shard_mesh, micro_stage, centers).to(centers.device)
-            b = assemble_load_vector(sys.verts64, sys.cells, f_fn, bs=bs, degree=rhs_degree,
-                                     gather=sys.load_gather)
-            vals_bc, b_bc = assemble_macro_system(sys, A_star, b, mask, bvals,
-                                                  macro_f64=macro_f64)
-            return macro_solve(vals_bc, b_bc).to(dtype)
+            with span("hommx.step"):
+                A_star = _micro_stage(engine, coeff, G_fn, chunk, shard_mesh, centers,
+                                      implicit_diff)
+                with span("hommx.macro.assemble"):
+                    b = assemble_load_vector(sys.verts64, sys.cells, f_fn, bs=bs,
+                                             degree=rhs_degree, gather=sys.load_gather)
+                    vals_bc, b_bc = assemble_macro_system(sys, A_star, b, mask, bvals,
+                                                          macro_f64=macro_f64)
+                return macro_solve(vals_bc, b_bc).to(dtype)
 
         step.macro_solve = macro_solve
         return step, sys.centers
@@ -581,15 +577,16 @@ class BaseHMM:
 
         # the macro chain runs in float64 (models/common.py)
         mask, bvals = merge_bcs(self._bcs, self._V_macro.num_dofs, torch.float64, dev)
-        if self._b_load is None:
-            self._b_load = assemble_load_vector(
-                sys.verts64, sys.cells, self._f_fn, bs=self._V_macro.bs,
-                degree=self._quad_degree_rhs, gather=sys.load_gather,
+        with span("hommx.macro.assemble"):
+            if self._b_load is None:
+                self._b_load = assemble_load_vector(
+                    sys.verts64, sys.cells, self._f_fn, bs=self._V_macro.bs,
+                    degree=self._quad_degree_rhs, gather=sys.load_gather,
+                )
+            t0 = time.perf_counter()
+            vals_bc, b_bc = assemble_macro_system(
+                sys, A_star, self._b_load, mask, bvals, macro_f64=self._macro_f64
             )
-        t0 = time.perf_counter()
-        vals_bc, b_bc = assemble_macro_system(
-            sys, A_star, self._b_load, mask, bvals, macro_f64=self._macro_f64
-        )
         mg, amg = macro_precs(sys, self._options_global)
         steps0 = STOP_TEST.steps
         x, iters, res = self._macro_solve(vals_bc, b_bc, mg, amg)
@@ -677,6 +674,19 @@ class LinearElasticityStratifiedHMM(LinearElasticityHMM):
 
     def _G_fn(self):
         return self._Dtheta_t
+
+
+def _micro_stage(engine, coeff, G_fn, chunk, shard_mesh, centers, implicit_diff=True):
+    """A*(c_T) of every center, shard by shard over ``shard_mesh`` (gathered
+    on the centers' device) or at once: the span ``hommx.micro``."""
+    with span("hommx.micro"):
+        def fn(cs):
+            return engine.tensors_for_centers(coeff, cs, G_fn=G_fn, chunk=chunk,
+                                              implicit_diff=implicit_diff)
+
+        if shard_mesh is None:
+            return fn(centers)
+        return shard_cells(shard_mesh, fn, centers).to(centers.device)
 
 
 def _check_mesh(mesh):

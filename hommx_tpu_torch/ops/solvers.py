@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from hommx_tpu_torch.ops.sparse import ell_to_dense, spmv
+from hommx_tpu_torch.utils.profiling import span
 
 __all__ = [
     "implicit_linear_solve",
@@ -151,31 +152,33 @@ def solve_ell(vals, cols, b, options, dia=None, mg=None, amg=None):
     (``mg``), else by the aggregation-AMG V-cycle of an AMGStructure
     (``amg``), else (and for ``pc='jacobi'``) by the diagonal.  With a
     DIAPattern (``dia``) the CG matvec is the DIA SpMV on every route.
-    Returns (x, iterations, residual)."""
-    method = options.method
-    if method == "auto":
-        method = "direct" if b.shape[0] <= options.direct_threshold else "cg"
-    if method == "direct":
-        x = dense_solve_ell(vals, cols, b)
-        return x, 0, torch.zeros((), dtype=b.dtype, device=b.device)
-    stop = dict(atol=options.atol, rtol=options.rtol, maxiter=options.maxiter)
-    use_mg = options.pc in ("auto", "mg")
-    if use_mg and mg is None and amg is not None:
-        from hommx_tpu_torch.ops.amg import amg_setup, amg_vcycle
+    The solve, its stop-test reads included, is the span
+    ``hommx.macro.solve``.  Returns (x, iterations, residual)."""
+    with span("hommx.macro.solve"):
+        method = options.method
+        if method == "auto":
+            method = "direct" if b.shape[0] <= options.direct_threshold else "cg"
+        if method == "direct":
+            x = dense_solve_ell(vals, cols, b)
+            return x, 0, torch.zeros((), dtype=b.dtype, device=b.device)
+        stop = dict(atol=options.atol, rtol=options.rtol, maxiter=options.maxiter)
+        use_mg = options.pc in ("auto", "mg")
+        if use_mg and mg is None and amg is not None:
+            from hommx_tpu_torch.ops.amg import amg_setup, amg_vcycle
 
-        matvec = _dia_matvec(dia, vals)[0] if dia is not None else (
-            lambda v: spmv(vals, cols, v))
-        state = amg_setup(amg, vals)
-        return pcg_prec(matvec, lambda r: amg_vcycle(amg, state, r), b, **stop)
-    if dia is None:
-        return cg_ell(vals, cols, b, **stop)
-    matvec, dvals = _dia_matvec(dia, vals)
-    if use_mg and mg is not None:
-        from hommx_tpu_torch.ops.multigrid import mg_setup, mg_vcycle
+            matvec = _dia_matvec(dia, vals)[0] if dia is not None else (
+                lambda v: spmv(vals, cols, v))
+            state = amg_setup(amg, vals)
+            return pcg_prec(matvec, lambda r: amg_vcycle(amg, state, r), b, **stop)
+        if dia is None:
+            return cg_ell(vals, cols, b, **stop)
+        matvec, dvals = _dia_matvec(dia, vals)
+        if use_mg and mg is not None:
+            from hommx_tpu_torch.ops.multigrid import mg_setup, mg_vcycle
 
-        state = mg_setup(mg, dvals)
-        return pcg_prec(matvec, lambda r: mg_vcycle(mg, state, r), b, **stop)
-    return cg_matfree(matvec, _ell_diag(vals, cols), b, **stop)
+            state = mg_setup(mg, dvals)
+            return pcg_prec(matvec, lambda r: mg_vcycle(mg, state, r), b, **stop)
+        return cg_matfree(matvec, _ell_diag(vals, cols), b, **stop)
 
 
 def _dia_matvec(dia, vals):

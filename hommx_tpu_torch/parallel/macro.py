@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from hommx_tpu_torch.ops.dia import DIAOperator, ell_vals_to_dia
 from hommx_tpu_torch.ops.solvers import _ell_diag, cg_matfree, implicit_wrap, pcg_prec
+from hommx_tpu_torch.utils.profiling import span
 
 __all__ = [
     "sharded_solve_dia",
@@ -164,29 +165,32 @@ def make_sharded_solver(mesh, dia, cols, options, mg=None, amg=None):
     rule (ops/solvers.py::implicit_wrap), whose adjoint is one more sharded
     solve.  ``solve.full(vals_bc, b_bc) -> (x, iterations, residual)`` is
     the diagnostics path, without the rule; ``solve.iterations`` lists the
-    iteration count of every solve ``solve`` ran, forward and adjoint."""
+    iteration count of every solve ``solve`` ran, forward and adjoint.
+    Each solve is the span ``hommx.macro.solve``."""
     multigrid = options.pc in ("auto", "mg")
     use_mg = dia is not None and mg is not None and multigrid
     use_amg = not use_mg and amg is not None and multigrid
     stop = (options.atol, options.rtol, options.maxiter)
 
     def solve_full(vals_bc, b_bc):
-        dvals = None if dia is None else ell_vals_to_dia(dia, vals_bc)
-        prec_full = None
-        if use_mg:
-            from hommx_tpu_torch.ops.multigrid import mg_setup, mg_vcycle
+        with span("hommx.macro.solve"):
+            dvals = None if dia is None else ell_vals_to_dia(dia, vals_bc)
+            prec_full = None
+            if use_mg:
+                from hommx_tpu_torch.ops.multigrid import mg_setup, mg_vcycle
 
-            state = mg_setup(mg, dvals)
-            prec_full = lambda r: mg_vcycle(mg, state, r)  # noqa: E731
-        elif use_amg:
-            from hommx_tpu_torch.ops.amg import amg_setup, amg_vcycle
+                state = mg_setup(mg, dvals)
+                prec_full = lambda r: mg_vcycle(mg, state, r)  # noqa: E731
+            elif use_amg:
+                from hommx_tpu_torch.ops.amg import amg_setup, amg_vcycle
 
-            state = amg_setup(amg, vals_bc)
-            prec_full = lambda r: amg_vcycle(amg, state, r)  # noqa: E731
-        diag = _ell_diag(vals_bc, cols)
-        if dia is None:
-            return sharded_solve_ell(mesh, vals_bc, cols, b_bc, diag, *stop, prec_full=prec_full)
-        return sharded_solve_dia(mesh, dia, dvals, b_bc, diag, *stop, prec_full=prec_full)
+                state = amg_setup(amg, vals_bc)
+                prec_full = lambda r: amg_vcycle(amg, state, r)  # noqa: E731
+            diag = _ell_diag(vals_bc, cols)
+            if dia is None:
+                return sharded_solve_ell(mesh, vals_bc, cols, b_bc, diag, *stop,
+                                         prec_full=prec_full)
+            return sharded_solve_dia(mesh, dia, dvals, b_bc, diag, *stop, prec_full=prec_full)
 
     iterations = []
 

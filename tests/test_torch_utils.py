@@ -145,15 +145,23 @@ def test_debug_converters_match_reference():
 # -- profiling ----------------------------------------------------------------
 
 
-def test_phase_timer_and_trace(tmp_path):
+def test_phase_timer_and_trace(tmp_path, monkeypatch):
+    """Each phase is a span of its name in the trace file, beside the
+    solve's own spans; where CUDA is initialised the timer synchronises the
+    device at both edges of a phase (here a stand-in records the calls)."""
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: syncs.append(device))
     timer = PhaseTimer()
     with timer.phase("setup"):
         h = _port_hmm(4)
+    assert len(syncs) == 2
     dirname = str(tmp_path / "trace")
-    with timer.phase("solve"), trace(dirname) as prof:
+    with trace(dirname) as prof, timer.phase("solve"):
         h.solve()
     with timer.phase("setup"):
         pass
+    assert len(syncs) == 6
     assert set(timer.totals) == {"setup", "solve"} and all(v > 0 for v in timer.totals.values())
     lines = timer.summary().splitlines()
     assert len(lines) == 2 and lines[0].split()[0] == "solve" and lines[0].endswith("%")
@@ -163,6 +171,8 @@ def test_phase_timer_and_trace(tmp_path):
         events = json.load(fh)["traceEvents"]
     names = {e.get("name") for e in events}
     assert any(n and n.startswith("aten::") for n in names)
+    assert {"solve", "hommx.micro", "hommx.macro.assemble", "hommx.macro.solve"} <= names
+    assert "setup" not in names  # no profiler ran around the set-up phases
     assert len(prof.key_averages()) > 0
 
 
