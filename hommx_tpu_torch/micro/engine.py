@@ -225,6 +225,7 @@ class MicroEngine:
         self._K0diag = None
         self._kron_M = None
         self._fft_syms = None
+        self._sym_expand_dev: dict = {}  # the Voigt index's copy on each device
         # the kernels' size limits, checked before any device or coefficient work
         on_card_f32 = self.device.type == "cuda" and self.dtype == torch.float32
         if on_card_f32 and self._chol_route():
@@ -397,19 +398,28 @@ class MicroEngine:
 
         return _get_stencil(self)
 
+    def _sym_index(self, device: torch.device) -> torch.Tensor:
+        """The Voigt index ``sym_expand`` on ``device``, copied there at its
+        first use only: a copy from the host to a card waits for the card,
+        and a chunk loop that made one a chunk would stall it."""
+        e = self._sym_expand_dev.get(device)
+        if e is None:
+            e = self._sym_expand_dev[device] = torch.as_tensor(self.sym_expand, device=device)
+        return e
+
     def _expand_astar(self, A: torch.Tensor) -> torch.Tensor:
         """Voigt (…, s, s) → full (…, d², d²) tensor layout (exact: the
         expanded entries are duplicates by minor symmetry)."""
         if self.sym_expand is None:
             return A
-        e = torch.as_tensor(self.sym_expand, device=A.device)
+        e = self._sym_index(A.device)
         return A[..., e[:, None], e[None, :]]
 
     def _expand_cols(self, X: torch.Tensor) -> torch.Tensor:
         """Voigt (…, s) correctors → full (…, d²) column layout."""
         if self.sym_expand is None:
             return X
-        return X[..., torch.as_tensor(self.sym_expand, device=X.device)]
+        return X[..., self._sym_index(X.device)]
 
     # -- the per-cell route (micro/percell.py) -------------------------------
     def element_coeff(self, coeff: Callable, x_center) -> torch.Tensor:

@@ -280,8 +280,9 @@ def stencil_weights(st: MicroStencil, a: torch.Tensor, B_K=None):
                 )
             ws.append(wk)
     if st.pinned.size:
-        ws[st.self_k] = ws[st.self_k].clone()
-        ws[st.self_k][st.tensor("pinned", dt, dev), :] = 1.0
+        # a fill by a scalar argument: ``w[idx] = 1.0`` copies its value from
+        # the host to a card, and that copy waits for the card
+        ws[st.self_k] = ws[st.self_k].index_fill(0, st.tensor("pinned", dt, dev), 1.0)
     return ws
 
 

@@ -9,6 +9,7 @@ of the function they measure.
 
 from __future__ import annotations
 
+import numbers
 from typing import Callable, Optional
 
 import numpy as np
@@ -110,6 +111,15 @@ def relative_l2_vs_reference(u_coarse, u_fine) -> float:
     return err / calc_l2_norm(V.mesh, u_ref_i, bs=V.bs)
 
 
+def _lame(value, device) -> torch.Tensor:
+    """A Lamé callable's value as a tensor: a Python number as a 0-d host
+    tensor, which enters the device's arithmetic as a scalar (a copy to a
+    card would wait for the card), anything else on ``device``."""
+    if isinstance(value, numbers.Number):
+        return torch.as_tensor(value)
+    return torch.as_tensor(value, device=device)
+
+
 def hooke_tensor(dim: int, mu_fn: Callable, lam_fn: Callable) -> Callable:
     """Isotropic Hooke tensor A_ijkl = λ δij δkl + μ (δik δjl + δil δjk)
     with x,y-dependent Lamé callables.  It computes in the promoted type
@@ -118,8 +128,8 @@ def hooke_tensor(dim: int, mu_fn: Callable, lam_fn: Callable) -> Callable:
     Python numbers, rounds its own values)."""
 
     def A(x, y):
-        mu = torch.as_tensor(mu_fn(x, y), device=y.device)
-        lam = torch.as_tensor(lam_fn(x, y), device=y.device)
+        mu = _lame(mu_fn(x, y), y.device)
+        lam = _lame(lam_fn(x, y), y.device)
         dt = torch.promote_types(torch.promote_types(mu.dtype, lam.dtype), y.dtype)
         I = torch.eye(dim, dtype=dt, device=y.device)
         return lam.to(dt) * torch.einsum("ij,kl->ijkl", I, I) + mu.to(dt) * (
