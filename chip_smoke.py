@@ -912,8 +912,8 @@ def _cell_systems(eng, coeff, centers, G_fn=None):
     from hommx_tpu_torch.micro.chunk import chol_system
 
     cs = chol_system(eng, coeff, centers, G_fn)
-    Ks, Fs, sc = cs.equilibrated(eng)
-    return Ks, Fs, lambda X: cs.astar(eng, X * sc[:, None, :])
+    ks, Fs, _ = cs.scaled(eng)
+    return cs.dense(ks), Fs, lambda Xs: cs.astar(eng, Xs, ks, Fs)
 
 
 def _spd_batch(device, C, n, s, seed):

@@ -21,11 +21,15 @@ torus-multigrid V-cycle (``cell_prec='mg'``, micro/mg_prec.py).  The cell
 axis C is minor: Krylov state (n, s, C).
 
 Cholesky route (elasticity): map the coefficient blocks by the per-cell
-strain map T, assemble the per-cell reduced operators Kc (C, n, n) by the
-Kron fast path and a scatter, build the loads F = −Σ_e D_eᵀ(TᵀĀ_e)E,
-equilibrate with S = √(d₀/d), solve with
+strain map T, assemble the per-cell reduced operators Kc by the Kron fast
+path and a scatter (dense, (C, n, n)) or the gather (their nonzeros, (C,
+nnz)), build the loads F = −Σ_e D_eᵀ(TᵀĀ_e)E, equilibrate with S =
+√(d₀/d), solve with
 :func:`~hommx_tpu_torch.ops.chol_kernel.fused_chol_solve` (the CUDA kernel
-K3 on the card, its plain version on the CPU) and contract A* bilinearly.
+K3 on the card, its plain version on the CPU) and contract A* bilinearly
+in the scaled quantities.  On the gather route the equilibration and the
+contraction run on the nonzeros, and the dense layout is written once, as
+the equilibrated Ks that the solve reads.
 
 The Kc assembly (and the block stencil's weights) honour the reference's
 ``HOMMX_KC_ASSEMBLY`` switch (``scatter`` | ``gather``) with another
@@ -319,8 +323,8 @@ def _tensors_chunk_general(eng, coeff, centers, G_fn, with_correctors, implicit_
         if densek:
             chol = _chol_system_of(eng, Ae, T)
             op = lambda p, P: torch.einsum("cnm,msc->nsc", p[0], P)  # noqa: E731
-            params, F = (chol.Kc,), chol.F
-            dp = torch.diagonal(chol.Kc, dim1=1, dim2=2).T
+            params, F = (chol.dense(),), chol.F
+            dp = torch.diagonal(params[0], dim1=1, dim2=2).T
             if mg:
                 W_mg = block_stencil_weights(bst, eng, A_K) if bst is not None else None
         elif stencil is not None:
@@ -434,7 +438,7 @@ def _tensors_chunk_general(eng, coeff, centers, G_fn, with_correctors, implicit_
         # A* = (1/|Y|) Φᵀ Ā Φ with Φ = E + T·(D X): by the bilinear expansion
         # on the stencil and dense-K routes, as the quadratic form otherwise
         if densek:
-            A = chol.astar(eng, X)
+            A = chol.astar(eng, X, chol.K, F)  # unscaled: S = 1 in the scaled form
         elif stencil is not None:
             A = stencil_astar(stencil, params, a, E, F, X) / eng.volume_Y
         else:
@@ -629,52 +633,70 @@ def _mg_nu(eng) -> int:
 
 @dataclass
 class CholSystem:
-    """The assembled cell problems of one chunk on the Cholesky route."""
+    """The assembled cell problems of one chunk on the Cholesky route.
 
-    Kc: torch.Tensor  # (C, n, n) reduced operators, identity on pinned dofs
+    ``K`` holds the reduced operators Kc as the route stores them.  On the
+    gather assembly route (``pattern`` is the engine's :class:`KcPattern`)
+    it is their nonzeros (C, nnz), in the order of ``pattern.pos``: the
+    chunk is equilibrated and contracted there, and the dense layout is
+    written once, as the Ks the solver reads (:meth:`dense`).  On the
+    scatter route (``pattern`` None) it is the dense (C, n, n)."""
+
+    K: torch.Tensor  # Kc, identity on pinned dofs: (C, nnz) or (C, n, n)
     F: torch.Tensor  # (n, s, C) generator loads
     Abar: torch.Tensor  # (C, r, r) Σ_e Ā_e
+    pattern: Optional["KcPattern"] = None
 
-    def equilibrated(self, eng):
-        """(Ks, Fs, sc): Ks = S Kc S, Fs = S F with S = √(d₀/diag Kc) per
-        dof and cell (n, C), ones when ``diag_scale`` is off."""
+    def dense(self, K=None):
+        """The dense (C, n, n) layout of ``K`` (of Kc by default), stored
+        as this route stores Kc."""
+        K = self.K if K is None else K
+        return K if self.pattern is None else self.pattern.place(K)
+
+    def scaled(self, eng):
+        """(Ks, Fs, sc), Ks stored as Kc is: Ks = S Kc S, Fs = S F with S =
+        √(d₀/diag Kc) per dof and cell (n, C), ones when ``diag_scale`` is
+        off.  Each Ks entry is (Kc_ij·S_i)·S_j, on the nonzeros as in the
+        dense layout, so both store the same values bit for bit."""
+        pat = self.pattern
         if eng.diag_scale:
-            sc = eng._scale_from_diag(torch.diagonal(self.Kc, dim1=1, dim2=2).T)
+            d = (torch.diagonal(self.K, dim1=1, dim2=2) if pat is None
+                 else self.K.index_select(1, pat.diag))
+            sc = eng._scale_from_diag(d.T)
         else:
             sc = torch.ones_like(self.F[:, 0, :])
         scm = sc.T
-        return self.Kc * scm[:, :, None] * scm[:, None, :], self.F * sc[:, None, :], sc
+        if pat is None:
+            Ks = self.K * scm[:, :, None] * scm[:, None, :]
+        else:
+            Ks = self.K * scm.index_select(1, pat.rows) * scm.index_select(1, pat.cols)
+        return Ks, self.F * sc[:, None, :], sc
 
-    def astar(self, eng, X):
-        """A* (C, s_full, s_full) from the solve X (n, s, C) by the bilinear
-        expansion ΦᵀĀΦ = EᵀĀE − FᵀX − XᵀF + XᵀKX (X vanishes on pinned
-        dofs, so the identity pin rows of Kc do not enter), over |Y|."""
-        Xc = X.permute(2, 0, 1)  # (C, n, s)
-        Fc = self.F.permute(2, 0, 1)
-        XtF = Xc.transpose(1, 2) @ Fc
-        XtKX = Xc.transpose(1, 2) @ (self.Kc @ Xc)
-        E = eng.E
-        term1 = torch.einsum("rs,crt,tm->csm", E, self.Abar, E)
-        return eng._expand_astar((term1 - XtF - XtF.transpose(1, 2) + XtKX) / eng.volume_Y)
+    def equilibrated(self, eng):
+        """(Ks, Fs, sc) of :meth:`scaled` with Ks in the dense layout."""
+        Ks, Fs, sc = self.scaled(eng)
+        return self.dense(Ks), Fs, sc
 
-    def solve(self, eng, solver, with_correctors=False, implicit_diff=True,
-              equilibrated=None):
-        """A* of the chunk with ``solver`` (the signature of
-        ``fused_chol_solve``) as the direct solve of the equilibrated
-        system (``equilibrated``, or :meth:`equilibrated`); with
-        ``with_correctors`` also the solve X (n, s, C).  The solve runs
-        inside the implicit-function rule with the operator v ↦ Ks·v, as
-        the reference's ``lax.custom_linear_solve`` around its kernel: the
-        adjoint is one more ``solver`` call (a second K3 launch on the
-        card).  The scaling stays differentiable through diag(Kc).  With
-        ``implicit_diff=False`` the solve carries no gradient.  The
-        unscaling and contraction are the span ``hommx.micro.astar``."""
-        Ks, Fs, sc = self.equilibrated(eng) if equilibrated is None else equilibrated
-        Xs = _chol_solve(solver, Ks, Fs, implicit_diff)
-        with span("hommx.micro.astar"):
-            X = Xs * sc[:, None, :]
-            A = self.astar(eng, X)
-        return (A, X) if with_correctors else A
+    def astar(self, eng, Xs, Ks, Fs):
+        """A* (C, s_full, s_full) from the solve Xs (n, s, C) of the
+        equilibrated system, Ks stored as :meth:`scaled` stores it (on the
+        gather route Ks·Xs is taken from the nonzeros)."""
+        Xc, Fc = Xs.permute(2, 0, 1), Fs.permute(2, 0, 1)  # (C, n, s)
+        KX = Ks @ Xc if self.pattern is None else self.pattern.matmul(Ks, Xc)
+        return _astar_scaled(eng, self.Abar, Xc, Fc, KX)
+
+
+def _astar_scaled(eng, Abar, Xs, Fs, KXs):
+    """A* (C, s_full, s_full) by the bilinear expansion in scaled quantities,
+    ΦᵀĀΦ = EᵀĀE − XsᵀFs − FsᵀXs + XsᵀKsXs, over |Y|: with X = S Xs the
+    unscaled terms are equal (XᵀF = XsᵀFs, XᵀKcX = XsᵀKsXs), and X vanishes
+    on pinned dofs, so their identity rows do not enter.  Xs, Fs and KXs =
+    Ks·Xs are (C, n, s)."""
+    XtF = Xs.transpose(1, 2) @ Fs
+    XtKX = Xs.transpose(1, 2) @ KXs
+    E = eng.E
+    term1 = torch.einsum("rs,crt,tm->csm", E, Abar, E)
+    return eng._expand_astar((term1 - XtF - XtF.transpose(1, 2) + XtKX) / eng.volume_Y)
 
 
 def _chol_matvec(p, v):
@@ -708,9 +730,10 @@ def chol_system(eng, coeff, centers: torch.Tensor, G_fn=None) -> CholSystem:
 
 
 def _chol_system_of(eng, Ae: torch.Tensor, T) -> CholSystem:
-    """The assembled per-cell operators Kc (C, n, n), the keep-masked loads
-    and Σ_e Ā_e of the element coefficients Ae (C, nE, r, r) under the
-    per-cell maps T (C, r, r) or None."""
+    """The assembled per-cell operators Kc, the keep-masked loads and Σ_e
+    Ā_e of the element coefficients Ae (C, nE, r, r) under the per-cell
+    maps T (C, r, r) or None: Kc as its nonzeros on the gather route, dense
+    on the scatter route."""
     C = Ae.shape[0]
     nE, r, n = eng.nE, eng.r, eng.n_reduced
     if T is None:
@@ -725,24 +748,23 @@ def _chol_system_of(eng, Ae: torch.Tensor, T) -> CholSystem:
         AKv = torch.bmm(Ae.reshape(C, nE, r * r), TkT)
         blocks = torch.einsum("cex,exy->cey", AKv, _get_kron_M(eng))
     keep = (~eng.pin_mask).to(eng.dtype)
+    F = _loads(eng, A_F) * keep[:, None, None]
     kcg = _get_kc_gather(eng)
     if kcg is not None:
         # fixed-order assembly: a gather and a sum over the contributors of
         # every coupled dof pair, the keep/pin masks folded into per-target
-        # vectors, then one placement gather into the dense layout
+        # vectors; the nonzeros stay as they are
         vals = gather_sum(blocks.reshape(C, -1), kcg.plan) * kcg.keep_vec + kcg.pin_vec
-        vals = torch.cat([vals, vals.new_zeros(C, 1)], dim=1)
-        Kc = vals.index_select(1, kcg.inv_map).reshape(C, n, n)
-    else:
-        # scatter of the element blocks into the dense reduced operators
-        l2r = eng.loc2red
-        flat = (l2r[:, :, None] * n + l2r[:, None, :]).reshape(-1)
-        Kc = torch.zeros((C, n * n), dtype=eng.dtype, device=eng.device)
-        Kc.index_add_(1, flat, blocks.reshape(C, -1))
-        Kc = Kc.reshape(C, n, n) * keep[None, :, None] * keep[None, None, :] + torch.diag(
-            eng.pin_mask.to(eng.dtype)
-        )[None]
-    return CholSystem(Kc, _loads(eng, A_F) * keep[:, None, None], Ae.sum(dim=1))
+        return CholSystem(vals, F, Ae.sum(dim=1), kcg.pattern)
+    # scatter of the element blocks into the dense reduced operators
+    l2r = eng.loc2red
+    flat = (l2r[:, :, None] * n + l2r[:, None, :]).reshape(-1)
+    Kc = torch.zeros((C, n * n), dtype=eng.dtype, device=eng.device)
+    Kc.index_add_(1, flat, blocks.reshape(C, -1))
+    Kc = Kc.reshape(C, n, n) * keep[None, :, None] * keep[None, None, :] + torch.diag(
+        eng.pin_mask.to(eng.dtype)
+    )[None]
+    return CholSystem(Kc, F, Ae.sum(dim=1))
 
 
 def _loads(eng, A_F: torch.Tensor) -> torch.Tensor:
@@ -768,17 +790,36 @@ def tensors_chunk_chol(eng, coeff, centers, G_fn=None, with_correctors=False,
     ``with_correctors`` the solve X (n, s, C): the K3 CUDA kernel on CUDA
     tensors, its plain version on CPU tensors, under the implicit rule
     unless ``implicit_diff=False``."""
-    with span("hommx.micro.prepare"):
-        system = chol_system(eng, coeff, centers, G_fn)
-        equilibrated = system.equilibrated(eng)
-    return system.solve(eng, fused_chol_solve, with_correctors, implicit_diff, equilibrated)
+    return _chunk_chol(eng, coeff, centers, G_fn, fused_chol_solve, with_correctors,
+                       implicit_diff)
 
 
 def tensors_chunk_chol_plain(eng, coeff, centers, G_fn=None):
     """The same A* through the plain solve on any device and dtype.  No
     entry point calls it: it is the float64 check a card run holds the
     float32 main path against."""
-    return chol_system(eng, coeff, centers, G_fn).solve(eng, fused_chol_solve_plain)
+    return _chunk_chol(eng, coeff, centers, G_fn, fused_chol_solve_plain)
+
+
+def _chunk_chol(eng, coeff, centers, G_fn, solver, with_correctors=False, implicit_diff=True):
+    """One chunk on the Cholesky route with ``solver`` (the signature of
+    ``fused_chol_solve``): assembly, equilibration and the dense Ks (the
+    span ``hommx.micro.prepare``), the solve inside the implicit-function
+    rule with the operator v ↦ Ks·v, as the reference's
+    ``lax.custom_linear_solve`` around its kernel (the adjoint is one more
+    ``solver`` call, a second K3 launch on the card), and A* from the
+    scaled quantities (``hommx.micro.astar``).  The scaling stays
+    differentiable through diag(Kc).  Nothing after the solve reads the
+    dense Ks, so it is freed there."""
+    with span("hommx.micro.prepare"):
+        system = chol_system(eng, coeff, centers, G_fn)
+        ks, Fs, sc = system.scaled(eng)
+        Ks = system.dense(ks)
+    Xs = _chol_solve(solver, Ks, Fs, implicit_diff)
+    del Ks
+    with span("hommx.micro.astar"):
+        A = system.astar(eng, Xs, ks, Fs)
+        return (A, Xs * sc[:, None, :]) if with_correctors else A
 
 
 def _get_kron_M(eng) -> torch.Tensor:
@@ -807,29 +848,70 @@ def kc_assembly_mode(device) -> str:
 
 
 @dataclass
+class KcPattern:
+    """The nonzeros of the Cholesky route's Kc on the device (see
+    :attr:`KcGather.pattern`): a chunk's operators stored as values (C,
+    nnz) in this order are equilibrated, placed and contracted here."""
+
+    n: int
+    pos: torch.Tensor  # (nnz,) flat dense position row·n + col of each nonzero, ascending
+    rows: torch.Tensor  # (nnz,) row of each nonzero
+    cols: torch.Tensor  # (nnz,) column of each nonzero
+    diag: torch.Tensor  # (n,) position of each diagonal entry (every dof is in an element)
+    width: int  # nonzeros in every row where all rows have as many, else 0
+    row_plan: Optional[GatherPlan]  # the rows' sums where their widths differ
+
+    def place(self, v: torch.Tensor) -> torch.Tensor:
+        """The dense (..., n, n) layout of nonzeros v (..., nnz): a zero
+        fill, then each nonzero written once at its own position (no two
+        share one, so the result is the same on every run)."""
+        lead, n = v.shape[:-1], self.n
+        return v.new_zeros(*lead, n * n).index_copy_(-1, self.pos, v).view(*lead, n, n)
+
+    def matmul(self, v: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+        """Kc·X per cell from the nonzeros v (C, nnz) of Kc and X (C, n, s):
+        (C, n, s).  X's rows gathered by column, times the nonzeros, and
+        each row summed in a fixed order: one reduction over ``width``
+        entries where every row has as many, else the gathers of
+        ``row_plan``."""
+        C, n, s = X.shape
+        P = v[:, :, None] * X.contiguous().index_select(1, self.cols)  # (C, nnz, s)
+        if self.width:
+            return P.view(C, n, self.width, s).sum(dim=2)
+        return gather_sum(P.transpose(1, 2), self.row_plan).transpose(1, 2)
+
+
+@dataclass
 class KcGather:
     """The fixed-order assembly of the Cholesky route's Kc and loads (see
     :func:`_get_kc_gather`)."""
 
     tab: torch.Tensor  # (nnz, m) contributors of each coupled dof pair, the reference's table
-    nz: np.ndarray  # (nnz,) flat dense position row·n + col of each coupled pair
+    nz: np.ndarray  # (nnz,) flat dense position row·n + col of each coupled pair, ascending
     n: int
     keep_vec: torch.Tensor  # (nnz,) 1 where neither dof is pinned
     pin_vec: torch.Tensor  # (nnz,) 1 on the pinned diagonal
     plan: GatherPlan  # ``tab`` on the device
     fc_plan: GatherPlan  # the loads' scatter over the reduced dofs (no dense D)
-    _inv_map: Optional[torch.Tensor] = None
+    _pattern: Optional[KcPattern] = None
 
     @property
-    def inv_map(self) -> torch.Tensor:
-        """(n²,) position of each dense entry among the nnz (nnz: none),
-        built at the first dense assembly (a 16³ elasticity cell, which
-        takes no dense route, would need 1.2 GB for it)."""
-        if self._inv_map is None:
-            inv = np.full(self.n * self.n, self.nz.size, dtype=np.int64)
-            inv[self.nz] = np.arange(self.nz.size)
-            self._inv_map = torch.as_tensor(inv, device=self.keep_vec.device)
-        return self._inv_map
+    def pattern(self) -> KcPattern:
+        """Kc's nonzeros on the device, built at the first dense assembly
+        or chunk of the Cholesky route (the scalar routes share these
+        tables and never need it)."""
+        if self._pattern is None:
+            n, nz, dev = self.n, self.nz, self.keep_vec.device
+            ti, tj = nz // n, nz % n
+            counts = np.bincount(ti, minlength=n)
+            width = int(counts[0]) if (counts == counts[0]).all() else 0
+            idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)  # noqa: E731
+            self._pattern = KcPattern(
+                n=n, pos=idx(nz), rows=idx(ti), cols=idx(tj),
+                diag=idx(np.searchsorted(nz, np.arange(n) * (n + 1))), width=width,
+                row_plan=None if width else GatherPlan(invert_scatter(ti, n), nz.size, dev),
+            )
+        return self._pattern
 
 
 def _get_kc_gather(eng):
@@ -840,11 +922,11 @@ def _get_kc_gather(eng):
 
     The host inverts the scatter map of the element blocks (C, nE·nbl²):
     ``tab`` lists the contributors of each of the nnz coupled dof pairs
-    (padded with the index of an appended zero), ``inv_map`` places them
-    in the dense (n, n) layout, the keep/pin masks fold into per-target
-    vectors; the loads' scatter over the reduced dofs gets its own table.
-    Both run as :class:`GatherPlan`s on the device, cached per engine with
-    the mode read at its first call."""
+    (padded with the index of an appended zero), ``nz`` their dense
+    positions, the keep/pin masks fold into per-target vectors; the loads'
+    scatter over the reduced dofs gets its own table.  Both run as
+    :class:`GatherPlan`s on the device, cached per engine with the mode
+    read at its first call."""
     if getattr(eng, "_kc_gather", False) is False:
         eng._kc_gather = None
         if kc_assembly_mode(eng.device) == "gather":
@@ -916,14 +998,10 @@ def tensors_chol_batched(eng, coeff, centers, G_fn=None, chunk: int = 0,
     with span("hommx.micro.prepare"):
         Ks, Fs, Abar, chunk = chol_batched_system(eng, coeff, centers, G_fn, chunk)
     Xs = _chol_solve(fused_chol_solve, Ks, Fs, implicit_diff)  # (n, s, N)
-    E = eng.E
     out = []
     with span("hommx.micro.astar"):
         for i in range(0, Ks.shape[0], chunk):
             X = Xs[:, :, i : i + chunk].permute(2, 0, 1)  # (C, n, s)
             F = Fs[:, :, i : i + chunk].permute(2, 0, 1)
-            XtF = X.transpose(1, 2) @ F
-            XtKX = X.transpose(1, 2) @ (Ks[i : i + chunk] @ X)
-            term1 = torch.einsum("rs,crt,tm->csm", E, Abar[i : i + chunk], E)
-            out.append((term1 - XtF - XtF.transpose(1, 2) + XtKX) / eng.volume_Y)
-        return eng._expand_astar(torch.cat(out)[:nc])
+            out.append(_astar_scaled(eng, Abar[i : i + chunk], X, F, Ks[i : i + chunk] @ X))
+        return torch.cat(out)[:nc]

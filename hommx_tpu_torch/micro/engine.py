@@ -385,9 +385,7 @@ class MicroEngine:
         # the host build of K0 takes the scatter, which is in order there
         kcg = _get_kc_gather(self) if A_K.device.type == self.device.type else None
         if kcg is not None:
-            nz_vals = gather_sum(vals, kcg.plan)
-            nz_vals = torch.cat([nz_vals, nz_vals.new_zeros(*lead, 1)], dim=-1)
-            return nz_vals.index_select(-1, kcg.inv_map).reshape(*lead, n, n)
+            return kcg.pattern.place(gather_sum(vals, kcg.plan))
         l2r = torch.as_tensor(self.loc2red_np, device=A_K.device)
         flat = (l2r[:, :, None] * n + l2r[:, None, :]).reshape(-1)
         K = torch.zeros(*lead, n * n, dtype=A_K.dtype, device=A_K.device)

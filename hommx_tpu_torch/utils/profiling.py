@@ -9,7 +9,8 @@ The solve step opens these (``models/hmm.py``, ``micro/chunk.py``,
     hommx.step                 a call of ``build_pipeline()``'s step
       hommx.micro              the micro stage (every chunk, every shard)
         hommx.micro.prepare    a chunk's coefficients, stencil weights or
-                               Kc assembly, loads and scaling
+                               Kc assembly, loads and scaling (on the
+                               Cholesky route also the dense Ks)
         hommx.micro.solve      a chunk's cell solve (K1 or K3 with its
                                wrapper, or the plain PCG loop)
         hommx.micro.astar      a chunk's clamp, unscaling and A* contraction

@@ -392,13 +392,17 @@ def test_grad_through_micro_chol_route():
     _close(g, _central(lambda t: _value(loss, t), 1.0, 1e-5), 1e-5)
 
 
-@pytest.mark.parametrize("batched", [False, True], ids=["chunk", "whole_batch"])
-def test_opaque_k3_route_second_derivative(monkeypatch, batched):
-    """K3's route (in-chunk and ``HOMMX_CHOL_SOLVE_BATCH=1``) with its solve
+@pytest.mark.parametrize("route", ["chunk", "whole_batch", "chunk_gather"])
+def test_opaque_k3_route_second_derivative(monkeypatch, route):
+    """K3's route (in-chunk, ``HOMMX_CHOL_SOLVE_BATCH=1``, and in-chunk on
+    the gather assembly, the card's default, whose scaling is
+    differentiated through diag(Kc) on the nonzeros) with its solve
     detached: d²J/dθ² unchanged (1e-8) and equal to the reference's
     (1e-6); the control without the rule misses it."""
-    if batched:
+    if route == "whole_batch":
         monkeypatch.setenv("HOMMX_CHOL_SOLVE_BATCH", "1")
+    if route == "chunk_gather":
+        monkeypatch.setenv("HOMMX_KC_ASSEMBLY", "gather")
     je, te, centers = _elastic_engines()
     loss, jloss = _elastic_losses(je, te, centers)
     ref = _grad(loss, 1.0, order=2)

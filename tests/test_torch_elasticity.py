@@ -470,7 +470,10 @@ def test_kc_gather_tables_equal_reference(monkeypatch):
     ref = jax_kc_gather(je)
     got = _get_kc_gather(te)
     assert ref is not None and got is not None
-    for g, r in zip((got.tab, got.inv_map, got.keep_vec, got.pin_vec), ref):
+    # the reference places the nonzeros by their inverse map, the port at nz
+    inv_map = np.full(got.n * got.n, got.nz.size, dtype=np.int64)
+    inv_map[got.nz] = np.arange(got.nz.size)
+    for g, r in zip((got.tab, inv_map, got.keep_vec, got.pin_vec), ref):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(r))
     monkeypatch.setenv("HOMMX_KC_ASSEMBLY", "sideways")
     with pytest.raises(ValueError):
